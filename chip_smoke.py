@@ -1,0 +1,405 @@
+"""Quickest proof that the PyTorch port runs on an NVIDIA H100.
+
+    python3 chip_smoke.py            # from the repo root; needs one CUDA card
+
+Drives the port only (``src/repro_torch``; no JAX, nothing of ``repro``).
+Phases, in order; any failure raises and the script exits non-zero:
+
+1. env      — torch / CUDA versions, the card's name and power limit; TF32 off.
+2. build    — nvcc builds every CUDA kernel of the port from ``csrc/``.
+3. kernel   — ``masked_adam`` against its plain PyTorch version on the card,
+              at the ResNet-8 shape (1,576 rows) and at 2**20 rows, several
+              masks, steps 1 and 1000; frozen blocks must be bit-exact and the
+              client-stacked launch must equal per-client launches.  Times
+              (CUDA events), the bound and ``torch.optim.Adam(fused=True)``
+              on the same buffers as a yardstick.
+4. fedpart  — the main path: sync FedPart on ResNet-8 at the paper's width,
+              8 iid clients x 500 samples, batch 64, one local epoch, FedAvg,
+              ``fused_adam=True``: 12 FedPart rounds, then the matched FNU
+              baseline's 12.  Every local step must launch the kernel once.
+              Then fused-vs-unfused cross-checks for FedAvg / FedProx / MOON.
+5. profile  — one FNU round under ``torch.profiler``: device time by kernel.
+
+The line before the last carries ``nvidia-smi``'s name and power limit, the
+one before it the ``kernels`` JSON; the last line is the ``ok`` JSON.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (data sheet)
+F32_FLOPS_PER_S = 67e12        # H100 SXM float32, non-tensor-core (data sheet)
+ADAM_FLOPS_PER_ELEM = 12       # two EMAs, bias corrections, sqrt, eps, div, scale, sub
+KERNEL_TOL = 1e-6              # kernel vs plain: same f32 ops, IEEE sqrt/div, no FMA
+CROSS_TOL = 1e-4               # fused vs unfused FL runs at adam_eps=1e-3 (the reference's regime)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int, repeats: int = 5) -> float:
+    """Median over ``repeats`` of the mean CUDA-event time of ``reps`` calls."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+# ---------------------------------------------------------------------------
+# Phases
+# ---------------------------------------------------------------------------
+
+def phase_env() -> str:
+    from repro_torch.device import strict_fp32
+    smi = nvidia_smi()
+    log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
+        f"x{torch.cuda.device_count()}")
+    log(f"[env] nvidia-smi: {smi}")
+    strict_fp32()
+    log(f"[env] tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn={torch.backends.cudnn.allow_tf32}")
+    return smi
+
+
+def phase_build() -> None:
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    libs = build.build_all()
+    log(f"[build] {time.perf_counter() - t0:.2f} s")
+    for name, path in libs.items():
+        log(f"[build] {name}: {os.path.relpath(path, ROOT)}")
+        log_path = path.with_suffix(".log")
+        if log_path.exists():
+            for line in log_path.read_text().splitlines():
+                if line.strip():
+                    log(f"[build]   {line.strip()}")
+
+
+def _bound_ms(trained_elems: int, blocks: int) -> tuple[float, str]:
+    """Least time for one masked step: p, g, m, v read and p, m, v written
+    once per trained element, the mask read once, against the op count."""
+    nbytes = 7 * 4 * trained_elems + 4 * blocks + 16
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ADAM_FLOPS_PER_ELEM * trained_elems / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _check_masked_adam(rows: int, masks: dict, gen: torch.Generator,
+                       br: int = 8) -> float:
+    """Kernel vs plain version for every mask and step 1 / 1000; returns the
+    max abs error over trained blocks.  Frozen blocks must be bit-exact."""
+    from repro_torch.kernels.masked_adam import masked_adam_, masked_adam_ref, ops
+    dev = "cuda"
+    p = torch.randn(rows, 128, device=dev, generator=gen)
+    g = torch.randn(rows, 128, device=dev, generator=gen)
+    m = torch.randn(rows, 128, device=dev, generator=gen) * 0.1
+    v = torch.rand(rows, 128, device=dev, generator=gen) * 0.01
+    worst = 0.0
+    for mname, mask in masks.items():
+        for step in (1, 1000):
+            sc = ops.adam_scalars(torch.tensor(step, device=dev), 1e-3, 0.9,
+                                  0.999, 1e-8)
+            ref = masked_adam_ref(p, g, m, v, mask, sc, block_rows=br)
+            out = (p.clone(), m.clone(), v.clone())
+            masked_adam_(out[0], g, out[1], out[2], mask, sc, block_rows=br)
+            torch.cuda.synchronize()
+            trained = torch.repeat_interleave(mask != 0, br)
+            for name, k, r, x in zip("pmv", out, ref, (p, m, v)):
+                if not torch.equal(k[~trained], x[~trained]):
+                    raise AssertionError(f"masked_adam {rows} rows mask "
+                                         f"{mname} step {step}: frozen {name} changed")
+                if trained.any():
+                    err = (k[trained] - r[trained]).abs()
+                    lim = KERNEL_TOL * torch.clamp(r[trained].abs(), min=1.0)
+                    if bool((err > lim).any()):
+                        raise AssertionError(
+                            f"masked_adam {rows} rows mask {mname} step {step}: "
+                            f"{name} max err {float(err.max()):.3g} > tolerance")
+                    worst = max(worst, float(err.max()))
+    return worst
+
+
+def _check_stacked(rows: int, gen: torch.Generator, clients: int = 4,
+                   br: int = 8) -> None:
+    from repro_torch.kernels.masked_adam import masked_adam_, masked_adam_stacked_, ops
+    dev = "cuda"
+    p = torch.randn(clients, rows, 128, device=dev, generator=gen)
+    g = torch.randn(clients, rows, 128, device=dev, generator=gen)
+    m = torch.zeros_like(p)
+    v = torch.zeros_like(p)
+    bm = torch.randint(0, 2, (clients, rows // br), device=dev, generator=gen,
+                       dtype=torch.int32)
+    sc = ops.adam_scalars(torch.tensor(3, device=dev), 1e-3, 0.9, 0.999, 1e-8)
+    per = [(p[c].clone(), m[c].clone(), v[c].clone()) for c in range(clients)]
+    for c, (pc, mc, vc) in enumerate(per):
+        masked_adam_(pc, g[c], mc, vc, bm[c], sc, block_rows=br)
+    masked_adam_stacked_(p, g, m, v, bm, sc, block_rows=br)
+    torch.cuda.synchronize()
+    for c, (pc, mc, vc) in enumerate(per):
+        if not (torch.equal(p[c], pc) and torch.equal(m[c], mc) and torch.equal(v[c], vc)):
+            raise AssertionError(f"masked_adam_stacked client {c} != per-client launch")
+
+
+def _time_masked_adam(rows: int, mask: torch.Tensor, reps: int,
+                      library: bool, br: int = 8) -> dict:
+    from repro_torch.kernels.masked_adam import masked_adam_, masked_adam_ref, ops
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(rows)
+    p = torch.randn(rows, 128, device=dev, generator=gen)
+    g = torch.randn(rows, 128, device=dev, generator=gen)
+    m = torch.zeros_like(p)
+    v = torch.zeros_like(p)
+    sc = ops.adam_scalars(torch.tensor(1, device=dev), 1e-3, 0.9, 0.999, 1e-8)
+    trained = int(mask.sum()) * br * 128
+    bound, bound_by = _bound_ms(trained, mask.numel())
+    out = {"rows": rows, "trained_blocks": int(mask.sum()), "blocks": mask.numel(),
+           "ms": cuda_ms(lambda: masked_adam_(p, g, m, v, mask, sc, block_rows=br), reps),
+           "plain_ms": cuda_ms(lambda: masked_adam_ref(p, g, m, v, mask, sc,
+                                                       block_rows=br), reps),
+           "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+    if library:
+        param = torch.nn.Parameter(p.clone())
+        param.grad = g
+        opt = torch.optim.Adam([param], lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
+                               fused=True)
+        out["library_ms"] = cuda_ms(opt.step, reps)
+        del opt, param
+    del p, g, m, v
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_kernel() -> dict:
+    from repro_torch.core.aggregation import is_local_stat
+    from repro_torch.fl.tasks import resnet_task
+    from repro_torch.kernels.masked_adam import ops
+    dev = "cuda"
+    br = 8
+    adapter = resnet_task("resnet8", num_classes=20)
+    params = adapter.init(torch.Generator().manual_seed(0))
+    part = adapter.partition(params)
+    rows = ops.packed_rows(params, br)
+    nb = rows // br
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def as_mask(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=dev)
+
+    fnu = as_mask(ops.block_mask_for_group(params, part, tuple(range(part.num_groups)),
+                                           br, exclude=is_local_stat))
+    group8 = as_mask(ops.block_mask_for_group(params, part, 8, br,
+                                              exclude=is_local_stat))
+    rmasks = {"all-on": torch.ones(nb, dtype=torch.int32, device=dev),
+              "all-off": torch.zeros(nb, dtype=torch.int32, device=dev),
+              "random-half": torch.randint(0, 2, (nb,), device=dev, generator=gen,
+                                           dtype=torch.int32),
+              "resnet8-fnu": fnu, "resnet8-group8": group8}
+    worst = _check_masked_adam(rows, rmasks, gen, br)
+    big = 2 ** 20
+    bnb = big // br
+    bmasks = {"all-on": torch.ones(bnb, dtype=torch.int32, device=dev),
+              "all-off": torch.zeros(bnb, dtype=torch.int32, device=dev),
+              "random-half": torch.randint(0, 2, (bnb,), device=dev, generator=gen,
+                                           dtype=torch.int32)}
+    worst = max(worst, _check_masked_adam(big, bmasks, gen, br))
+    _check_stacked(rows, gen)
+    torch.cuda.empty_cache()
+    log(f"[kernel] masked_adam vs plain: max abs err {worst:.3g} on trained "
+        f"blocks (tolerance {KERNEL_TOL:g} x max(1,|ref|)); frozen blocks "
+        f"bit-exact; stacked == per-client launches (rows {rows} and {big})")
+
+    timings = {
+        "resnet8 all-on": _time_masked_adam(rows, rmasks["all-on"], 200, True),
+        "resnet8 fnu": _time_masked_adam(rows, fnu, 200, False),
+        "resnet8 group8": _time_masked_adam(rows, group8, 200, False),
+        "2^20 all-on": _time_masked_adam(big, bmasks["all-on"], 10, True),
+        "2^20 random-half": _time_masked_adam(big, bmasks["random-half"], 10, False),
+    }
+    for name, t in timings.items():
+        lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.6f}"
+        log(f"[kernel] masked_adam {name}: rows {t['rows']} trained blocks "
+            f"{t['trained_blocks']}/{t['blocks']} kernel {t['ms']:.6f} ms "
+            f"plain {t['plain_ms']:.6f} ms bound {t['bound_ms']:.6f} ms "
+            f"({t['bound_by']}) torch.optim.Adam(fused=True) {lib} ms")
+    main = timings["resnet8 all-on"]
+    return {"name": "masked_adam", "route": "cuda",
+            "source": "src/repro_torch/csrc/masked_adam.cu",
+            "replaces": "src/repro/kernels/masked_adam/kernel.py:66",
+            "launches": None, "max_abs_err": worst,
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"]}
+
+
+def _vision_setup(clients: int = 8, per_client: int = 500):
+    from repro_torch.data import (VisionDatasetSpec, balanced_eval_set,
+                                  build_clients, iid_partition, make_vision_dataset)
+    spec = VisionDatasetSpec()
+    x, y = make_vision_dataset(spec, clients * per_client, seed=0)
+    xe, ye = make_vision_dataset(spec, 2000, seed=9)
+    return (build_clients(x, y, iid_partition(len(y), clients, seed=0)),
+            balanced_eval_set(xe, ye, per_class=20))
+
+
+def phase_fedpart() -> int:
+    from repro_torch.core.schedule import FedPartSchedule, matched_fnu
+    from repro_torch.data.pipeline import batch_plan
+    from repro_torch.fl import AlgoConfig, FLRunConfig, resnet_task, run_federated
+    from repro_torch.fl.population import client_round_seed
+    from repro_torch.kernels.masked_adam import masked_adam_
+    from repro_torch.tree import tree_leaves, tree_paths
+
+    clients, eval_set = _vision_setup()
+    adapter = resnet_task("resnet8", num_classes=20)
+    sched = FedPartSchedule(num_groups=10, warmup_rounds=2, rounds_per_layer=1,
+                            cycles=1)
+    runs = {"fedpart": sched.rounds(), "fnu": matched_fnu(sched).rounds()}
+    cfg = FLRunConfig(local_epochs=1, batch_size=64, algo=AlgoConfig("fedavg"),
+                      fused_adam=True, device="cuda")
+    expected = sum(len(batch_plan(len(clients[c]), cfg.batch_size,
+                                  cfg.local_epochs,
+                                  client_round_seed(cfg.seed, s.index, c)))
+                   for rounds in runs.values() for s in rounds
+                   for c in range(len(clients)))
+
+    masked_adam_.launches = 0
+    results = {name: run_federated(adapter, clients, eval_set, rounds, cfg)
+               for name, rounds in runs.items()}
+    torch.cuda.synchronize()
+    launches = masked_adam_.launches
+
+    for name, res in results.items():
+        for h in res.history:
+            log(f"[fedpart] {name} round {h['round']:2d} [{h['phase']}:{h['group']:3d}] "
+                f"loss {h['loss']:.6f} acc {h['acc']:.4f} {h['seconds']:.4f} s")
+        secs = [h["seconds"] for h in res.history]
+        log(f"[fedpart] {name}: comm {res.comm_total_bytes} B (FNU "
+            f"{res.comm_fnu_bytes} B) comp {res.comp_total_flops:.0f} (FNU "
+            f"{res.comp_fnu_flops:.0f}) seconds/round mean {statistics.mean(secs):.4f} "
+            f"median {statistics.median(secs):.4f} first {secs[0]:.4f} "
+            f"final acc {res.final_acc:.4f}")
+        losses = [h["loss"] for h in res.history]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{name}: non-finite loss {losses}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"{name}: loss did not fall ({losses[0]} -> {losses[-1]})")
+        init = adapter.init(torch.Generator().manual_seed(cfg.seed))
+        for (path, a), b in zip(tree_paths(res.params), tree_leaves(init)):
+            if a.shape != b.shape or not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"{name}: param {'/'.join(path)} bad")
+    log(f"[fedpart] masked_adam launches {launches}, local steps {expected}")
+    if launches != expected:
+        raise AssertionError(f"kernel launches {launches} != local steps {expected}")
+
+    # Cross-checks: fused == unfused on the card (warm-up FNU + one partial).
+    short = FedPartSchedule(num_groups=10, warmup_rounds=1, rounds_per_layer=1,
+                            cycles=1).rounds()[:2]
+    for algo in ("fedavg", "fedprox", "moon"):
+        out = {}
+        for fused in (True, False):
+            c = FLRunConfig(local_epochs=1, batch_size=64, adam_eps=1e-3,
+                            algo=AlgoConfig(algo), fused_adam=fused, device="cuda")
+            out[fused] = run_federated(adapter, clients, eval_set, short, c)
+        diff = max(float((a - b).abs().max()) for a, b in
+                   zip(tree_leaves(out[True].params), tree_leaves(out[False].params)))
+        ldiff = max(abs(a["loss"] - b["loss"]) for a, b in
+                    zip(out[True].history, out[False].history))
+        log(f"[fedpart] cross-check {algo}: fused vs unfused max param diff "
+            f"{diff:.3g}, max loss diff {ldiff:.3g} (tolerance {CROSS_TOL:g}), "
+            f"losses {[round(h['loss'], 6) for h in out[True].history]}")
+        if not (diff <= CROSS_TOL and ldiff <= CROSS_TOL):
+            raise AssertionError(f"{algo}: fused and unfused disagree")
+        if not all(math.isfinite(h["loss"]) for h in out[True].history):
+            raise AssertionError(f"{algo}: non-finite fused loss")
+    return launches
+
+
+def phase_profile() -> None:
+    """Device time by kernel over one main-path FNU round (warm)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.schedule import FNUSchedule
+    from repro_torch.fl import AlgoConfig, FLRunConfig, resnet_task, run_federated
+
+    clients, eval_set = _vision_setup()
+    adapter = resnet_task("resnet8", num_classes=20)
+    rounds = FNUSchedule(total=1).rounds()
+    cfg = FLRunConfig(local_epochs=1, batch_size=64, algo=AlgoConfig("fedavg"),
+                      fused_adam=True, device="cuda")
+    run_federated(adapter, clients, eval_set, rounds, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_federated(adapter, clients, eval_set, rounds, cfg)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(getattr(e, "self_device_time_total", 0.0) for e in kernels)
+    if dev_us <= 0:
+        log("[profile] the profiler recorded no device time: not measured")
+        return
+    log(f"[profile] one FNU round, 8 clients x 7 steps: wall {wall_us / 1e3:.3f} ms "
+        f"(under the profiler), device busy {dev_us / 1e3:.3f} ms "
+        f"({100 * dev_us / wall_us:.1f}%), {sum(e.count for e in kernels)} kernel launches")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x "
+            f"{e.key[:100]}")
+    for e in kernels:
+        if "masked_adam" in e.key:
+            log(f"[profile] masked_adam_kernel on the main path: {e.count} launches, "
+                f"{e.self_device_time_total / e.count:.3f} us device time each, "
+                f"{100 * e.self_device_time_total / dev_us:.2f}% of device busy")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device; this script needs one "
+              "card", file=sys.stderr)
+        return 2
+    smi = phase_env()
+    phase_build()
+    row = phase_kernel()
+    row["launches"] = phase_fedpart()
+    phase_profile()
+    print(json.dumps({"kernels": [row]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,200 @@
+"""Server orchestration: the synchronous FedPart / FNU round loop (port of
+``repro.fl.server``, ``runtime="sync"``).
+
+Per round: select the trainable group from the schedule, train the sampled
+clients locally, average exactly the transmitted parameters (the full
+network on FNU rounds, the trainable group's subtree on partial rounds; BN
+running statistics never travel), evaluate the global model on the balanced
+set, and book communication / computation costs.  The host-side draws
+(cohort sampling from ``np.random.default_rng(seed)``, per-(round, client)
+seeds) are the reference's, in the same order, so a run given the
+reference's initial parameters replays the reference's batches exactly.
+
+Everything runs on ``FLRunConfig.device`` — ``"cuda"`` unless the caller
+asks for ``"cpu"`` — and a CUDA device without a card raises.  Options that
+need a module not yet ported raise ``NotImplementedError`` naming the
+ROADMAP item that brings them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.costs import comm_cost, comp_cost
+from repro_torch.core.partition import Partition, group_param_counts
+from repro_torch.core.schedule import PlanAssigner, RoundSpec
+from repro_torch.device import resolve_device, strict_fp32
+from repro_torch.fl.algorithms import AlgoConfig
+from repro_torch.fl.batched import make_engine
+from repro_torch.fl.client import LocalTrainer
+from repro_torch.fl.population import (ClientStateStore, MaterializedPopulation,
+                                       as_population, client_round_seed,
+                                       resolve_cohort_size,
+                                       sample_without_replacement)
+from repro_torch.fl.tasks import TaskAdapter
+from repro_torch.optim.adam import AdamConfig
+from repro_torch.tree import PyTree, tree_map
+
+RUNTIMES = ("sync",)
+
+
+@dataclasses.dataclass(frozen=True)
+class FLRunConfig:
+    local_epochs: int = 8
+    batch_size: int = 32
+    lr: float = 1e-3
+    adam_eps: float = 1e-8
+    algo: AlgoConfig = AlgoConfig()
+    sample_fraction: float = 1.0    # participation fraction per round
+    cohort_size: int = 0            # explicit clients per round (0 = use fraction)
+    seed: int = 0
+    eval_every: int = 1
+    eval_batch: int = 256
+    engine: str = "sequential"
+    fused_adam: bool = False        # masked-Adam CUDA kernel local steps
+    compression: str = "none"
+    plan: str = "homogeneous"       # "homogeneous" | "nested" | "random"
+    capacity_tiers: tuple[float, ...] = ()
+    state_store_entries: int = 0    # 0 = unbounded (the only ported form)
+    state_store_spill: str = ""
+    runtime: str = "sync"
+    device: str = "cuda"            # "cuda" | "cuda:N" | "cpu"; no fallback
+
+    def __post_init__(self):
+        if not 0.0 < self.sample_fraction <= 1.0:
+            raise ValueError(
+                f"sample_fraction must be in (0, 1], got {self.sample_fraction}")
+        if self.cohort_size < 0:
+            raise ValueError(f"cohort_size must be >= 0, got {self.cohort_size}")
+        if self.runtime == "async":
+            raise NotImplementedError(
+                "runtime='async' needs fl/runtime, not ported yet (ROADMAP "
+                "Queue 1 item 10)")
+        if self.runtime not in RUNTIMES:
+            raise ValueError(
+                f"unknown runtime {self.runtime!r}; expected one of {RUNTIMES}")
+        if self.compression != "none":
+            raise NotImplementedError(
+                f"compression={self.compression!r} needs core/compress.py, "
+                "not ported yet (ROADMAP Queue 1 item 8)")
+        resolve_device(self.device)
+
+    def make_state_store(self) -> ClientStateStore:
+        return ClientStateStore(max_entries=self.state_store_entries,
+                                spill_dir=self.state_store_spill or None)
+
+
+@dataclasses.dataclass
+class FLResult:
+    history: list[dict]
+    params: PyTree
+    partition: Partition
+    comm_total_bytes: int
+    comp_total_flops: float
+    comm_fnu_bytes: int
+    comp_fnu_flops: float
+
+    @property
+    def best_acc(self) -> float:
+        accs = [h["acc"] for h in self.history if "acc" in h]
+        return max(accs) if accs else float("nan")
+
+    @property
+    def final_acc(self) -> float:
+        accs = [h["acc"] for h in self.history if "acc" in h]
+        return accs[-1] if accs else float("nan")
+
+
+def run_federated(
+    adapter: TaskAdapter,
+    clients_data: Sequence,
+    eval_set: tuple[np.ndarray, np.ndarray],
+    rounds: Sequence[RoundSpec],
+    run_cfg: FLRunConfig,
+    *,
+    init_params: PyTree | None = None,
+    verbose: bool = False,
+) -> FLResult:
+    """Run the federation.  ``init_params`` (a tree of tensors or numpy
+    arrays, e.g. the reference's initial parameters bridged over numpy) is
+    copied to the run's device; without it the adapter draws its initial
+    parameters from a ``torch.Generator`` seeded with ``run_cfg.seed``.
+    Each history entry also records the round's host ``seconds``."""
+    device = resolve_device(run_cfg.device)
+    if device.type == "cuda":
+        strict_fp32()
+    if init_params is None:
+        init_params = adapter.init(torch.Generator().manual_seed(run_cfg.seed))
+    params = tree_map(lambda a: torch.as_tensor(a).to(device, copy=True),
+                      init_params)
+    partition = adapter.partition(params)
+    trainer = LocalTrainer(adapter=adapter, partition=partition,
+                           algo=run_cfg.algo,
+                           adam=AdamConfig(lr=run_cfg.lr, eps=run_cfg.adam_eps))
+    state_store = run_cfg.make_state_store()
+    engine = make_engine(run_cfg.engine, trainer=trainer, partition=partition,
+                         algo=run_cfg.algo, fused_adam=run_cfg.fused_adam)
+    assigner = PlanAssigner(
+        num_groups=partition.num_groups, kind=run_cfg.plan,
+        capacity_tiers=tuple(run_cfg.capacity_tiers), seed=run_cfg.seed)
+    rng = np.random.default_rng(run_cfg.seed)
+    eval_x = torch.as_tensor(eval_set[0][: run_cfg.eval_batch], device=device)
+    eval_y = torch.as_tensor(eval_set[1][: run_cfg.eval_batch], device=device)
+    history: list[dict] = []
+    is_moon = run_cfg.algo.name == "moon"
+
+    population = as_population(clients_data)
+    if not isinstance(population, MaterializedPopulation):
+        raise NotImplementedError(
+            "streaming ClientPopulation (fl/population/synthetic.py) is not "
+            "ported yet (ROADMAP Queue 1 item 9); pass a list of "
+            "ClientDataset")
+    n_clients = population.num_clients
+    for spec in rounds:
+        t0 = time.perf_counter()
+        n_pick = resolve_cohort_size(n_clients, run_cfg.sample_fraction,
+                                     run_cfg.cohort_size)
+        picked = sample_without_replacement(rng, n_clients, n_pick)
+        datasets = [population.dataset(ci) for ci in picked]
+        seeds = [client_round_seed(run_cfg.seed, spec.index, ci) for ci in picked]
+        weights = [len(d) for d in datasets]
+        prevs = ([state_store.get("moon", int(ci)) for ci in picked]
+                 if is_moon else None)
+
+        params, losses, new_locals = engine.run_round(
+            params, spec, datasets, seeds=seeds, weights=weights,
+            epochs=run_cfg.local_epochs, batch_size=run_cfg.batch_size,
+            prev_params=prevs,
+            plan=assigner.assign(spec, [int(ci) for ci in picked]))
+        if new_locals is not None:
+            for ci, local in zip(picked, new_locals):
+                state_store.put("moon", int(ci), local)
+
+        entry = {"round": spec.index, "phase": spec.phase, "group": spec.group,
+                 "loss": float(np.mean(losses))}
+        if spec.index % run_cfg.eval_every == 0 or spec.index == len(rounds) - 1:
+            entry["acc"] = float(adapter.evaluate(params, eval_x, eval_y))
+        entry["seconds"] = time.perf_counter() - t0
+        history.append(entry)
+        if verbose:
+            print(f"round {spec.index:3d} [{spec.phase}:{spec.group:3d}] "
+                  f"loss={entry['loss']:.4f} acc={entry.get('acc', float('nan')):.4f}")
+
+    # Cost bookkeeping (per client, per the paper's Comm./Comp. metrics).
+    group_weights = group_param_counts(params, partition).astype(np.float64)
+    comm = comm_cost(params, partition, rounds)
+    comp = comp_cost(partition, rounds, group_fwd_flops=group_weights)
+    return FLResult(
+        history=history,
+        params=params,
+        partition=partition,
+        comm_total_bytes=comm.total_bytes,
+        comp_total_flops=float(comp.total_flops),
+        comm_fnu_bytes=comm.fnu_total_bytes,
+        comp_fnu_flops=float(comp.fnu_total_flops),
+    )

@@ -1,0 +1,88 @@
+"""Task adapters: bind a model family to the interface the FL engine
+consumes (port of ``repro.fl.tasks``, the ResNet vision task).
+
+    adapter.init(gen)                              -> params (CPU tensors)
+    adapter.loss_and_stats(params, inputs, labels) -> (task loss, BN stats or None)
+    adapter.features(params, inputs)               -> (B, d) penultimate features (MOON)
+    adapter.evaluate(params, inputs, labels)       -> accuracy (0-d tensor)
+    adapter.partition(params)                      -> core.Partition (Appendix-A groups)
+
+The reference has separate ``loss`` and ``stats`` functions and lets XLA
+merge their two forward passes; eager PyTorch would run both, so the port
+returns the loss and the BN-stat updates from one forward.  The nlp task
+waits for ``models/nlp_small.py`` (ROADMAP Queue 1 item 4).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.core.partition import Partition, build_partition
+from repro_torch.models import resnet
+from repro_torch.tree import PyTree
+
+
+@dataclasses.dataclass(frozen=True)
+class TaskAdapter:
+    name: str
+    init: Callable[[torch.Generator], PyTree]
+    loss_and_stats: Callable[[PyTree, torch.Tensor, torch.Tensor],
+                             tuple[torch.Tensor, PyTree | None]]
+    features: Callable[[PyTree, torch.Tensor], torch.Tensor]
+    evaluate: Callable[[PyTree, torch.Tensor, torch.Tensor], torch.Tensor]
+    partition: Callable[[PyTree], Partition]
+    flops_per_sample: float = 0.0
+
+
+def _conv_flops(spec: dict[str, Any], image_size: int = 32) -> float:
+    """Rough per-sample forward matmul FLOPs for the cost model."""
+    total, hw, cin = 0.0, image_size * image_size, 3
+    for stage, (n_blocks, cout) in enumerate(zip(spec["stages"], spec["channels"])):
+        for b in range(n_blocks):
+            if stage > 0 and b == 0:
+                hw /= 4
+            total += 2 * 9 * cin * cout * hw + 2 * 9 * cout * cout * hw
+            cin = cout
+    return total
+
+
+_RESNET_SPECS = {
+    "resnet4": resnet.RESNET4,   # test-scale: same BN/shortcut structure
+    "resnet8": resnet.RESNET8,
+    "resnet18": resnet.RESNET18,
+}
+
+
+def resnet_task(depth: str = "resnet8", num_classes: int = 20) -> TaskAdapter:
+    spec = _RESNET_SPECS[depth]
+
+    def init(gen):
+        return resnet.resnet_init(gen, spec, num_classes)
+
+    def loss_and_stats(params, images, labels):
+        logits, upd = resnet.resnet_apply(params, images, train=True)
+        return resnet.cls_loss(logits, labels), upd
+
+    def evaluate(params, images, labels):
+        # Batch-statistics mode: BN running stats are client-local and never
+        # aggregated (paper §4), so the global model is scored with batch
+        # stats on the balanced eval set (deterministic given the set).
+        with torch.no_grad():
+            logits, _ = resnet.resnet_apply(params, images, train=True)
+            return resnet.accuracy(logits, labels)
+
+    def make_partition(params):
+        return build_partition(params, resnet.resnet_group_key, resnet.resnet_order_key)
+
+    return TaskAdapter(
+        name=depth,
+        init=init,
+        loss_and_stats=loss_and_stats,
+        features=resnet.resnet_features,
+        evaluate=evaluate,
+        partition=make_partition,
+        flops_per_sample=_conv_flops(spec),
+    )

@@ -1,0 +1,11 @@
+"""Hand-written Hopper kernels, each the port of one Pallas TPU kernel of
+``repro.kernels``.
+
+- ``masked_adam``: fused Eq.-1 masked Adam (block-skip on frozen groups),
+  CUDA C++ in ``csrc/masked_adam.cu``.
+
+Each kernel package ships ``kernel.py`` (the wrapper: checks, launch, launch
+count), ``ref.py`` (the plain PyTorch version the CPU takes and the tests
+hold the kernel against) and ``ops.py`` (layout helpers).  ``build.py``
+compiles the CUDA sources with nvcc at first use.
+"""
