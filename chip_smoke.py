@@ -6,7 +6,8 @@ Drives the port only (``src/repro_torch``; no JAX, nothing of ``repro``).
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. env      — torch / CUDA versions, the card's name and power limit; TF32 off.
-2. build    — nvcc builds every CUDA kernel of the port from ``csrc/``.
+2. build    — nvcc builds every CUDA kernel of the port from ``csrc/``
+              (``masked_adam`` and ``flash_attention``, in parallel).
 3. kernel   — ``masked_adam`` against its plain PyTorch version on the card,
               at the ResNet-8 shape (1,576 rows) and at 2**20 rows, several
               masks, steps 1 and 1000; frozen blocks must be bit-exact and the
@@ -19,6 +20,20 @@ Phases, in order; any failure raises and the script exits non-zero:
               baseline's 12.  Every local step must launch the kernel once.
               Then fused-vs-unfused cross-checks for FedAvg / FedProx / MOON.
 5. profile  — one FNU round under ``torch.profiler``: device time by kernel.
+6. flash    — ``flash_attention`` against its plain PyTorch version on the
+              card: the reference's seven cases and four ragged ones, f32
+              and bf16, and TinyLlama's prefill layer (B 4, H 32, Hkv 4,
+              S 4,096, D 64, bf16) causal and with a 1,024 window, each
+              element and each output row held to its limit.  Times
+              (CUDA events) at that layer, its bound, and
+              ``F.scaled_dot_product_attention`` as a yardstick.
+7. serve    — the serving path: ``serve_session`` on tinyllama-1.1b at full
+              width, bf16, random weights from a seed, B 4 x 4,096 prompt,
+              32 greedy tokens; every prefill layer must launch the flash
+              kernel once (22).  One prefill under ``torch.profiler``.  Then
+              the f32 cross-check: kernel vs plain prefill attention at full
+              width (B 4 x 512, 4 tokens, TF32 off), every step's logits
+              within 1e-3 and the same tokens.
 
 The line before the last carries ``nvidia-smi``'s name and power limit, the
 one before it the ``kernels`` JSON; the last line is the ``ok`` JSON.
@@ -42,9 +57,45 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (data sheet)
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32, non-tensor-core (data sheet)
+BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense (data sheet)
 ADAM_FLOPS_PER_ELEM = 12       # two EMAs, bias corrections, sqrt, eps, div, scale, sub
 KERNEL_TOL = 1e-6              # kernel vs plain: same f32 ops, IEEE sqrt/div, no FMA
 CROSS_TOL = 1e-4               # fused vs unfused FL runs at adam_eps=1e-3 (the reference's regime)
+# flash kernel vs plain, per element: |k - p| <= tol + tol*|p|; f32 is the
+# reference's own kernel-vs-oracle tolerance, bf16 its test_dtypes tolerance
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# and per output row (b, h, query): ||k - p|| / ||p|| over D.  In bf16 the
+# per-element limit is as large as a typical output at S 4,096 (|o| ~ 0.03),
+# so it cannot see a dropped, doubled or stale K/V tile; the row limit can.
+# A sound bf16 kernel differs from the plain version by P rounded to bf16
+# (<= 2^-8 relative per probability, of random sign) and the output's bf16
+# rounding (<= 2^-7 relative): a few 1e-3 of the row's norm.  One wrong tile
+# of 64 among n kept keys moves a row by about sqrt(64 / n) of its norm
+# (0.125 at n = 4,096).  f32 keeps its element tolerance.
+FLASH_ROW_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+# tests/test_kernels_flash.py CASES: (b, h, hkv, sq, skv, d, causal, window)
+FLASH_CASES = [
+    (1, 2, 2, 128, 128, 64, True, 0),
+    (2, 4, 2, 256, 256, 64, True, 0),
+    (1, 4, 1, 128, 256, 128, True, 0),
+    (1, 2, 2, 128, 384, 64, False, 0),
+    (2, 2, 2, 256, 256, 32, True, 64),
+    (1, 2, 2, 128, 128, 96, True, 0),
+    (1, 2, 2, 192, 192, 64, True, 0),
+]
+# shapes those cases miss: lengths not multiples of the 64-row tiles,
+# Sq != Skv both ways, GQA 3:1 with a window; every row keeps at least one key
+FLASH_EXTRA = [
+    (1, 4, 2, 100, 77, 32, False, 0),
+    (2, 3, 1, 130, 130, 96, True, 50),
+    (1, 2, 2, 70, 200, 128, True, 0),
+    (1, 2, 1, 200, 70, 64, True, 0),
+]
+# tinyllama-1.1b's prefill attention at the serve phase's prompt: B 4, H 32,
+# Hkv 4, S 4,096, D 64, bf16
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 4096, 32
+TINYLLAMA_ATTN = (SERVE_BATCH, 32, 4, SERVE_PROMPT, SERVE_PROMPT, 64)
+SERVE_CROSS_TOL = 1e-3         # f32 full width, kernel vs plain attention, TF32 off
 
 
 def log(msg: str) -> None:
@@ -263,6 +314,107 @@ def phase_kernel() -> dict:
             "library_ms": main["library_ms"]}
 
 
+def _flash_qkv(b, h, hkv, sq, skv, d, dtype, gen):
+    """q, k, v in the model's (B, S, heads, D) layout, as the main path
+    hands them to ``ops.flash_attention``."""
+    dev = "cuda"
+    q = torch.randn(b, sq, h, d, device=dev, generator=gen).to(dtype)
+    k = torch.randn(b, skv, hkv, d, device=dev, generator=gen).to(dtype)
+    v = torch.randn(b, skv, hkv, d, device=dev, generator=gen).to(dtype)
+    return q, k, v
+
+
+def _flash_check(case, dtype, gen) -> tuple[float, float]:
+    """Kernel vs plain version on one case; returns the max abs error and
+    the max row error over the row's norm."""
+    from repro_torch.kernels.flash_attention import ops
+    b, h, hkv, sq, skv, d, causal, window = case
+    q, k, v = _flash_qkv(b, h, hkv, sq, skv, d, dtype, gen)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    ref = ops.attention_reference(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    if out.dtype != dtype or out.shape != q.shape:
+        raise AssertionError(f"flash {case} {dtype}: out {out.dtype} {tuple(out.shape)}")
+    diff = out.float() - ref.float()
+    err = diff.abs()
+    tol = FLASH_TOL[dtype]
+    bad = err > tol + tol * ref.float().abs()
+    row = float((diff.norm(dim=-1) / ref.float().norm(dim=-1).clamp_min(1e-30)).max())
+    if not bool(torch.isfinite(out.float()).all()) or bool(bad.any()):
+        raise AssertionError(f"flash {case} {dtype}: max abs err {float(err.max()):.3g} "
+                             f"beyond tolerance {tol:g} (abs + rel)")
+    if not row <= FLASH_ROW_TOL[dtype]:
+        raise AssertionError(f"flash {case} {dtype}: max row error {row:.3g} beyond "
+                             f"{FLASH_ROW_TOL[dtype]:g} of the row's norm")
+    return float(err.max()), row
+
+
+def _flash_bound_ms(b, h, hkv, sq, skv, d, causal, window, dtype) -> tuple[float, str]:
+    """Least time for one call: 4·D FLOPs per kept (query, key) pair and
+    head, counted from this call's masks, against q, k, v read and o
+    written once."""
+    qi = torch.arange(sq)[:, None]
+    kj = torch.arange(skv)[None, :]
+    keep = torch.ones(sq, skv, dtype=torch.bool)
+    if causal:
+        keep &= kj <= qi
+    if window > 0:
+        keep &= kj > qi - window
+    flops = 4 * b * h * d * int(keep.sum())
+    elem = torch.finfo(dtype).bits // 8
+    nbytes = elem * b * d * (2 * h * sq + 2 * hkv * skv)
+    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_flash() -> dict:
+    """The flash kernel against its plain version: the reference's seven
+    cases and four ragged ones in f32 and bf16, TinyLlama's prefill layer
+    causal and with a 1,024 window; then times at TinyLlama's shape (kernel, plain version,
+    ``F.scaled_dot_product_attention`` as the library yardstick)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        errs = [_flash_check(c, dtype, gen) for c in FLASH_CASES + FLASH_EXTRA]
+        err, row = max(e for e, _ in errs), max(r for _, r in errs)
+        worst = max(worst, err)
+        log(f"[flash] 7 reference cases + {len(FLASH_EXTRA)} ragged {str(dtype)[6:]}: "
+            f"max abs err {err:.3g} (tolerance {FLASH_TOL[dtype]:g} abs + rel), "
+            f"max row err {row:.3g} of the row's norm (limit {FLASH_ROW_TOL[dtype]:g})")
+    b, h, hkv, s, _, d = TINYLLAMA_ATTN
+    for window in (0, 1024):
+        err, row = _flash_check((b, h, hkv, s, s, d, True, window), torch.bfloat16, gen)
+        worst = max(worst, err)
+        log(f"[flash] tinyllama layer B{b} H{h} Hkv{hkv} S{s} D{d} bf16 causal "
+            f"window {window}: max abs err {err:.3g} (tolerance "
+            f"{FLASH_TOL[torch.bfloat16]:g} abs + rel), max row err {row:.3g} of the "
+            f"row's norm (limit {FLASH_ROW_TOL[torch.bfloat16]:g})")
+        torch.cuda.empty_cache()
+
+    q, k, v = _flash_qkv(b, h, hkv, s, s, d, torch.bfloat16, gen)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True), 5)
+    plain_ms = cuda_ms(lambda: ops.attention_reference(q, k, v, causal=True), 2, 3)
+    torch.cuda.empty_cache()
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), 10)
+    bound, bound_by = _flash_bound_ms(b, h, hkv, s, s, d, True, 0, torch.bfloat16)
+    log(f"[flash] tinyllama layer B{b} H{h} Hkv{hkv} S{s} D{d} bf16 causal: "
+        f"kernel {ms:.6f} ms plain {plain_ms:.6f} ms "
+        f"F.scaled_dot_product_attention {library_ms:.6f} ms bound {bound:.6f} ms "
+        f"({bound_by}; {100 * bound / ms:.2f}% of it)")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:99",
+            "launches": None, "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": library_ms}
+
+
 def _vision_setup(clients: int = 8, per_client: int = 500):
     from repro_torch.data import (VisionDatasetSpec, balanced_eval_set,
                                   build_clients, iid_partition, make_vision_dataset)
@@ -383,6 +535,107 @@ def phase_profile() -> None:
                 f"{100 * e.self_device_time_total / dev_us:.2f}% of device busy")
 
 
+def _serve_profile(cfg, params, prompt) -> None:
+    """Device time by kernel over one warm prefill (under torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import steps
+    prefill = steps.make_prefill_step(cfg, impl="kernel")
+    with torch.inference_mode():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            logits, cache = prefill(params, prompt)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    del logits, cache
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(getattr(e, "self_device_time_total", 0.0) for e in kernels)
+    if dev_us <= 0:
+        log("[serve] the profiler recorded no device time: not measured")
+        return
+    log(f"[serve] profile of one prefill: wall {wall_us / 1e3:.3f} ms (under the "
+        f"profiler), device busy {dev_us / 1e3:.3f} ms ({100 * dev_us / wall_us:.1f}%), "
+        f"{sum(e.count for e in kernels)} kernel launches")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"[serve]   {e.self_device_time_total / 1e3:9.3f} ms "
+            f"({100 * e.self_device_time_total / dev_us:5.1f}%) {e.count:5d}x {e.key[:90]}")
+
+
+def phase_serve() -> int:
+    """The serving path: ``serve_session`` on tinyllama-1.1b at full width,
+    bf16, random weights from a seed, B 4 × 4,096 prompt, 32 tokens, every
+    prefill attention through the flash kernel (22 launches, one per layer).
+    Then the same config in f32 (TF32 off), prompt 512, 4 tokens: the kernel
+    path against plain attention, every step's logits within
+    ``SERVE_CROSS_TOL``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.launch.serve import serve_session
+    from repro_torch.models import api
+    from repro_torch.models.api import InputShape
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("tinyllama-1.1b")
+    b, s, g = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = api.init(gen, cfg, "cuda")
+    prompt = api.synth_batch(gen, cfg, InputShape("serve", s, b, "prefill"), "cuda")
+    n_params = sum(int(x.numel()) for x in tree_leaves(params))
+    log(f"[serve] {cfg.name} full: {cfg.num_layers} layers d_model {cfg.d_model} "
+        f"heads {cfg.num_heads}/{cfg.num_kv_heads} d_ff {cfg.d_ff} vocab "
+        f"{cfg.vocab_size} {cfg.param_dtype}, {n_params} params")
+    # warm-up at full width (cuBLAS handles, kernel loads), then the counted run
+    serve_session(cfg, b, 256, 2, device="cuda", params=params, verbose=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    flash_attention_kernel.launches = 0
+    res = serve_session(cfg, b, s, g, device="cuda", params=params, prompt=prompt,
+                        verbose=False)
+    torch.cuda.synchronize()
+    launches = flash_attention_kernel.launches
+
+    toks = res.tokens
+    decoded = b * (g - 1)
+    log(f"[serve] prefill {b}x{s}: {res.prefill_seconds:.6f} s "
+        f"({b * s / res.prefill_seconds:.1f} prompt tokens/s); decode {g - 1} "
+        f"steps x batch {b} = {decoded} tokens in {res.decode_seconds:.6f} s: "
+        f"{decoded / res.decode_seconds:.3f} tokens/s, "
+        f"{1e3 * res.decode_seconds / (g - 1):.3f} ms per step; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    log(f"[serve] tokens[0] {toks[0].tolist()}")
+    log(f"[serve] flash_attention launches {launches} (one per layer: {cfg.num_layers})")
+    if launches != cfg.num_layers:
+        raise AssertionError(f"flash launches {launches} != layers {cfg.num_layers}")
+    if toks.shape != (b, g) or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+        raise AssertionError(f"bad tokens {tuple(toks.shape)}")
+    for i, x in enumerate(res.logits):
+        if x.shape != (b, 1, cfg.vocab_size) or not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"step {i}: logits {tuple(x.shape)} not finite")
+    _serve_profile(cfg, params, prompt)
+    del params, prompt, res
+    torch.cuda.empty_cache()
+
+    cfg32 = cfg.with_(param_dtype="float32", activation_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = api.init(gen, cfg32, "cuda")
+    prompt = api.synth_batch(gen, cfg32, InputShape("serve", 512, b, "prefill"), "cuda")
+    out = {impl: serve_session(cfg32, b, 512, 4, device="cuda", params=params,
+                               prompt=prompt, impl=impl, verbose=False)
+           for impl in ("kernel", "plain")}
+    diffs = [float((k - p).abs().max())
+             for k, p in zip(out["kernel"].logits, out["plain"].logits)]
+    same = torch.equal(out["kernel"].tokens, out["plain"].tokens)
+    log(f"[serve] f32 cross-check B{b} prompt 512 gen 4, kernel vs plain attention: "
+        f"max abs logit diff per step {[f'{d:.3g}' for d in diffs]} (tolerance "
+        f"{SERVE_CROSS_TOL:g}); tokens equal: {same}")
+    if max(diffs) > SERVE_CROSS_TOL or not same:
+        raise AssertionError("f32 serve: kernel and plain attention disagree")
+    del params, prompt, out
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script needs one "
@@ -390,10 +643,12 @@ def main() -> int:
         return 2
     smi = phase_env()
     phase_build()
-    row = phase_kernel()
-    row["launches"] = phase_fedpart()
+    adam = phase_kernel()
+    adam["launches"] = phase_fedpart()
     phase_profile()
-    print(json.dumps({"kernels": [row]}))
+    flash = phase_flash()
+    flash["launches"] = phase_serve()
+    print(json.dumps({"kernels": [adam, flash]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,8 +8,13 @@ reference's keys and shapes (HWIO convs, ``(in, out)`` heads), flattened in
 sorted-key order (``repro_torch.tree``), so partitions, pack layouts and
 block masks are identical across the two packages.
 
-Entry points run on the card unless the caller asks for the CPU
-(``FLRunConfig(device="cpu")``, as the tests do).  The fused local Adam step
-is a hand-written CUDA kernel (``kernels/masked_adam``, source
-``csrc/masked_adam.cu``) built with nvcc at first use.
+Two slices run on the card so far: the sync FedPart loop (``fl``), whose
+fused local Adam step is a hand-written CUDA kernel (``kernels/masked_adam``,
+``csrc/masked_adam.cu``), and serving of dense GQA decoders
+(``launch/serve.py`` on ``models/``, ``configs/``), whose prefill attention
+is a second one (``kernels/flash_attention``, ``csrc/flash_attention.cu``).
+Both are built with nvcc at first use.  Entry points (``fl``, ``launch``)
+run on the card unless the caller asks for the CPU (``device="cpu"``, as the
+tests do); the model builders under them (``models.api.init``,
+``cache_init``, ``synth_batch``) take the device as a required argument.
 """

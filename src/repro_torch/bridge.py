@@ -7,6 +7,12 @@
 * ``load_npz`` — reads a ``.npz`` written by the reference's
   ``checkpoint.io.save_pytree``, whose keys are the leaf paths joined with
   ``##``, into a nested dict of numpy arrays.
+
+bfloat16 has no numpy dtype of its own: JAX hands out ``ml_dtypes.bfloat16``
+arrays, which ``torch.tensor`` refuses and ``Tensor.numpy()`` cannot make.
+Such leaves cross as their raw 16-bit words (``int16`` views on both
+sides), so no value is rounded on the way.  The port itself does not need
+``ml_dtypes``: only ``to_numpy_tree`` imports it, and only for a bf16 leaf.
 """
 
 from __future__ import annotations
@@ -19,12 +25,28 @@ from repro_torch.tree import PyTree, tree_from_paths, tree_map
 _SEP = "##"
 
 
+def _to_tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        return bits.view(torch.bfloat16).to(device)
+    return torch.tensor(a, device=device)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.contiguous().view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
 def from_numpy_tree(tree: PyTree, device: str | torch.device = "cpu") -> PyTree:
-    return tree_map(lambda a: torch.tensor(np.asarray(a), device=device), tree)
+    return tree_map(lambda a: _to_tensor(a, device), tree)
 
 
 def to_numpy_tree(tree: PyTree) -> PyTree:
-    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+    return tree_map(_to_numpy, tree)
 
 
 def load_npz(path: str) -> PyTree:

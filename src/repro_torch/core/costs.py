@@ -42,7 +42,7 @@ def comm_cost(
     if compression is not None:
         raise NotImplementedError(
             "compressed wire sizes need core/compress.py, not yet ported "
-            "(ROADMAP Queue 1 item 8)")
+            "(ROADMAP Queue 1 item 10)")
     group_bytes = group_param_bytes(params, partition)
     full = int(group_bytes.sum())
     per_round = np.array(

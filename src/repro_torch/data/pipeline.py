@@ -5,7 +5,7 @@ the global model on a balanced set).
 A numpy-only copy of ``repro.data.pipeline``, value-identical.  The
 sequential engine is the only consumer so far; ``stack_client_batches``
 (the vmap engine's pad-and-mask stacking) arrives with that engine
-(ROADMAP Queue 1 item 7).
+(ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations

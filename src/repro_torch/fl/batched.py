@@ -75,7 +75,7 @@ class SequentialEngine:
             raise NotImplementedError(
                 "heterogeneous per-client layer plans need the plan paths "
                 "(aggregate_plan, plan steps), not ported yet (ROADMAP "
-                "Queue 1 item 7)")
+                "Queue 1 item 9)")
         keep_locals = self.algo.name == "moon"
         uploads, losses, new_locals = [], [], ([] if keep_locals else None)
         for i, (ds, seed) in enumerate(zip(datasets, seeds)):
@@ -105,5 +105,5 @@ def make_engine(name: str, *, trainer: LocalTrainer, partition: Partition,
     if name in ("vmap", "shard_map"):
         raise NotImplementedError(
             f"engine={name!r} is not ported yet (ROADMAP Queue 1 item "
-            f"{7 if name == 'vmap' else 11}); use engine='sequential'")
+            f"{9 if name == 'vmap' else 13}); use engine='sequential'")
     raise ValueError(f"unknown engine {name!r}; expected one of {ENGINES}")

@@ -8,7 +8,7 @@
 ``MaterializedPopulation`` wraps a host-side ``Sequence[ClientDataset]``;
 ``as_population`` is the one seam the server loop goes through.  Streaming
 populations (``SyntheticPopulation``) are not ported yet: the server refuses
-them (ROADMAP Queue 1 item 9).
+them (ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ unbounded form).
 MOON keeps each client's previous local model across rounds under
 ``("moon", client_id)``.  Unbounded (``max_entries=0``) the store is a plain
 map; values stay on the device they were trained on.  The bounded LRU with
-disk spill is not ported yet and is refused (ROADMAP Queue 1 item 8).
+disk spill is not ported yet and is refused (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ class ClientStateStore:
         if max_entries or spill_dir:
             raise NotImplementedError(
                 "a bounded or spilling client state store is not ported yet "
-                "(ROADMAP Queue 1 item 8); use max_entries=0, spill_dir=None")
+                "(ROADMAP Queue 1 item 10); use max_entries=0, spill_dir=None")
         self._mem: dict[tuple[str, Hashable], Any] = {}
 
     def __len__(self) -> int:

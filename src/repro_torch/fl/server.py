@@ -74,14 +74,14 @@ class FLRunConfig:
         if self.runtime == "async":
             raise NotImplementedError(
                 "runtime='async' needs fl/runtime, not ported yet (ROADMAP "
-                "Queue 1 item 10)")
+                "Queue 1 item 12)")
         if self.runtime not in RUNTIMES:
             raise ValueError(
                 f"unknown runtime {self.runtime!r}; expected one of {RUNTIMES}")
         if self.compression != "none":
             raise NotImplementedError(
                 f"compression={self.compression!r} needs core/compress.py, "
-                "not ported yet (ROADMAP Queue 1 item 8)")
+                "not ported yet (ROADMAP Queue 1 item 10)")
         resolve_device(self.device)
 
     def make_state_store(self) -> ClientStateStore:
@@ -152,7 +152,7 @@ def run_federated(
     if not isinstance(population, MaterializedPopulation):
         raise NotImplementedError(
             "streaming ClientPopulation (fl/population/synthetic.py) is not "
-            "ported yet (ROADMAP Queue 1 item 9); pass a list of "
+            "ported yet (ROADMAP Queue 1 item 11); pass a list of "
             "ClientDataset")
     n_clients = population.num_clients
     for spec in rounds:

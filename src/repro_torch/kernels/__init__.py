@@ -3,6 +3,9 @@
 
 - ``masked_adam``: fused Eq.-1 masked Adam (block-skip on frozen groups),
   CUDA C++ in ``csrc/masked_adam.cu``.
+- ``flash_attention``: forward online-softmax attention (GQA, causal,
+  sliding window), CUDA C++ in ``csrc/flash_attention.cu``; every prefill
+  attention of the serving path runs through it.
 
 Each kernel package ships ``kernel.py`` (the wrapper: checks, launch, launch
 count), ``ref.py`` (the plain PyTorch version the CPU takes and the tests

@@ -1,8 +1,9 @@
 """The PyTorch port's weight bridge and its isolation from JAX.
 
 * ``repro_torch.bridge`` carries the reference's parameters into the port
-  and back bit-exactly (ResNet-4 / ResNet-8), and ``load_npz`` reads a
-  ``checkpoint.io.save_pytree`` file without JAX;
+  and back bit-exactly (ResNet-4 / ResNet-8 in f32, TinyLlama smoke in
+  bf16, which numpy only knows as ``ml_dtypes.bfloat16``), and
+  ``load_npz`` reads a ``checkpoint.io.save_pytree`` file without JAX;
 * the port flattens trees in ``jax.tree.flatten``'s (sorted-key) order,
   which the masked-Adam pack layout and every block mask depend on;
 * importing every module of ``repro_torch`` and ``chip_smoke.py`` pulls in
@@ -21,7 +22,9 @@ import numpy as np
 import pytest
 
 from repro.checkpoint.io import save_pytree
+from repro.configs import get_config
 from repro.fl.tasks import resnet_task
+from repro.models import api as japi
 from repro_torch import bridge
 from repro_torch.tree import tree_paths
 
@@ -43,6 +46,23 @@ def test_round_trip_is_bit_exact(ref_params):
     for (_, a), (_, b) in zip(ref_flat, back_flat):
         assert a.dtype == b.dtype and a.shape == b.shape
         assert np.array_equal(a.view(np.uint8), b.view(np.uint8))
+
+
+def test_bf16_round_trip_is_bit_exact():
+    """bf16 leaves cross as their 16-bit words: ``torch.bfloat16`` in the
+    port, ``ml_dtypes.bfloat16`` back, no value rounded either way."""
+    import torch
+    cfg = get_config("tinyllama-1.1b", smoke=True).with_(param_dtype="bfloat16")
+    ref = jax.tree.map(np.asarray, japi.init(jax.random.key(0), cfg))
+    tree = bridge.from_numpy_tree(ref, "cpu")
+    back = bridge.to_numpy_tree(tree)
+    ref_flat, back_flat = tree_paths(ref), tree_paths(back)
+    assert [p for p, _ in ref_flat] == [p for p, _ in back_flat]
+    for (path, a), (_, t), (_, b) in zip(ref_flat, tree_paths(tree), back_flat):
+        assert a.dtype.name == "bfloat16" and t.dtype == torch.bfloat16, path
+        assert b.dtype == a.dtype and b.shape == a.shape, path
+        assert np.array_equal(a.view(np.uint16), b.view(np.uint16)), path
+        assert np.array_equal(a.astype(np.float32), t.float().numpy()), path
 
 
 def test_flatten_order_matches_jax(ref_params):
@@ -80,11 +100,19 @@ def test_port_and_chip_smoke_import_no_jax():
             repro_torch.__path__, "repro_torch.")]
         for name in names:
             importlib.import_module(name)
+        serving = ["repro_torch.configs.base", "repro_torch.configs.tinyllama_1_1b",
+                   "repro_torch.models.layers", "repro_torch.models.attention",
+                   "repro_torch.models.transformer", "repro_torch.models.api",
+                   "repro_torch.kernels.flash_attention.ref",
+                   "repro_torch.kernels.flash_attention.kernel",
+                   "repro_torch.kernels.flash_attention.ops",
+                   "repro_torch.launch.steps", "repro_torch.launch.serve"]
+        missing = sorted(set(serving) - set(names))
         import chip_smoke
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
-        print(len(names), bad)
-        sys.exit(1 if bad or len(names) < 20 else 0)
+        print(len(names), bad, missing)
+        sys.exit(1 if bad or missing or len(names) < 30 else 0)
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=ROOT,
