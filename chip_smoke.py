@@ -7,7 +7,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. env      — torch / CUDA versions, the card's name and power limit; TF32 off.
 2. build    — nvcc builds every CUDA kernel of the port from ``csrc/``
-              (``masked_adam`` and ``flash_attention``, in parallel).
+              (``masked_adam``, ``flash_attention`` and ``ssd_chunk``, in
+              parallel).
 3. kernel   — ``masked_adam`` against its plain PyTorch version on the card,
               at the ResNet-8 shape (1,576 rows) and at 2**20 rows, several
               masks, steps 1 and 1000; frozen blocks must be bit-exact and the
@@ -23,16 +24,35 @@ Phases, in order; any failure raises and the script exits non-zero:
 6. flash    — ``flash_attention`` against its plain PyTorch version on the
               card: the reference's seven cases and four ragged ones, f32
               and bf16, and TinyLlama's prefill layer (B 4, H 32, Hkv 4,
-              S 4,096, D 64, bf16) causal and with a 1,024 window, each
-              element and each output row held to its limit.  Times
-              (CUDA events) at that layer, its bound, and
-              ``F.scaled_dot_product_attention`` as a yardstick.
+              S 4,096, D 64, bf16) causal and with a 1,024 window, and
+              Zamba2's shared-attention layer (B 4, H 32, Hkv 32, S 4,096,
+              D 112, bf16, causal), each element and each output row held
+              to its limit.  Times (CUDA events) at both layers, their
+              bounds, and ``F.scaled_dot_product_attention`` as a yardstick.
 7. serve    — the serving path: ``serve_session`` on tinyllama-1.1b at full
               width, bf16, random weights from a seed, B 4 x 4,096 prompt,
               32 greedy tokens; every prefill layer must launch the flash
               kernel once (22).  One prefill under ``torch.profiler``.  Then
               the f32 cross-check: kernel vs plain prefill attention at full
               width (B 4 x 512, 4 tokens, TF32 off), every step's logits
+              within 1e-3 and the same tokens.
+8. ssd      — ``ssd_chunk`` against its plain PyTorch version (``ssd_ref``)
+              on the card, f32 and bf16: the reference's four cases,
+              Zamba2's smoke shape, a ragged chunk, head-broadcast
+              (stride-0) q and k, odd N / P / chunk (the kernel's
+              element-wise loads), a slow decay over 8 chunks, and Zamba2's
+              layer (B 4, H 112, S 4,096, N 64, P 64, chunk 128); each
+              element, each output row and the final state held to its
+              limit.  Times (CUDA events) at Zamba2's layer against its
+              bound, the plain chunked form and ``ssd_ref``; registers and
+              spills from nvcc.
+9. serve_hybrid — ``serve_session`` on zamba2-7b at full width, bf16,
+              random weights from a seed, B 4 x 4,096 prompt, 32 greedy
+              tokens: every Mamba2 prefill scan must launch the SSD kernel
+              once (81) and every shared-attention prefill the flash kernel
+              once (13).  One prefill under ``torch.profiler``.  Then the
+              f32 cross-check at full width (B 4 x 512, 4 tokens, TF32
+              off): kernel path against plain PyTorch, every step's logits
               within 1e-3 and the same tokens.
 
 The line before the last carries ``nvidia-smi``'s name and power limit, the
@@ -96,6 +116,31 @@ FLASH_EXTRA = [
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 4096, 32
 TINYLLAMA_ATTN = (SERVE_BATCH, 32, 4, SERVE_PROMPT, SERVE_PROMPT, 64)
 SERVE_CROSS_TOL = 1e-3         # f32 full width, kernel vs plain attention, TF32 off
+# zamba2-7b's shared attention at the serve prompt: B 4, H 32, Hkv 32, S 4,096, D 112
+ZAMBA2_ATTN = (SERVE_BATCH, 32, 32, SERVE_PROMPT, SERVE_PROMPT, 112)
+# ssd_chunk kernel vs ssd_ref, per element: |k - p| <= tol·(1 + |p|); f32 is the
+# reference's own kernel-vs-oracle tolerance (tests/test_kernels_ssd.py)
+SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+# per output row (b, t, h) over P: ||k - p|| / ||p||.  Both sides compute in
+# f32; in bf16 each rounds y once (2^-8 relative at most), so a sound kernel
+# sits near 2^-9 on average and below 2^-8; one wrong chunk moves its rows by
+# their whole size.  The final state is f32 on both sides for either dtype.
+SSD_ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+SSD_STATE_TOL = 2e-4
+# (b, h, s, n, p, chunk, broadcast q/k over heads, slow decay)
+SSD_CASES = [
+    (1, 2, 128, 128, 128, 64, False, False),    # tests/test_kernels_ssd.py CASES
+    (2, 3, 256, 128, 128, 128, False, False),
+    (1, 2, 128, 64, 128, 32, False, False),
+    (1, 1, 256, 128, 64, 128, False, False),
+    (2, 8, 32, 16, 32, 16, False, False),       # zamba2-7b smoke: N 16, P 32, chunk 16
+    (2, 8, 12, 16, 32, 16, False, False),       # ragged: S 12 < chunk 16
+    (2, 8, 64, 16, 32, 16, True, False),        # stride-0 q / k, as mamba2_forward
+    (1, 3, 52, 5, 7, 13, False, False),         # odd N, P, chunk: element-wise staging
+    (1, 4, 1024, 64, 64, 128, True, True),      # log_a in (-0.01, 0) over 8 chunks
+]
+# zamba2-7b's Mamba2 layer at the serve prompt, as the main path calls it
+ZAMBA2_SSD = (SERVE_BATCH, 112, SERVE_PROMPT, 64, 64, 128, True, False)
 
 
 def log(msg: str) -> None:
@@ -368,13 +413,39 @@ def _flash_bound_ms(b, h, hkv, sq, skv, d, causal, window, dtype) -> tuple[float
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def _flash_layer(name: str, shape, gen) -> dict:
+    """Times one bf16 causal layer in the model's (B, S, H, D) layout: the
+    kernel, the plain version, ``F.scaled_dot_product_attention`` as the
+    library yardstick, and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+    b, h, hkv, s, _, d = shape
+    q, k, v = _flash_qkv(b, h, hkv, s, s, d, torch.bfloat16, gen)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    out = {"ms": cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True), 5),
+           "plain_ms": cuda_ms(lambda: ops.attention_reference(q, k, v, causal=True),
+                               2, 3)}
+    torch.cuda.empty_cache()
+    out["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), 10)
+    out["bound_ms"], out["bound_by"] = _flash_bound_ms(b, h, hkv, s, s, d, True, 0,
+                                                       torch.bfloat16)
+    log(f"[flash] {name} layer B{b} H{h} Hkv{hkv} S{s} D{d} bf16 causal: "
+        f"kernel {out['ms']:.6f} ms plain {out['plain_ms']:.6f} ms "
+        f"F.scaled_dot_product_attention {out['library_ms']:.6f} ms bound "
+        f"{out['bound_ms']:.6f} ms ({out['bound_by']}; "
+        f"{100 * out['bound_ms'] / out['ms']:.2f}% of it)")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_flash() -> dict:
     """The flash kernel against its plain version: the reference's seven
     cases and four ragged ones in f32 and bf16, TinyLlama's prefill layer
-    causal and with a 1,024 window; then times at TinyLlama's shape (kernel, plain version,
+    causal and with a 1,024 window, Zamba2's shared-attention layer (D 112);
+    then times at both layers (kernel, plain version,
     ``F.scaled_dot_product_attention`` as the library yardstick)."""
-    import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import ops
     gen = torch.Generator(device="cuda").manual_seed(11)
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
@@ -384,35 +455,142 @@ def phase_flash() -> dict:
         log(f"[flash] 7 reference cases + {len(FLASH_EXTRA)} ragged {str(dtype)[6:]}: "
             f"max abs err {err:.3g} (tolerance {FLASH_TOL[dtype]:g} abs + rel), "
             f"max row err {row:.3g} of the row's norm (limit {FLASH_ROW_TOL[dtype]:g})")
-    b, h, hkv, s, _, d = TINYLLAMA_ATTN
-    for window in (0, 1024):
+    layers = [("tinyllama", TINYLLAMA_ATTN, 0), ("tinyllama", TINYLLAMA_ATTN, 1024),
+              ("zamba2", ZAMBA2_ATTN, 0)]
+    for name, (b, h, hkv, s, _, d), window in layers:
         err, row = _flash_check((b, h, hkv, s, s, d, True, window), torch.bfloat16, gen)
         worst = max(worst, err)
-        log(f"[flash] tinyllama layer B{b} H{h} Hkv{hkv} S{s} D{d} bf16 causal "
+        log(f"[flash] {name} layer B{b} H{h} Hkv{hkv} S{s} D{d} bf16 causal "
             f"window {window}: max abs err {err:.3g} (tolerance "
             f"{FLASH_TOL[torch.bfloat16]:g} abs + rel), max row err {row:.3g} of the "
             f"row's norm (limit {FLASH_ROW_TOL[torch.bfloat16]:g})")
         torch.cuda.empty_cache()
 
-    q, k, v = _flash_qkv(b, h, hkv, s, s, d, torch.bfloat16, gen)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True), 5)
-    plain_ms = cuda_ms(lambda: ops.attention_reference(q, k, v, causal=True), 2, 3)
-    torch.cuda.empty_cache()
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), 10)
-    bound, bound_by = _flash_bound_ms(b, h, hkv, s, s, d, True, 0, torch.bfloat16)
-    log(f"[flash] tinyllama layer B{b} H{h} Hkv{hkv} S{s} D{d} bf16 causal: "
-        f"kernel {ms:.6f} ms plain {plain_ms:.6f} ms "
-        f"F.scaled_dot_product_attention {library_ms:.6f} ms bound {bound:.6f} ms "
-        f"({bound_by}; {100 * bound / ms:.2f}% of it)")
-    del q, k, v, qt, kt, vt
-    torch.cuda.empty_cache()
+    main = _flash_layer("tinyllama", TINYLLAMA_ATTN, gen)
+    zamba2 = _flash_layer("zamba2", ZAMBA2_ATTN, gen)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:99",
-            "launches": None, "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": bound_by, "library_ms": library_ms}
+            "launches": None, "max_abs_err": worst, **main,
+            "zamba2_layer": zamba2}
+
+
+# ---------------------------------------------------------------------------
+# ssd_chunk
+# ---------------------------------------------------------------------------
+
+def _ssd_inputs(case, dtype, gen):
+    """q, k (B, S, H, N) and v (B, S, H, P) of ``dtype``, log_a (B, S, H)
+    f32, in the model's layout; q and k as ``expand`` views over heads
+    (stride 0) where the case says so, as ``mamba2_forward`` passes them.
+    Decays as the reference's tests draw them (-|N(0,1)|·0.2), or in
+    (-0.01, 0) for the slow case."""
+    b, h, s, n, p, _, bcast, slow = case
+    dev = "cuda"
+    hq = 1 if bcast else h
+    q = (torch.randn(b, s, hq, n, device=dev, generator=gen) * 0.3).to(dtype)
+    k = (torch.randn(b, s, hq, n, device=dev, generator=gen) * 0.3).to(dtype)
+    if bcast:
+        q, k = q.expand(b, s, h, n), k.expand(b, s, h, n)
+    v = torch.randn(b, s, h, p, device=dev, generator=gen).to(dtype)
+    if slow:
+        la = -0.01 * torch.rand(b, s, h, device=dev, generator=gen)
+    else:
+        la = -0.2 * torch.randn(b, s, h, device=dev, generator=gen).abs()
+    return q, k, v, la
+
+
+def _ssd_check(case, dtype, gen) -> tuple[float, float, float]:
+    """Kernel vs plain version on one case; returns the max abs error of y,
+    the max row error over the row's norm, and the state's max abs error."""
+    from repro_torch.kernels.ssd_chunk import ops
+    q, k, v, la = _ssd_inputs(case, dtype, gen)
+    y, st = ops.ssd_scan(q, k, v, la, chunk=case[5])
+    y_ref, st_ref = ops.ssd_reference(q, k, v, la)
+    torch.cuda.synchronize()
+    if y.dtype != dtype or y.shape != v.shape or st.dtype != torch.float32:
+        raise AssertionError(f"ssd {case} {dtype}: y {y.dtype} {tuple(y.shape)}, "
+                             f"state {st.dtype}")
+    diff = y.float() - y_ref.float()
+    err = diff.abs()
+    tol = SSD_TOL[dtype]
+    row = float((diff.norm(dim=-1) / y_ref.float().norm(dim=-1).clamp_min(1e-30)).max())
+    st_err = (st - st_ref).abs()
+    if not bool(torch.isfinite(y.float()).all()) or bool(
+            (err > tol * (1 + y_ref.float().abs())).any()):
+        raise AssertionError(f"ssd {case} {dtype}: max abs err {float(err.max()):.3g} "
+                             f"beyond tolerance {tol:g}·(1 + |ref|)")
+    if not row <= SSD_ROW_TOL[dtype]:
+        raise AssertionError(f"ssd {case} {dtype}: max row error {row:.3g} beyond "
+                             f"{SSD_ROW_TOL[dtype]:g} of the row's norm")
+    if not bool(torch.isfinite(st).all()) or bool(
+            (st_err > SSD_STATE_TOL * (1 + st_ref.abs())).any()):
+        raise AssertionError(f"ssd {case} {dtype}: state max abs err "
+                             f"{float(st_err.max()):.3g} beyond {SSD_STATE_TOL:g}·(1 + |ref|)")
+    return float(err.max()), row, float(st_err.max())
+
+
+def _ssd_bound_ms(case, dtype) -> tuple[float, str]:
+    """Least time for one scan: the full Q x Q products per chunk, as the
+    TPU kernel computes them (2·Q²·N + 2·Q²·P + 4·Q·N·P FLOPs), against q,
+    k, v, log_a read and y, the state written once (q and k once per head
+    that stores them: once per batch row when broadcast)."""
+    b, h, s, n, p, chunk, bcast, _ = case
+    chunk = min(chunk, s)
+    flops = b * h * (s // chunk) * (2 * chunk * chunk * (n + p) + 4 * chunk * n * p)
+    elem = torch.finfo(dtype).bits // 8
+    qk_heads = 1 if bcast else h
+    nbytes = elem * (2 * b * s * qk_heads * n + 2 * b * s * h * p) \
+        + 4 * b * s * h + 4 * b * h * n * p
+    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_ssd() -> dict:
+    """The SSD chunk kernel against its plain version (``ssd_ref``) on every
+    case in f32 and bf16, then times at Zamba2's layer: the kernel, the
+    plain chunked form (``impl="plain"``), ``ssd_ref``, the bound."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ssd_chunk import ops
+    from repro_torch.models.ssm import chunked_decay_attention
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in SSD_CASES + [ZAMBA2_SSD]:
+            err, row, st = _ssd_check(case, dtype, gen)
+            worst = max(worst, err)
+            b, h, s, n, p, chunk, bcast, slow = case
+            log(f"[ssd] B{b} H{h} S{s} N{n} P{p} chunk {min(chunk, s)}"
+                f"{' stride-0 q/k' if bcast else ''}{' slow decay' if slow else ''} "
+                f"{str(dtype)[6:]}: max abs err {err:.3g} (tolerance "
+                f"{SSD_TOL[dtype]:g}·(1+|ref|)), max row err {row:.3g} (limit "
+                f"{SSD_ROW_TOL[dtype]:g}), state max abs err {st:.3g} (limit "
+                f"{SSD_STATE_TOL:g}·(1+|ref|))")
+        torch.cuda.empty_cache()
+
+    b, h, s, n, p, chunk, _, _ = ZAMBA2_SSD
+    q, k, v, la = _ssd_inputs(ZAMBA2_SSD, torch.bfloat16, gen)
+    ms = cuda_ms(lambda: ops.ssd_scan(q, k, v, la, chunk=chunk), 5)
+    chunked_ms = cuda_ms(lambda: chunked_decay_attention(q, k, v, la, chunk), 1)
+    torch.cuda.empty_cache()
+    ref_ms = cuda_ms(lambda: ops.ssd_reference(q, k, v, la), 1)
+    bound, bound_by = _ssd_bound_ms(ZAMBA2_SSD, torch.bfloat16)
+    log(f"[ssd] zamba2 layer B{b} H{h} S{s} N{n} P{p} chunk {chunk} bf16, stride-0 "
+        f"q/k: kernel {ms:.6f} ms, plain chunked form {chunked_ms:.6f} ms, ssd_ref "
+        f"{ref_ms:.6f} ms, bound {bound:.6f} ms ({bound_by}; {100 * bound / ms:.2f}% "
+        f"of it); no single PyTorch call computes this scan")
+    for line in build.library_path("ssd_chunk").with_suffix(".log").read_text().splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            log(f"[ssd] nvcc: {line.strip()}")
+    del q, k, v, la
+    torch.cuda.empty_cache()
+    return {"name": "ssd_chunk", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_chunk.cu",
+            "replaces": "src/repro/kernels/ssd_chunk/kernel.py:84",
+            "launches": None, "max_abs_err": worst, "ms": ms, "plain_ms": ref_ms,
+            "plain_chunked_ms": chunked_ms, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": None}
 
 
 def _vision_setup(clients: int = 8, per_client: int = 500):
@@ -535,7 +713,7 @@ def phase_profile() -> None:
                 f"{100 * e.self_device_time_total / dev_us:.2f}% of device busy")
 
 
-def _serve_profile(cfg, params, prompt) -> None:
+def _serve_profile(cfg, params, prompt, tag: str = "serve") -> None:
     """Device time by kernel over one warm prefill (under torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import steps
@@ -551,13 +729,13 @@ def _serve_profile(cfg, params, prompt) -> None:
                if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = sum(getattr(e, "self_device_time_total", 0.0) for e in kernels)
     if dev_us <= 0:
-        log("[serve] the profiler recorded no device time: not measured")
+        log(f"[{tag}] the profiler recorded no device time: not measured")
         return
-    log(f"[serve] profile of one prefill: wall {wall_us / 1e3:.3f} ms (under the "
+    log(f"[{tag}] profile of one prefill: wall {wall_us / 1e3:.3f} ms (under the "
         f"profiler), device busy {dev_us / 1e3:.3f} ms ({100 * dev_us / wall_us:.1f}%), "
         f"{sum(e.count for e in kernels)} kernel launches")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
-        log(f"[serve]   {e.self_device_time_total / 1e3:9.3f} ms "
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"[{tag}]   {e.self_device_time_total / 1e3:9.3f} ms "
             f"({100 * e.self_device_time_total / dev_us:5.1f}%) {e.count:5d}x {e.key[:90]}")
 
 
@@ -636,6 +814,93 @@ def phase_serve() -> int:
     return launches
 
 
+def phase_serve_hybrid() -> tuple[int, int]:
+    """The hybrid serving path: ``serve_session`` on zamba2-7b at full
+    width, bf16, random weights from a seed, B 4 × 4,096 prompt, 32 tokens;
+    every Mamba2 prefill scan through the SSD kernel (81 launches) and every
+    shared-attention prefill through the flash kernel (13).  Then the same
+    config in f32 (TF32 off), prompt 512, 4 tokens: the kernel path against
+    plain PyTorch, every step's logits within ``SERVE_CROSS_TOL``.  Returns
+    the counted run's (ssd_chunk, flash_attention) launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_kernel
+    from repro_torch.launch.serve import serve_session
+    from repro_torch.models import api, transformer
+    from repro_torch.models.api import InputShape
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("zamba2-7b")
+    n_chunks, tail = transformer.hybrid_layout(cfg)
+    mamba_layers = n_chunks * cfg.attn_every + tail
+    b, s, g = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = api.init(gen, cfg, "cuda")
+    prompt = api.synth_batch(gen, cfg, InputShape("serve", s, b, "prefill"), "cuda")
+    n_params = sum(int(x.numel()) for x in tree_leaves(params))
+    log(f"[serve_hybrid] {cfg.name} full: {n_chunks} chunks of (shared attention, "
+        f"{cfg.attn_every} Mamba2) + {tail} tail Mamba2, d_model {cfg.d_model} heads "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} (head dim {cfg.resolved_head_dim}) d_ff "
+        f"{cfg.d_ff} SSM N {cfg.ssm_state_dim} P {cfg.ssm_head_dim} chunk "
+        f"{cfg.ssm_chunk} vocab {cfg.vocab_size} {cfg.param_dtype}, {n_params} params")
+    # warm-up at full width (cuBLAS handles, kernel loads), then the counted run
+    serve_session(cfg, b, 256, 2, device="cuda", params=params, verbose=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    ssd_chunk_kernel.launches = 0
+    flash_attention_kernel.launches = 0
+    res = serve_session(cfg, b, s, g, device="cuda", params=params, prompt=prompt,
+                        verbose=False)
+    torch.cuda.synchronize()
+    ssd_n, flash_n = ssd_chunk_kernel.launches, flash_attention_kernel.launches
+
+    toks = res.tokens
+    decoded = b * (g - 1)
+    log(f"[serve_hybrid] prefill {b}x{s}: {res.prefill_seconds:.6f} s "
+        f"({b * s / res.prefill_seconds:.1f} prompt tokens/s); decode {g - 1} "
+        f"steps x batch {b} = {decoded} tokens in {res.decode_seconds:.6f} s: "
+        f"{decoded / res.decode_seconds:.3f} tokens/s, "
+        f"{1e3 * res.decode_seconds / (g - 1):.3f} ms per step; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    log(f"[serve_hybrid] tokens[0] {toks[0].tolist()}")
+    log(f"[serve_hybrid] ssd_chunk launches {ssd_n} (one per Mamba2 layer: "
+        f"{mamba_layers}), flash_attention launches {flash_n} (one per shared-attention "
+        f"application: {n_chunks})")
+    if ssd_n != mamba_layers or flash_n != n_chunks:
+        raise AssertionError(f"launches: ssd {ssd_n} != {mamba_layers} or flash "
+                             f"{flash_n} != {n_chunks}")
+    if toks.shape != (b, g) or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+        raise AssertionError(f"bad tokens {tuple(toks.shape)}")
+    for i, x in enumerate(res.logits):
+        if x.shape != (b, 1, cfg.vocab_size) or not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"step {i}: logits {tuple(x.shape)} not finite")
+    _serve_profile(cfg, params, prompt, tag="serve_hybrid")
+    del params, prompt, res
+    torch.cuda.empty_cache()
+
+    cfg32 = cfg.with_(param_dtype="float32", activation_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = api.init(gen, cfg32, "cuda")
+    prompt = api.synth_batch(gen, cfg32, InputShape("serve", 512, b, "prefill"), "cuda")
+    out = {impl: serve_session(cfg32, b, 512, 4, device="cuda", params=params,
+                               prompt=prompt, impl=impl, verbose=False)
+           for impl in ("kernel", "plain")}
+    diffs = [float((k - p).abs().max())
+             for k, p in zip(out["kernel"].logits, out["plain"].logits)]
+    scale = max(float(x.abs().max()) for x in out["plain"].logits)
+    same = torch.equal(out["kernel"].tokens, out["plain"].tokens)
+    log(f"[serve_hybrid] f32 cross-check B{b} prompt 512 gen 4, full depth and width, "
+        f"kernel vs plain (SSD scans and prefill attention): max abs logit diff per "
+        f"step {[f'{d:.3g}' for d in diffs]} (tolerance {SERVE_CROSS_TOL:g}; max "
+        f"|logit| {scale:.3g}); tokens equal: {same}")
+    if max(diffs) > SERVE_CROSS_TOL or not same:
+        raise AssertionError("f32 hybrid serve: kernel and plain paths disagree")
+    del params, prompt, out
+    torch.cuda.empty_cache()
+    return ssd_n, flash_n
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script needs one "
@@ -647,8 +912,12 @@ def main() -> int:
     adam["launches"] = phase_fedpart()
     phase_profile()
     flash = phase_flash()
-    flash["launches"] = phase_serve()
-    print(json.dumps({"kernels": [adam, flash]}))
+    flash_serve = phase_serve()
+    ssd = phase_ssd()
+    ssd["launches"], flash_hybrid = phase_serve_hybrid()
+    flash["launches"] = flash_serve + flash_hybrid
+    flash["launches_by_path"] = {"serve": flash_serve, "serve_hybrid": flash_hybrid}
+    print(json.dumps({"kernels": [adam, flash, ssd]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,11 @@
 """Model configuration dataclass + registry (port of ``repro.configs.base``).
 
 ``ModelConfig`` is the reference's dataclass field for field, so a config
-built on either side describes the same model; the port's decoder reads only
-the trunk and numerics fields.  The registry holds the architectures the
-port runs: ``tinyllama-1.1b`` (full and smoke).  Every other architecture
-of the reference raises ``NotImplementedError`` naming the ROADMAP item
-that ports it.
+built on either side describes the same model.  The registry holds the
+architectures the port runs: ``tinyllama-1.1b`` (dense decoder) and
+``zamba2-7b`` (Mamba2 hybrid), full and smoke.  Every other architecture of
+the reference raises ``NotImplementedError`` naming the ROADMAP item that
+ports it.
 """
 
 from __future__ import annotations
@@ -122,7 +122,6 @@ _UNPORTED = {
     "llava-next-34b": "Queue 1 item 15 (VLM frontends)",
     "whisper-small": "Queue 1 item 15 (encoder-decoder)",
     "xlstm-125m": "Queue 1 item 15 (xLSTM)",
-    "zamba2-7b": "Queue 1 item 8 (hybrid / SSM decoder with ssd_chunk)",
     "nlp-transformer": "Queue 1 item 4 (the nlp task)",
     "resnet8": "Queue 1 item 4 (the ResNet task uses fl.tasks, not a config)",
     "resnet18": "Queue 1 item 4 (the ResNet task uses fl.tasks, not a config)",
@@ -157,6 +156,6 @@ def _ensure_loaded() -> None:
     global _LOADED
     if _LOADED:
         return
-    from repro_torch.configs import tinyllama_1_1b  # noqa: F401  (registers)
+    from repro_torch.configs import tinyllama_1_1b, zamba2_7b  # noqa: F401  (register)
 
     _LOADED = True

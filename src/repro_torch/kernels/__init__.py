@@ -6,6 +6,9 @@
 - ``flash_attention``: forward online-softmax attention (GQA, causal,
   sliding window), CUDA C++ in ``csrc/flash_attention.cu``; every prefill
   attention of the serving path runs through it.
+- ``ssd_chunk``: the chunked decay linear-attention scan of Mamba2 (state
+  carried across chunks), CUDA C++ in ``csrc/ssd_chunk.cu``; every Mamba2
+  prefill scan of the hybrid serving path runs through it.
 
 Each kernel package ships ``kernel.py`` (the wrapper: checks, launch, launch
 count), ``ref.py`` (the plain PyTorch version the CPU takes and the tests

@@ -1,12 +1,16 @@
 """Serving driver: batched prefill, then greedy decode (port of
 ``repro.launch.serve``).
 
-Runs on the card unless asked for the CPU; every prefill attention goes
-through the CUDA flash-attention kernel (``impl="kernel"``), one-token
-decode attention is plain PyTorch, as in the reference.
+Runs on the card unless asked for the CPU.  With ``impl="kernel"`` every
+prefill attention goes through the CUDA flash-attention kernel and every
+Mamba2 prefill scan (``zamba2-7b``) through the CUDA SSD-chunk kernel;
+one-token decode is plain PyTorch, as in the reference.  A hybrid's prompt
+length must be a multiple of its scan chunk (``ssm_chunk``) or shorter
+than it, as the reference asserts.
 
     python -m repro_torch.launch.serve --arch tinyllama-1.1b --device cpu   # smoke size
-    python -m repro_torch.launch.serve --arch tinyllama-1.1b --full \\
+    python -m repro_torch.launch.serve --arch zamba2-7b --device cpu
+    python -m repro_torch.launch.serve --arch zamba2-7b --full \\
         --batch 4 --prompt-len 4096 --gen 32          # one H100
 """
 
@@ -94,8 +98,10 @@ _ATTN_CACHE_KEYS = {"k", "v"}
 
 
 def _grow_attention_caches(cache: PyTree, prompt_len: int, cache_len: int) -> PyTree:
-    """Pad attention caches (stacked (L,B,S,...) layout, seq axis 2) from the
-    prefill length to prompt+gen with zeros.  Other leaves are untouched."""
+    """Pad attention caches (stacked (L,B,S,...) layout, seq axis 2: the
+    decoder's ``blocks/{k,v}``, the hybrid's ``chunks/attn_kv/{k,v}``) from
+    the prefill length to prompt+gen with zeros.  Other leaves (the Mamba2
+    ``state`` and ``conv``) are untouched."""
 
     def grow(path, leaf):
         name = path.rsplit("/", 1)[-1]
@@ -118,7 +124,8 @@ def main(argv=None) -> int:
                     help="use the full-size config (one H100; not for the CPU)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--impl", default="kernel", choices=("kernel", "plain"),
-                    help="prefill attention: the CUDA kernel or plain PyTorch")
+                    help="prefill attention and Mamba2 scans: the CUDA kernels "
+                         "or plain PyTorch")
     args = ap.parse_args(argv)
     cfg = get_config(args.arch, smoke=not args.full)
     serve_session(cfg, args.batch, args.prompt_len, args.gen, device=args.device,

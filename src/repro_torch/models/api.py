@@ -1,4 +1,5 @@
-"""Unified model API, decoder dispatch (port of ``repro.models.api``).
+"""Unified model API, decoder and hybrid dispatch (port of
+``repro.models.api``).
 
     init(gen, cfg, device)                          -> params
     forward(params, cfg, batch, ...)                -> (logits, cache|None, aux)
@@ -6,10 +7,11 @@
     cache_init(cfg, batch, cache_len, dtype, device) -> cache
     synth_batch(gen, cfg, shape, device)            -> batch
 
-Only ``kind == "decoder"`` (dense GQA) is ported; the other kinds raise
-``NotImplementedError`` naming their ROADMAP item.  Randomness comes from an
-explicit ``torch.Generator`` (the reference's distributions, not its
-numbers: tests bridge the reference's params and batches instead).
+``kind == "decoder"`` (dense GQA) and ``kind == "hybrid"`` (Zamba2) are
+ported; ``xlstm`` and ``encdec`` raise ``NotImplementedError`` naming their
+ROADMAP item.  Randomness comes from an explicit ``torch.Generator`` (the
+reference's distributions, not its numbers: tests bridge the reference's
+params and batches instead).
 
 Input shapes (the reference's four):
 
@@ -49,8 +51,8 @@ INPUT_SHAPES: dict[str, InputShape] = {
 }
 
 
-def _decoder_only(cfg: ModelConfig) -> None:
-    if cfg.kind != "decoder":
+def _ported_kind(cfg: ModelConfig) -> None:
+    if cfg.kind not in ("decoder", "hybrid"):
         raise NotImplementedError(
             f"model kind {cfg.kind!r} is not ported yet: ROADMAP Queue 1 item 15")
 
@@ -75,7 +77,9 @@ def cache_length(cfg: ModelConfig, seq_len: int) -> int:
 # ---------------------------------------------------------------------------
 
 def init(gen: torch.Generator, cfg: ModelConfig, device) -> PyTree:
-    _decoder_only(cfg)
+    _ported_kind(cfg)
+    if cfg.kind == "hybrid":
+        return transformer.hybrid_init(gen, cfg, device)
     return transformer.decoder_init(gen, cfg, device)
 
 
@@ -88,7 +92,10 @@ def forward(
     impl: str = "kernel",
     collect_cache: bool = False,
 ) -> tuple[torch.Tensor, PyTree | None, torch.Tensor]:
-    _decoder_only(cfg)
+    _ported_kind(cfg)
+    if cfg.kind == "hybrid":
+        return transformer.hybrid_forward(params, cfg, batch["tokens"], window=window,
+                                          impl=impl, collect_cache=collect_cache)
     return transformer.decoder_forward(
         params, cfg, batch["tokens"], media_embeds=batch.get("media"),
         labels=batch.get("labels"), window=window, impl=impl,
@@ -104,14 +111,19 @@ def decode_step(
     *,
     window: int = 0,
 ) -> tuple[torch.Tensor, PyTree]:
-    _decoder_only(cfg)
+    _ported_kind(cfg)
+    if cfg.kind == "hybrid":
+        return transformer.hybrid_decode_step(params, cfg, token, cache, pos,
+                                              window=window)
     return transformer.decoder_decode_step(params, cfg, token, cache, pos,
                                            window=window)
 
 
 def cache_init(cfg: ModelConfig, batch: int, cache_len: int, dtype,
                device) -> PyTree:
-    _decoder_only(cfg)
+    _ported_kind(cfg)
+    if cfg.kind == "hybrid":
+        return transformer.hybrid_cache_init(cfg, batch, cache_len, dtype, device)
     return transformer.decoder_cache_init(cfg, batch, cache_len, dtype, device)
 
 
@@ -123,7 +135,7 @@ def synth_batch(gen: torch.Generator, cfg: ModelConfig, shape: InputShape,
                 device) -> dict:
     """Random int32 tokens (and labels for ``train``) from ``gen``; a decode
     shape gets one token, a zero cache and the last position."""
-    _decoder_only(cfg)
+    _ported_kind(cfg)
     if cfg.num_media_tokens > 0:
         raise NotImplementedError(
             "VLM media embeddings are not ported yet: ROADMAP Queue 1 item 15")

@@ -6,7 +6,8 @@ the reference's keys and shapes (``(in, out)`` linear weights, ``x @ w``),
 layer functions are pure.  Initialisers draw from an explicit
 ``torch.Generator`` on ``device`` (the reference's distributions; the
 numbers differ from ``jax.random``'s).  Stacked initialisers take a leading
-``n`` (the transformer's layer axis), as ``jax.vmap`` over keys gives.
+``n`` (the transformer's layer axis), or a tuple of them (the hybrid's
+chunk and layer axes), as ``jax.vmap`` over keys gives.
 
 ``bf16_grad_barrier`` is not ported: it is the identity in the forward pass
 and only casts cotangents, and the port's serving path has no backward.
@@ -22,8 +23,10 @@ import torch.nn.functional as F
 from repro_torch.tree import PyTree
 
 
-def _lead(n: int | None) -> tuple[int, ...]:
-    return () if n is None else (n,)
+def _lead(n: int | tuple[int, ...] | None) -> tuple[int, ...]:
+    if n is None:
+        return ()
+    return n if isinstance(n, tuple) else (n,)
 
 
 def _normal(gen: torch.Generator, shape, std: float, dtype, device) -> torch.Tensor:

@@ -1,0 +1,286 @@
+"""Mamba2 (SSD) blocks (port of the Mamba2 half of ``repro.models.ssm``).
+
+One chunked decay-weighted linear-attention engine implements the
+recurrence
+
+    S_t = a_t * S_{t-1} + k_t ⊗ v_t          y_t = q_t · S_t
+
+``mamba2_forward`` runs it one of two ways:
+
+* ``impl="kernel"`` (the default): the hand-written CUDA SSD-chunk kernel
+  (``kernels.ssd_chunk.ops.ssd_scan``); on CPU tensors that is its plain
+  version, the sequential recurrence.  The kernel computes in f32 and
+  returns an f32 state; it is cast to v's dtype for the cache, as the
+  reference's jnp path leaves it, so cache layouts and dtypes are the same
+  on both paths.
+* ``impl="plain"``: ``chunked_decay_attention``, the reference's jnp
+  chunked form op for op (its casts included), with a Python loop over the
+  chunks in place of ``jax.lax.scan``.
+
+The mLSTM and sLSTM blocks (xLSTM) are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+from repro_torch.models.layers import _lead, linear, linear_init, rmsnorm, rmsnorm_init
+from repro_torch.tree import PyTree
+
+IMPLS = ("kernel", "plain")
+_XLSTM = "the xLSTM blocks (mLSTM, sLSTM) are not ported yet: ROADMAP Queue 1 item 15"
+
+
+# ---------------------------------------------------------------------------
+# Generic chunked decay attention
+# ---------------------------------------------------------------------------
+
+def chunked_decay_attention(
+    q: torch.Tensor,        # (B, S, H, N)
+    k: torch.Tensor,        # (B, S, H, N)
+    v: torch.Tensor,        # (B, S, H, P)
+    log_a: torch.Tensor,    # (B, S, H) — per-step decay logs, <= 0
+    chunk: int,
+    init_state: torch.Tensor | None = None,   # (B, H, N, P)
+    *,
+    impl: str = "plain",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (y: (B,S,H,P), final_state: (B,H,N,P)).
+
+    ``impl="plain"`` is the reference's chunked form; ``impl="kernel"``
+    runs the SSD-chunk kernel, which starts from a zero state, so an
+    ``init_state`` there raises (the reference's kernel has none either).
+    The causal mask is a select where the reference multiplies by it: the
+    two agree wherever the reference is finite, and above the diagonal
+    ``exp(cum_i − cum_j)`` can overflow, which the multiply turns into NaN.
+    """
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if impl == "kernel":
+        if init_state is not None:
+            raise ValueError("the SSD-chunk kernel starts from a zero state; "
+                             "init_state needs impl='plain'")
+        return ssd_ops.ssd_scan(q, k, v, log_a, chunk=chunk)
+    b, s, h, n = q.shape
+    p = v.shape[-1]
+    chunk = min(chunk, s)
+    assert s % chunk == 0, f"seq {s} not divisible by chunk {chunk}"
+    nc = s // chunk
+
+    def to_chunks(x):
+        return x.reshape(b, nc, chunk, *x.shape[2:])
+
+    qc, kc, vc = to_chunks(q), to_chunks(k), to_chunks(v)
+    la = to_chunks(log_a).float()                              # (b,nc,Q,h)
+    cum = torch.cumsum(la, dim=2)                              # inclusive
+    total = cum[:, :, -1:, :]                                  # (b,nc,1,h)
+
+    # Intra-chunk: scores[i,j] = (q_i·k_j)·exp(cum_i − cum_j), causal i>=j.
+    qk = torch.einsum("bcqhn,bcthn->bcqth", qc, kc)
+    decay = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])  # (b,c,q,t,h)
+    ar = torch.arange(chunk, device=q.device)
+    causal = (ar[:, None] >= ar[None, :])[None, None, :, :, None]
+    w = torch.where(causal, qk.float() * decay, 0.0)
+    y_intra = torch.einsum("bcqth,bcthp->bcqhp", w.to(v.dtype), vc)
+
+    # Per-chunk state contribution: S_c = Σ_t exp(total − cum_t)·k_t ⊗ v_t
+    kw = kc.float() * torch.exp(total - cum)[..., None]
+    s_c = torch.einsum("bcthn,bcthp->bchnp", kw.to(v.dtype), vc)
+
+    # Inter-chunk recurrence over nc (only the state crosses chunks).
+    a_tot = torch.exp(total[:, :, 0, :])                       # (b,nc,h)
+    carry = (init_state if init_state is not None
+             else torch.zeros((b, h, n, p), dtype=v.dtype, device=v.device))
+    prevs = []
+    for c in range(nc):
+        prevs.append(carry)
+        carry = a_tot[:, c, :, None, None].to(carry.dtype) * carry + s_c[:, c]
+    s_prev = torch.stack(prevs, dim=1)                         # (b,nc,h,n,p)
+
+    y_inter = torch.einsum("bcqhn,bchnp,bcqh->bcqhp", qc, s_prev,
+                           torch.exp(cum).to(v.dtype))
+    y = (y_intra + y_inter).reshape(b, s, h, p)
+    return y, carry
+
+
+def decay_attention_step(
+    q: torch.Tensor,        # (B, H, N)
+    k: torch.Tensor,        # (B, H, N)
+    v: torch.Tensor,        # (B, H, P)
+    a: torch.Tensor,        # (B, H) decay in (0,1]
+    state: torch.Tensor,    # (B, H, N, P)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Single-token recurrence (decode): O(H·N·P) per step."""
+    new_state = a[..., None, None] * state + k[..., :, None] * v[..., None, :]
+    y = torch.einsum("bhn,bhnp->bhp", q, new_state)
+    return y, new_state
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 block
+# ---------------------------------------------------------------------------
+
+def _mamba_dims(cfg: ModelConfig) -> tuple[int, int, int, int]:
+    d_inner = cfg.ssm_expand * cfg.d_model
+    hdim = cfg.ssm_head_dim or 64
+    heads = cfg.ssm_num_heads or d_inner // hdim
+    n = cfg.ssm_state_dim or 64
+    return d_inner, heads, hdim, n
+
+
+CONV_W = 4  # causal depthwise conv width
+
+
+def mamba2_init(gen: torch.Generator, cfg: ModelConfig, dtype, device,
+                n: int | tuple[int, ...] | None = None) -> PyTree:
+    """One Mamba2 block's params (the reference's distributions), or blocks
+    stacked on leading axes ``n`` (an int or a tuple of them)."""
+    d_inner, heads, hdim, ns = _mamba_dims(cfg)
+    conv_dim = d_inner + 2 * ns
+    proj_out = 2 * d_inner + 2 * ns + heads   # z, x, B, C, dt
+    lead = _lead(n)
+    in_proj = linear_init(gen, cfg.d_model, proj_out, dtype, device, n=n)
+    conv_w = torch.randn(lead + (CONV_W, conv_dim), generator=gen, device=device,
+                         dtype=torch.float32)
+    return {
+        "in_proj": in_proj,
+        "conv_w": conv_w.mul_(0.2).to(dtype),
+        "conv_b": torch.zeros(lead + (conv_dim,), dtype=dtype, device=device),
+        # A = -exp(a_log) = -1; softplus(dt_bias) ≈ 0.12
+        "a_log": torch.zeros(lead + (heads,), dtype=torch.float32, device=device),
+        "dt_bias": torch.full(lead + (heads,), -2.0, dtype=torch.float32,
+                              device=device),
+        "d_skip": torch.ones(lead + (heads,), dtype=dtype, device=device),
+        "out_norm": rmsnorm_init(d_inner, dtype, device, n),
+        "out_proj": linear_init(gen, d_inner, cfg.d_model, dtype, device, n=n),
+    }
+
+
+def _causal_conv(seq: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv.  seq: (B,S,C); w: (W,C)."""
+    width = w.shape[0]
+    pad = F.pad(seq, (0, 0, width - 1, 0))
+    out = torch.zeros_like(seq)
+    for i in range(width):
+        out = out + pad[:, i:i + seq.shape[1], :] * w[i]
+    return out + b
+
+
+def _mamba_heads(xbc: torch.Tensor, d_inner: int, n: int):
+    xs = xbc[..., :d_inner]
+    bmat = xbc[..., d_inner:d_inner + n]
+    cmat = xbc[..., d_inner + n:]
+    return xs, bmat, cmat
+
+
+def mamba2_forward(
+    params: PyTree, cfg: ModelConfig, x: torch.Tensor, *, impl: str = "kernel",
+) -> tuple[torch.Tensor, PyTree]:
+    """Full-sequence Mamba2.  Returns (y, cache) where cache holds the final
+    SSM state (v's dtype) and the conv tail (for decode)."""
+    b, s, _ = x.shape
+    d_inner, heads, hdim, n = _mamba_dims(cfg)
+    zxbcdt = linear(params["in_proj"], x)
+    z = zxbcdt[..., :d_inner]
+    xbc_in = zxbcdt[..., d_inner:2 * d_inner + 2 * n]
+    dt_raw = zxbcdt[..., -heads:]
+
+    xbc = F.silu(_causal_conv(xbc_in, params["conv_w"].to(x.dtype),
+                              params["conv_b"].to(x.dtype)))
+    xs, bmat, cmat = _mamba_heads(xbc, d_inner, n)
+
+    dt = F.softplus(dt_raw.float() + params["dt_bias"])                    # (b,s,h)
+    a = -torch.exp(params["a_log"])                                        # (h,)
+    log_decay = dt * a                                                     # <= 0
+    xh = xs.reshape(b, s, heads, hdim)
+    v = xh * dt[..., None].to(x.dtype)
+    # head-broadcast views (head stride 0): the kernel reads them in place
+    k = bmat[:, :, None, :].expand(b, s, heads, n)
+    q = cmat[:, :, None, :].expand(b, s, heads, n)
+
+    y, state = chunked_decay_attention(q, k, v, log_decay, cfg.ssm_chunk, impl=impl)
+    state = state.to(v.dtype)
+    y = y + xh * params["d_skip"].to(x.dtype)[None, None, :, None]
+    y = y.reshape(b, s, d_inner)
+    y = rmsnorm(params["out_norm"], y * F.silu(z))
+    y = linear(params["out_proj"], y)
+    # the last W-1 pre-conv inputs, zero-padded in front for a short prompt;
+    # a copy, so the cache does not hold the whole projection alive
+    tail = xbc_in[:, -(CONV_W - 1):, :]
+    conv = F.pad(tail, (0, 0, CONV_W - 1 - tail.shape[1], 0)).contiguous()
+    return y, {"state": state, "conv": conv}
+
+
+def mamba2_decode(
+    params: PyTree, cfg: ModelConfig, x: torch.Tensor, cache: PyTree
+) -> tuple[torch.Tensor, PyTree]:
+    """One-token step.  x: (B,1,d); cache: {state (b,h,n,p), conv (b,W-1,c)};
+    returns new cache tensors."""
+    b = x.shape[0]
+    d_inner, heads, hdim, n = _mamba_dims(cfg)
+    zxbcdt = linear(params["in_proj"], x)
+    z = zxbcdt[..., :d_inner]
+    xbc_new = zxbcdt[:, 0, d_inner:2 * d_inner + 2 * n]                   # (b,c)
+    dt_raw = zxbcdt[..., -heads:]
+
+    conv_in = torch.cat([cache["conv"], xbc_new[:, None, :]], dim=1)      # (b,W,c)
+    w = params["conv_w"].to(x.dtype)
+    xbc = F.silu(torch.einsum("bwc,wc->bc", conv_in, w)
+                 + params["conv_b"].to(x.dtype))
+    xs, bmat, cmat = _mamba_heads(xbc, d_inner, n)
+
+    dt = F.softplus(dt_raw[:, 0].float() + params["dt_bias"])             # (b,h)
+    a = torch.exp(dt * -torch.exp(params["a_log"]))
+    xh = xs.reshape(b, heads, hdim)
+    v = xh * dt[..., None].to(x.dtype)
+    k = bmat[:, None, :].expand(b, heads, n)
+    q = cmat[:, None, :].expand(b, heads, n)
+    y, state = decay_attention_step(q, k, v, a.to(x.dtype), cache["state"])
+    y = y + xh * params["d_skip"].to(x.dtype)[None, :, None]
+    y = y.reshape(b, 1, d_inner)
+    y = rmsnorm(params["out_norm"], y * F.silu(z))
+    y = linear(params["out_proj"], y)
+    return y, {"state": state, "conv": conv_in[:, 1:, :]}
+
+
+def mamba2_cache_init(cfg: ModelConfig, batch: int, dtype, device,
+                      n: int | tuple[int, ...] | None = None) -> PyTree:
+    """A zero Mamba2 cache, or caches stacked on leading axes ``n``."""
+    d_inner, heads, hdim, ns = _mamba_dims(cfg)
+    lead = _lead(n)
+    return {
+        "state": torch.zeros(lead + (batch, heads, ns, hdim), dtype=dtype, device=device),
+        "conv": torch.zeros(lead + (batch, CONV_W - 1, d_inner + 2 * ns), dtype=dtype,
+                            device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# xLSTM blocks: not ported yet
+# ---------------------------------------------------------------------------
+
+def mlstm_init(*args, **kwargs):
+    raise NotImplementedError(_XLSTM)
+
+
+def mlstm_forward(*args, **kwargs):
+    raise NotImplementedError(_XLSTM)
+
+
+def mlstm_decode(*args, **kwargs):
+    raise NotImplementedError(_XLSTM)
+
+
+def slstm_init(*args, **kwargs):
+    raise NotImplementedError(_XLSTM)
+
+
+def slstm_forward(*args, **kwargs):
+    raise NotImplementedError(_XLSTM)
+
+
+def slstm_decode(*args, **kwargs):
+    raise NotImplementedError(_XLSTM)

@@ -1,15 +1,16 @@
-"""Decoder-only transformer, dense GQA blocks (port of the decoder part of
-``repro.models.transformer``).
+"""Decoder-only transformer with dense GQA blocks, and the Zamba2 hybrid
+(port of the decoder and hybrid parts of ``repro.models.transformer``).
 
 Parameters keep the reference's *stacked* layout: ``params["blocks"]``
-holds every block's leaves with a leading ``num_layers`` axis, so the
+holds every block's leaves with a leading ``num_layers`` axis; the hybrid's
+``params["chunks"]`` holds its Mamba2 blocks on ``(n_chunks, attn_every)``
+axes and ``params["tail"]`` the leftover ones on one axis.  So the
 reference's ``api.init`` params bridge across unchanged.  The reference's
-``jax.lax.scan`` over that axis is a Python loop over layers here (PyTorch
-runs eagerly; there is nothing to trace).
+``jax.lax.scan`` over those axes is a Python loop here (PyTorch runs
+eagerly; there is nothing to trace).
 
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP item:
-MoE blocks, MLA, the multi-token-prediction head, the xLSTM and the Zamba2
-hybrid assemblies.
+MoE blocks, MLA, the multi-token-prediction head, the xLSTM assembly.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm
 from repro_torch.models.layers import (embed, embedding_init, linear, linear_init,
                                        mlp_apply, mlp_init, norm_apply, norm_init,
                                        unembed)
@@ -34,8 +36,9 @@ def _act_dtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.activation_dtype]
 
 
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.kind != "decoder":
+def _ported(cfg: ModelConfig) -> None:
+    """Raises for what the port does not run yet."""
+    if cfg.kind not in ("decoder", "hybrid"):
         raise NotImplementedError(
             f"model kind {cfg.kind!r} is not ported yet: ROADMAP Queue 1 item 15")
     if cfg.is_moe:
@@ -99,6 +102,11 @@ def _layer(stack: PyTree, i: int) -> PyTree:
     return tree_map(lambda a: a[i], stack)
 
 
+def _stack(trees: list[PyTree], lead: tuple[int, ...]) -> PyTree:
+    """Stack same-structure trees on new leading axes ``lead``."""
+    return tree_map(lambda *xs: torch.stack(xs).reshape(*lead, *xs[0].shape), *trees)
+
+
 # ---------------------------------------------------------------------------
 # Decoder-only model
 # ---------------------------------------------------------------------------
@@ -106,7 +114,7 @@ def _layer(stack: PyTree, i: int) -> PyTree:
 def decoder_init(gen: torch.Generator, cfg: ModelConfig, device) -> PyTree:
     """Random params from ``gen`` (the reference's distributions; not its
     numbers), on ``device``."""
-    _dense_only(cfg)
+    _ported(cfg)
     dt = _dtype(cfg)
     params: PyTree = {
         "embed": embedding_init(gen, cfg.vocab_size, cfg.d_model, dt, device),
@@ -155,7 +163,7 @@ def decoder_forward(
     ``(L, B, S, Hkv, D)``.  ``window`` > 0 applies sliding-window attention.
     ``labels`` only feed the reference's MTP head, which is not ported.
     """
-    _dense_only(cfg)
+    _ported(cfg)
     _check_params(params)
     del labels
     x = _embed_inputs(params, cfg, tokens, media_embeds)
@@ -169,10 +177,7 @@ def decoder_forward(
             kvs.append(kv)
     x = norm_apply(cfg.norm_kind, params["final_norm"], x)
     logits = _logits(params, cfg, x)
-    caches = None
-    if collect_cache:
-        caches = {"blocks": {name: torch.stack([kv[name] for kv in kvs])
-                             for name in ("k", "v")}}
+    caches = {"blocks": _stack(kvs, (cfg.num_layers,))} if collect_cache else None
     return logits, caches, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -187,7 +192,7 @@ def decoder_decode_step(
 ) -> tuple[torch.Tensor, PyTree]:
     """One-token serve step against the KV cache, which it updates in place
     (the returned cache is the same tensors)."""
-    _dense_only(cfg)
+    _ported(cfg)
     _check_params(params)
     x = embed(params["embed"], token, _act_dtype(cfg))
     stack = cache["blocks"]
@@ -200,11 +205,167 @@ def decoder_decode_step(
 
 def decoder_cache_init(cfg: ModelConfig, batch: int, cache_len: int, dtype,
                        device) -> PyTree:
-    _dense_only(cfg)
+    _ported(cfg)
     hd = cfg.resolved_head_dim
     shape = (cfg.num_layers, batch, cache_len, cfg.num_kv_heads, hd)
     return {"blocks": {"k": torch.zeros(shape, dtype=dtype, device=device),
                        "v": torch.zeros(shape, dtype=dtype, device=device)}}
+
+
+# ---------------------------------------------------------------------------
+# Zamba2 hybrid (Mamba2 chunks + one shared attention block)
+# ---------------------------------------------------------------------------
+
+def hybrid_layout(cfg: ModelConfig) -> tuple[int, int]:
+    """(num_chunks, tail) — ``num_chunks`` groups of ``attn_every`` mamba
+    blocks, each preceded by the shared attention block; ``tail`` leftover
+    mamba blocks."""
+    per = max(cfg.attn_every, 1)
+    return cfg.num_layers // per, cfg.num_layers % per
+
+
+def _mamba_layers_init(gen, cfg: ModelConfig, device, n) -> PyTree:
+    dt = _dtype(cfg)
+    return {"norm": norm_init(cfg.norm_kind, cfg.d_model, dt, device, n),
+            "mamba": ssm.mamba2_init(gen, cfg, dt, device, n)}
+
+
+def hybrid_init(gen: torch.Generator, cfg: ModelConfig, device) -> PyTree:
+    """Random params from ``gen`` (the reference's distributions), on
+    ``device``; ``"tail"`` only when there are leftover mamba blocks."""
+    _ported(cfg)
+    dt = _dtype(cfg)
+    n_chunks, tail = hybrid_layout(cfg)
+    params: PyTree = {
+        "embed": embedding_init(gen, cfg.vocab_size, cfg.d_model, dt, device),
+        "chunks": _mamba_layers_init(gen, cfg, device, (n_chunks, max(cfg.attn_every, 1))),
+        "shared_attn": {
+            # zamba2: the shared block consumes concat(hidden, original embedding)
+            "in_proj": linear_init(gen, 2 * cfg.d_model, cfg.d_model, dt, device),
+            "block": block_init(gen, cfg, device),
+        },
+        "final_norm": norm_init(cfg.norm_kind, cfg.d_model, dt, device),
+        "head": linear_init(gen, cfg.d_model, cfg.vocab_size, dt, device),
+    }
+    if tail > 0:
+        params["tail"] = _mamba_layers_init(gen, cfg, device, tail)
+    return params
+
+
+def hybrid_forward(
+    params: PyTree,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,
+    *,
+    window: int = 0,
+    impl: str = "kernel",
+    collect_cache: bool = False,
+) -> tuple[torch.Tensor, PyTree | None, torch.Tensor]:
+    """Full-sequence forward (prefill); ``impl`` picks the shared block's
+    attention and every Mamba2 scan: the CUDA kernels or plain PyTorch.
+
+    Returns (logits, caches | None, aux_loss).  The caches keep the
+    reference's stacked layout: ``chunks/attn_kv/{k,v}`` (n_chunks, B, S,
+    Hkv, D), ``chunks/mamba/{state,conv}`` (n_chunks, attn_every, B, ...),
+    ``tail/{state,conv}`` (tail, B, ...) where the model has a tail.
+    """
+    _ported(cfg)
+    x = embed(params["embed"], tokens, _act_dtype(cfg))
+    x0 = x
+    b, s, _ = x.shape
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
+    n_chunks, tail = hybrid_layout(cfg)
+    per = max(cfg.attn_every, 1)
+    shared = params["shared_attn"]
+    kvs, chunk_mc, tail_mc = [], [], []
+
+    def mamba(p, x):
+        y, c = ssm.mamba2_forward(p["mamba"], cfg, norm_apply(cfg.norm_kind, p["norm"], x),
+                                  impl=impl)
+        return x + y, c
+
+    for c in range(n_chunks):
+        h = linear(shared["in_proj"], torch.cat([x, x0], dim=-1))
+        y, kv = block_forward(shared["block"], cfg, h, positions, window=window,
+                              impl=impl)
+        x = x + y
+        chunk = _layer(params["chunks"], c)
+        for j in range(per):
+            x, mc = mamba(_layer(chunk, j), x)
+            if collect_cache:
+                chunk_mc.append(mc)
+        if collect_cache:
+            kvs.append(kv)
+    for j in range(tail):
+        x, mc = mamba(_layer(params["tail"], j), x)
+        if collect_cache:
+            tail_mc.append(mc)
+    x = norm_apply(cfg.norm_kind, params["final_norm"], x)
+    logits = _logits(params, cfg, x)
+    caches = None
+    if collect_cache:
+        caches = {"chunks": {"attn_kv": _stack(kvs, (n_chunks,)),
+                             "mamba": _stack(chunk_mc, (n_chunks, per))}}
+        if tail > 0:
+            caches["tail"] = _stack(tail_mc, (tail,))
+    return logits, caches, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _mamba_decode_into(p: PyTree, cfg: ModelConfig, x: torch.Tensor,
+                       cache: PyTree) -> torch.Tensor:
+    """One Mamba2 decode step; its new state and conv tail are written into
+    ``cache`` (views of the stacked cache)."""
+    y, new = ssm.mamba2_decode(p["mamba"], cfg, norm_apply(cfg.norm_kind, p["norm"], x),
+                               cache)
+    cache["state"].copy_(new["state"])
+    cache["conv"].copy_(new["conv"])
+    return x + y
+
+
+def hybrid_decode_step(
+    params: PyTree,
+    cfg: ModelConfig,
+    token: torch.Tensor,       # (B, 1) int
+    cache: PyTree,
+    pos: int,
+    *,
+    window: int = 0,
+) -> tuple[torch.Tensor, PyTree]:
+    """One-token serve step; updates the KV caches and the Mamba2 states in
+    place (the returned cache is the same tensors)."""
+    _ported(cfg)
+    x = embed(params["embed"], token, _act_dtype(cfg))
+    x0 = x
+    n_chunks, tail = hybrid_layout(cfg)
+    per = max(cfg.attn_every, 1)
+    shared = params["shared_attn"]
+    for c in range(n_chunks):
+        h = linear(shared["in_proj"], torch.cat([x, x0], dim=-1))
+        y, _ = block_decode(shared["block"], cfg, h, _layer(cache["chunks"]["attn_kv"], c),
+                            pos, window=window)
+        x = x + y
+        chunk, mcache = _layer(params["chunks"], c), _layer(cache["chunks"]["mamba"], c)
+        for j in range(per):
+            x = _mamba_decode_into(_layer(chunk, j), cfg, x, _layer(mcache, j))
+    for j in range(tail):
+        x = _mamba_decode_into(_layer(params["tail"], j), cfg, x, _layer(cache["tail"], j))
+    x = norm_apply(cfg.norm_kind, params["final_norm"], x)
+    return _logits(params, cfg, x), cache
+
+
+def hybrid_cache_init(cfg: ModelConfig, batch: int, cache_len: int, dtype,
+                      device) -> PyTree:
+    _ported(cfg)
+    n_chunks, tail = hybrid_layout(cfg)
+    per = max(cfg.attn_every, 1)
+    shape = (n_chunks, batch, cache_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    cache: PyTree = {"chunks": {
+        "attn_kv": {"k": torch.zeros(shape, dtype=dtype, device=device),
+                    "v": torch.zeros(shape, dtype=dtype, device=device)},
+        "mamba": ssm.mamba2_cache_init(cfg, batch, dtype, device, (n_chunks, per))}}
+    if tail > 0:
+        cache["tail"] = ssm.mamba2_cache_init(cfg, batch, dtype, device, tail)
+    return cache
 
 
 # ---------------------------------------------------------------------------

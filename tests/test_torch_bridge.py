@@ -2,7 +2,8 @@
 
 * ``repro_torch.bridge`` carries the reference's parameters into the port
   and back bit-exactly (ResNet-4 / ResNet-8 in f32, TinyLlama smoke in
-  bf16, which numpy only knows as ``ml_dtypes.bfloat16``), and
+  bf16, which numpy only knows as ``ml_dtypes.bfloat16``, Zamba2 smoke in
+  bf16 with its f32 ``a_log`` / ``dt_bias`` and two-level stacks), and
   ``load_npz`` reads a ``checkpoint.io.save_pytree`` file without JAX;
 * the port flattens trees in ``jax.tree.flatten``'s (sorted-key) order,
   which the masked-Adam pack layout and every block mask depend on;
@@ -65,6 +66,30 @@ def test_bf16_round_trip_is_bit_exact():
         assert np.array_equal(a.astype(np.float32), t.float().numpy()), path
 
 
+def test_mixed_dtype_stacked_round_trip_is_bit_exact():
+    """zamba2-7b smoke in bf16: bf16 leaves beside the f32 ``a_log`` and
+    ``dt_bias``, Mamba2 leaves stacked on two axes (chunks, blocks per
+    chunk); every leaf crosses with its own dtype, bit for bit."""
+    import torch
+    cfg = get_config("zamba2-7b", smoke=True).with_(param_dtype="bfloat16",
+                                                     activation_dtype="bfloat16")
+    ref = jax.tree.map(np.asarray, japi.init(jax.random.key(0), cfg))
+    tree = bridge.from_numpy_tree(ref, "cpu")
+    back = bridge.to_numpy_tree(tree)
+    ref_flat, back_flat = tree_paths(ref), tree_paths(back)
+    assert [p for p, _ in ref_flat] == [p for p, _ in back_flat]
+    dtypes = set()
+    for (path, a), (_, t), (_, b) in zip(ref_flat, tree_paths(tree), back_flat):
+        assert b.dtype == a.dtype and b.shape == a.shape == tuple(t.shape), path
+        assert t.dtype == {"bfloat16": torch.bfloat16,
+                           "float32": torch.float32}[a.dtype.name], path
+        assert np.array_equal(a.view(np.uint8), b.view(np.uint8)), path
+        dtypes.add((path[-1], a.dtype.name))
+    assert {("a_log", "float32"), ("dt_bias", "float32"),
+            ("conv_w", "bfloat16")} <= dtypes
+    assert tree["chunks"]["mamba"]["a_log"].shape == (2, 2, 8)
+
+
 def test_flatten_order_matches_jax(ref_params):
     tree = bridge.from_numpy_tree(ref_params)
     jax_paths = [tuple(str(k.key) for k in path)
@@ -101,11 +126,16 @@ def test_port_and_chip_smoke_import_no_jax():
         for name in names:
             importlib.import_module(name)
         serving = ["repro_torch.configs.base", "repro_torch.configs.tinyllama_1_1b",
+                   "repro_torch.configs.zamba2_7b",
                    "repro_torch.models.layers", "repro_torch.models.attention",
+                   "repro_torch.models.ssm",
                    "repro_torch.models.transformer", "repro_torch.models.api",
                    "repro_torch.kernels.flash_attention.ref",
                    "repro_torch.kernels.flash_attention.kernel",
                    "repro_torch.kernels.flash_attention.ops",
+                   "repro_torch.kernels.ssd_chunk.ref",
+                   "repro_torch.kernels.ssd_chunk.kernel",
+                   "repro_torch.kernels.ssd_chunk.ops",
                    "repro_torch.launch.steps", "repro_torch.launch.serve"]
         missing = sorted(set(serving) - set(names))
         import chip_smoke

@@ -1,0 +1,300 @@
+"""The port's SSD chunk scan against the JAX package's.
+
+* the plain PyTorch version ``ssd_ref`` (what the wrapper runs for a CPU
+  tensor) against the jnp oracle ``ssd_ref``;
+* ``ops.ssd_scan`` in the model layout against the Pallas ``ssd_scan`` in
+  interpret mode, over the reference's four kernel cases, Zamba2's smoke
+  shape, a ragged chunk (S 12 < chunk 16), odd N / P / chunk (5 / 7 / 13)
+  and a slow decay over 8 chunks
+  (log_a in (-0.01, 0): the state carried between chunks matters), in f32
+  and bf16;
+* ``chunked_decay_attention(impl="kernel")`` is ``ssd_scan`` (the plain
+  chunked form is held against the reference in ``test_torch_ssm.py``);
+* head-broadcast (stride-0) q and k against contiguous copies; the
+  wrapper's checks, its tile choice and its C interface (``struct
+  SsdParams`` in the CUDA source, field for field); the phase-timing
+  tool's markers in the CUDA source;
+* the CUDA kernel against the plain version, on a card only (``gpu``).
+
+Tolerances: ``ssd_ref`` ≤ 5e-5 (f32, sums in another order; rounding
+builds up over up to 512 sequential steps with states up to ~10);
+``ssd_scan`` ≤ 2e-4 abs + rel in f32 (the reference's own
+kernel-vs-oracle bound) and the final state ≤ 2e-4 for both dtypes (f32 on
+both sides); in bf16 each element of ``y`` ≤ 2e-2 abs + rel and each output
+row within 1e-2 of its norm (both sides compute in f32 and round ``y``
+once).
+"""
+
+import ctypes
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ssd_chunk import ops as jops
+from repro.kernels.ssd_chunk.ref import ssd_ref as j_ssd_ref
+from repro_torch import bridge
+from repro_torch.kernels import build
+from repro_torch.kernels.ssd_chunk import kernel as sk
+from repro_torch.kernels.ssd_chunk import ops, phase_timing, ssd_chunk_kernel, ssd_ref
+from repro_torch.models import ssm
+
+torch.set_num_threads(1)   # one thread per xdist worker (see test_torch_masked_adam)
+
+CASES = [
+    # (b, h, s, n, p, chunk) — tests/test_kernels_ssd.py
+    (1, 2, 128, 128, 128, 64),
+    (2, 3, 256, 128, 128, 128),
+    (1, 2, 128, 64, 128, 32),
+    (1, 1, 256, 128, 64, 128),
+]
+SMOKE = (2, 8, 32, 16, 32, 16)      # zamba2-7b smoke: 8 heads, N 16, P 32, chunk 16
+RAGGED = (2, 3, 12, 16, 32, 16)     # S 12 < chunk 16: one chunk of 12
+ODD = (1, 3, 52, 5, 7, 13)          # odd N, P and chunk: padded in the kernel
+SLOW = (1, 2, 512, 32, 32, 64)      # log_a in (-0.01, 0) over 8 chunks
+ALL = CASES + [SMOKE, RAGGED, ODD, SLOW]
+SEQ_TOL = 5e-5                      # ssd_ref: 512 sequential f32 steps, |S| up to ~10
+TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+ROW_TOL = 1e-2                      # bf16, of the row's norm over P
+STATE_TOL = 2e-4
+
+
+def _inputs(case, dtype="float32", seed=0):
+    """q, k (B,S,H,N), v (B,S,H,P) as numpy arrays of ``dtype`` (bf16 as
+    ``ml_dtypes.bfloat16``, rounded by JAX), log_a (B,S,H) f32: the
+    reference's regime (decays in (0.8, 1)), or (0.99, 1) for ``SLOW``."""
+    b, h, s, n, p, _ = case
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, s, h, n)).astype(np.float32) * 0.3
+    k = rng.standard_normal((b, s, h, n)).astype(np.float32) * 0.3
+    v = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    if case == SLOW:
+        log_a = -rng.uniform(0.0, 0.01, (b, s, h)).astype(np.float32)
+    else:
+        log_a = -np.abs(rng.standard_normal((b, s, h))).astype(np.float32) * 0.2
+    cast = [np.asarray(jnp.asarray(a, jnp.dtype(dtype))) for a in (q, k, v)]
+    return (*cast, log_a)
+
+
+def _torch(arrs):
+    return [bridge.from_numpy_tree({"x": a})["x"] for a in arrs]
+
+
+def _close(out: torch.Tensor, ref, tol: float, msg: str = "") -> None:
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32),
+                               atol=tol, rtol=tol, err_msg=msg)
+
+
+@pytest.mark.parametrize("case", ALL)
+def test_ref_matches_jax_ref(case):
+    q, k, v, la = _inputs(case, seed=1)
+    bhs = [np.swapaxes(a, 1, 2) for a in (q, k, v, la)]
+    y_j, st_j = j_ssd_ref(*map(jnp.asarray, bhs))
+    y, st = ssd_ref(*_torch(bhs))
+    assert y.dtype == torch.float32 and st.dtype == torch.float32
+    _close(y, y_j, SEQ_TOL)
+    _close(st, st_j, SEQ_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ALL)
+def test_scan_matches_jax_pallas_interpret(case, dtype):
+    chunk = case[-1]
+    q, k, v, la = _inputs(case, dtype, seed=hash(case) % 2**31)
+    y_j, st_j = jops.ssd_scan(*map(jnp.asarray, (q, k, v, la)), chunk=chunk,
+                              interpret=True)
+    y, st = ops.ssd_scan(*_torch((q, k, v, la)), chunk=chunk)
+    assert y.dtype == getattr(torch, dtype) and y.shape == v.shape and y.is_contiguous()
+    assert st.dtype == torch.float32 and st.shape == (case[0], case[1], case[3], case[4])
+    _close(y, y_j, TOL[dtype])
+    _close(st, st_j, STATE_TOL)
+    if dtype == "bfloat16":
+        ref = torch.from_numpy(np.asarray(y_j, np.float32))
+        row = (y.float() - ref).norm(dim=-1) / ref.norm(dim=-1).clamp_min(1e-30)
+        assert float(row.max()) <= ROW_TOL
+
+
+def test_slow_decay_carries_the_state():
+    """The slow-decay case depends on the carried state: dropping it (each
+    chunk from zero) moves the output far beyond the tolerance."""
+    q, k, v, la = _torch(_inputs(SLOW, seed=2))
+    chunk = SLOW[-1]
+    y, _ = ops.ssd_scan(q, k, v, la, chunk=chunk)
+    pieces = [ops.ssd_scan(*(t[:, i:i + chunk] for t in (q, k, v, la)), chunk=chunk)[0]
+              for i in range(0, SLOW[2], chunk)]
+    assert float((y - torch.cat(pieces, dim=1)).abs().max()) > 100 * TOL["float32"]
+
+
+def test_kernel_impl_is_the_scan():
+    q, k, v, la = _torch(_inputs(SMOKE, seed=7))
+    y, st = ssm.chunked_decay_attention(q, k, v, la, SMOKE[-1], impl="kernel")
+    y2, st2 = ops.ssd_scan(q, k, v, la, chunk=SMOKE[-1])
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+    with pytest.raises(ValueError, match="impl"):
+        ssm.chunked_decay_attention(q, k, v, la, SMOKE[-1], impl="pallas")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_broadcast_views_equal_copies(dtype):
+    """q and k as ``expand`` views over heads (stride 0, as ``mamba2_forward``
+    passes them) give what contiguous copies give."""
+    b, h, s, n, p, chunk = SMOKE
+    q, k, v, la = _torch(_inputs(SMOKE, dtype, seed=8))
+    qb = q[:, :, :1].expand(b, s, h, n)
+    kb = k[:, :, :1].expand(b, s, h, n)
+    assert qb.stride(2) == 0 and kb.stride(2) == 0
+    y, st = ops.ssd_scan(qb, kb, v, la, chunk=chunk)
+    y2, st2 = ops.ssd_scan(qb.contiguous(), kb.contiguous(), v, la, chunk=chunk)
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+
+
+def test_kernel_layout_and_strided_out():
+    q, k, v, la = (t.transpose(1, 2) for t in _torch(_inputs(SMOKE, seed=9)))
+    y_ref, st_ref = ssd_ref(q, k, v, la)
+    y, st = ssd_chunk_kernel(q, k, v, la, chunk=SMOKE[-1])
+    assert torch.equal(y, y_ref) and torch.equal(st, st_ref)
+    buf = torch.full((v.shape[0], v.shape[2], v.shape[1], v.shape[3]), float("nan"))
+    got, _ = ssd_chunk_kernel(q, k, v, la, chunk=SMOKE[-1], out=buf.transpose(1, 2))
+    assert got.data_ptr() == buf.data_ptr()
+    assert torch.equal(buf.transpose(1, 2), y_ref)
+
+
+@pytest.mark.parametrize("bad", ["dim", "dtype", "mixed", "log_a_dtype", "log_a_shape",
+                                 "shape", "n", "p", "chunk_zero", "not_divisible",
+                                 "chunk_too_long", "no_fit", "out", "empty"])
+def test_wrapper_rejects(bad):
+    b, h, s, n, p = 1, 2, 32, 16, 8
+    q, k = torch.zeros(b, h, s, n), torch.zeros(b, h, s, n)
+    v, la = torch.zeros(b, h, s, p), torch.zeros(b, h, s)
+    kw = {"chunk": 16}
+    if bad == "dim":
+        q = q[0]
+    elif bad == "dtype":
+        q, k, v = q.half(), k.half(), v.half()
+    elif bad == "mixed":
+        k = k.to(torch.bfloat16)
+    elif bad == "log_a_dtype":
+        la = la.to(torch.bfloat16)
+    elif bad == "log_a_shape":
+        la = torch.zeros(b, h, s + 1)
+    elif bad == "shape":
+        k = torch.zeros(b, h, s, n + 1)
+    elif bad == "n":
+        q, k = torch.zeros(b, h, s, 130), torch.zeros(b, h, s, 130)
+    elif bad == "p":
+        v = torch.zeros(b, h, s, 129)
+    elif bad == "chunk_zero":
+        kw["chunk"] = 0
+    elif bad == "not_divisible":
+        kw["chunk"] = 12
+    elif bad == "chunk_too_long":
+        q, k = torch.zeros(b, h, 512, n), torch.zeros(b, h, 512, n)
+        v, la = torch.zeros(b, h, 512, p), torch.zeros(b, h, 512)
+        kw["chunk"] = 512
+    elif bad == "no_fit":      # N = P = 128 at chunk 256: 345 KB of shared memory
+        q, k = torch.zeros(b, h, 256, 128), torch.zeros(b, h, 256, 128)
+        v, la = torch.zeros(b, h, 256, 128), torch.zeros(b, h, 256)
+        kw["chunk"] = 256
+    elif bad == "out":
+        kw["out"] = torch.zeros(b, h, s, p + 1)
+    elif bad == "empty":
+        q, k = torch.zeros(b, h, 0, n), torch.zeros(b, h, 0, n)
+        v, la = torch.zeros(b, h, 0, p), torch.zeros(b, h, 0)
+    with pytest.raises((ValueError, TypeError)):
+        ssd_chunk_kernel(q, k, v, la, **kw)
+
+
+def test_tile_choice():
+    """Zamba2's layer (N 64, P 64, chunk 128) runs 32-row query tiles in
+    112,128 bytes of shared memory (two CTAs fit in an SM's 228 KB); the
+    reference's N = P = chunk = 128 cases fit only at 16 rows; ragged
+    chunks pad to a multiple of 4."""
+    assert sk.tile_rows(64, 64, 128) == 32
+    assert sk._smem_bytes(64, 64, 128, 32) == 112_128
+    assert 2 * (112_128 + 1024) <= 228 * 1024
+    assert sk.tile_rows(128, 128, 128) == 16
+    assert sk._smem_bytes(128, 128, 128, 16) <= sk.MAX_SMEM_BYTES
+    assert sk._smem_bytes(128, 128, 128, 32) > sk.MAX_SMEM_BYTES
+    assert sk.tile_rows(16, 32, 12) == 12
+    assert sk.tile_rows(16, 32, 13) == 16
+
+
+def test_params_struct_matches_cuda_source():
+    """``_Params`` is ``struct SsdParams`` field for field: same names in the
+    same order, pointers / long long[4] / long long[3] / int as declared."""
+    src = (build.CSRC / "ssd_chunk.cu").read_text()
+    body = re.search(r"struct SsdParams \{(.*?)\};", src, re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    c_fields = []
+    for decl in body.split(";"):
+        decl = decl.strip()
+        if not decl:
+            continue
+        ctype, names = re.match(r"(long long|(?:const )?\w+\*?)\s+(.*)", decl).groups()
+        for name in names.split(","):
+            name = name.strip()
+            arr = re.match(r"(\w+)\[(\d+)\]", name)
+            c_fields.append((arr.group(1) if arr else name,
+                             f"{ctype}[{arr.group(2)}]" if arr else ctype))
+    expect = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+              "const float*": ctypes.c_void_p, "float*": ctypes.c_void_p,
+              "long long[4]": ctypes.c_longlong * 4,
+              "long long[3]": ctypes.c_longlong * 3, "int": ctypes.c_int}
+    py_fields = sk._Params._fields_
+    assert [n for n, _ in c_fields] == [n for n, _ in py_fields]
+    for (name, ctype), (_, pytype) in zip(c_fields, py_fields):
+        assert expect[ctype] == pytype, name
+
+
+def test_cuda_limits_match_the_wrapper():
+    src = (build.CSRC / "ssd_chunk.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert int(consts["kMaxDim"]) == sk.MAX_DIM
+    assert int(consts["kMaxChunk"]) == sk.MAX_CHUNK
+    assert int(consts["kMaxSmem"]) == sk.MAX_SMEM_BYTES
+
+
+def test_launcher_declares_its_c_signature(monkeypatch):
+    launch = type("Launch", (), {"argtypes": None, "restype": ctypes.c_int})()
+    lib = type("Lib", (), {"ssd_chunk_launch": launch})()
+    monkeypatch.setattr(build, "load", lambda name: lib)
+    fn = sk._lib().ssd_chunk_launch
+    assert fn.argtypes == [ctypes.POINTER(sk._Params), ctypes.c_void_p]
+    assert fn.restype is ctypes.c_int
+
+
+def test_phase_timing_instruments_every_phase():
+    """The on-card phase-timing tool finds each barrier it instruments in
+    the kernel source exactly once (it raises otherwise)."""
+    src = phase_timing.instrumented_source(448)
+    assert src.count("clock64()") == 6      # the start mark and five phase ends
+    assert "g_dbg[448 * 5]" in src and "ssd_dbg_read" in src
+
+
+def test_ssd_chunk_is_built_with_the_port():
+    assert "ssd_chunk" in build.KERNELS
+    assert (build.CSRC / "ssd_chunk.cu").is_file()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernel_matches_plain(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    name = str(dtype)[6:]
+    for b, h, s, n, p, chunk in ALL:
+        q = (torch.randn(b, s, h, n, device="cuda", generator=gen) * 0.3).to(dtype)
+        k = (torch.randn(b, s, h, n, device="cuda", generator=gen) * 0.3).to(dtype)
+        v = torch.randn(b, s, h, p, device="cuda", generator=gen).to(dtype)
+        la = -torch.rand(b, s, h, device="cuda", generator=gen) * 0.2
+        before = ssd_chunk_kernel.launches
+        y, st = ops.ssd_scan(q, k, v, la, chunk=chunk)
+        torch.cuda.synchronize()
+        assert ssd_chunk_kernel.launches == before + 1
+        y_ref, st_ref = ops.ssd_reference(q, k, v, la)
+        torch.testing.assert_close(y.float(), y_ref.float(), rtol=TOL[name],
+                                   atol=TOL[name])
+        torch.testing.assert_close(st, st_ref, rtol=STATE_TOL, atol=STATE_TOL)
