@@ -22,13 +22,16 @@ Phases, in order; any failure raises and the script exits non-zero:
               Then fused-vs-unfused cross-checks for FedAvg / FedProx / MOON.
 5. profile  — one FNU round under ``torch.profiler``: device time by kernel.
 6. flash    — ``flash_attention`` against its plain PyTorch version on the
-              card: the reference's seven cases and four ragged ones, f32
-              and bf16, and TinyLlama's prefill layer (B 4, H 32, Hkv 4,
-              S 4,096, D 64, bf16) causal and with a 1,024 window, and
+              card: the reference's seven cases, four ragged ones and three
+              ragged ones at the bf16 body's two widths (DP 64, DP 128 with
+              D 112), f32 and bf16, and TinyLlama's prefill layer (B 4, H 32,
+              Hkv 4, S 4,096, D 64, bf16) causal and with a 1,024 window, and
               Zamba2's shared-attention layer (B 4, H 32, Hkv 32, S 4,096,
               D 112, bf16, causal), each element and each output row held
-              to its limit.  Times (CUDA events) at both layers, their
-              bounds, and ``F.scaled_dot_product_attention`` as a yardstick.
+              to its limit.  The bf16 body's ``HGMMA`` / ``UTMALDG`` / ``HMMA``
+              instruction counts from ``cuobjdump -sass``.  Times (CUDA
+              events) at both layers, achieved TFLOP/s, their bounds, and
+              ``F.scaled_dot_product_attention`` as a yardstick.
 7. serve    — the serving path: ``serve_session`` on tinyllama-1.1b at full
               width, bf16, random weights from a seed, B 4 x 4,096 prompt,
               32 greedy tokens; every prefill layer must launch the flash
@@ -110,6 +113,13 @@ FLASH_EXTRA = [
     (2, 3, 1, 130, 130, 96, True, 50),
     (1, 2, 2, 70, 200, 128, True, 0),
     (1, 2, 1, 200, 70, 64, True, 0),
+]
+# ragged shapes at the bf16 body's two widths: DP 64 (D 32), DP 128 (D 112,
+# D 128 with a window); every row keeps a key (test_torch_flash_attention HOPPER)
+FLASH_HOPPER = [
+    (2, 2, 2, 129, 257, 32, False, 0),
+    (1, 2, 1, 200, 333, 112, True, 0),
+    (1, 3, 1, 130, 255, 128, True, 40),
 ]
 # tinyllama-1.1b's prefill attention at the serve phase's prompt: B 4, H 32,
 # Hkv 4, S 4,096, D 64, bf16
@@ -394,10 +404,9 @@ def _flash_check(case, dtype, gen) -> tuple[float, float]:
     return float(err.max()), row
 
 
-def _flash_bound_ms(b, h, hkv, sq, skv, d, causal, window, dtype) -> tuple[float, str]:
-    """Least time for one call: 4·D FLOPs per kept (query, key) pair and
-    head, counted from this call's masks, against q, k, v read and o
-    written once."""
+def _flash_flops(b, h, sq, skv, d, causal, window) -> int:
+    """4·D FLOPs per kept (query, key) pair and head, counted from the
+    call's masks."""
     qi = torch.arange(sq)[:, None]
     kj = torch.arange(skv)[None, :]
     keep = torch.ones(sq, skv, dtype=torch.bool)
@@ -405,12 +414,43 @@ def _flash_bound_ms(b, h, hkv, sq, skv, d, causal, window, dtype) -> tuple[float
         keep &= kj <= qi
     if window > 0:
         keep &= kj > qi - window
-    flops = 4 * b * h * d * int(keep.sum())
+    return 4 * b * h * d * int(keep.sum())
+
+
+def _flash_bound_ms(b, h, hkv, sq, skv, d, causal, window, dtype) -> tuple[float, str]:
+    """Least time for one call: its FLOPs (``_flash_flops``) against q, k,
+    v read and o written once."""
+    flops = _flash_flops(b, h, sq, skv, d, causal, window)
     elem = torch.finfo(dtype).bits // 8
     nbytes = elem * b * d * (2 * h * sq + 2 * hkv * skv)
     peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
     t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _flash_sass() -> dict | None:
+    """Counts of Hopper's ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load)
+    instructions, and of ``HMMA`` (mma.sync), in each bf16 body of the built
+    library's SASS; None when ``cuobjdump`` is absent."""
+    from repro_torch.kernels import build
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.access(tool, os.X_OK):
+        return None
+    sass = subprocess.run([tool, "-sass", str(build.library_path("flash_attention"))],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            fn = name if "flash_fwd_bf16" in name else None
+            if fn:
+                counts[fn] = {"HGMMA": 0, "UTMALDG": 0, "HMMA": 0}
+        elif fn and "*/" in line:   # "/*0050*/  @P0 UTMALDG.4D [UR8], [UR4] ;"
+            toks = [t for t in line.split("*/", 1)[1].split() if not t.startswith("@")]
+            op = toks[0].split(".")[0] if toks else ""
+            if op in counts[fn]:
+                counts[fn][op] += 1
+    return counts
 
 
 def _flash_layer(name: str, shape, gen) -> dict:
@@ -430,11 +470,13 @@ def _flash_layer(name: str, shape, gen) -> dict:
         qt, kt, vt, is_causal=True, enable_gqa=True), 10)
     out["bound_ms"], out["bound_by"] = _flash_bound_ms(b, h, hkv, s, s, d, True, 0,
                                                        torch.bfloat16)
+    out["tflops"] = _flash_flops(b, h, s, s, d, True, 0) / out["ms"] / 1e9
     log(f"[flash] {name} layer B{b} H{h} Hkv{hkv} S{s} D{d} bf16 causal: "
         f"kernel {out['ms']:.6f} ms plain {out['plain_ms']:.6f} ms "
         f"F.scaled_dot_product_attention {out['library_ms']:.6f} ms bound "
         f"{out['bound_ms']:.6f} ms ({out['bound_by']}; "
-        f"{100 * out['bound_ms'] / out['ms']:.2f}% of it)")
+        f"{100 * out['bound_ms'] / out['ms']:.2f}% of it, {out['tflops']:.1f} TFLOP/s "
+        f"achieved)")
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     return out
@@ -455,6 +497,16 @@ def phase_flash() -> dict:
         log(f"[flash] 7 reference cases + {len(FLASH_EXTRA)} ragged {str(dtype)[6:]}: "
             f"max abs err {err:.3g} (tolerance {FLASH_TOL[dtype]:g} abs + rel), "
             f"max row err {row:.3g} of the row's norm (limit {FLASH_ROW_TOL[dtype]:g})")
+        errs = [_flash_check(c, dtype, gen) for c in FLASH_HOPPER]
+        err, row = max(e for e, _ in errs), max(r for _, r in errs)
+        worst = max(worst, err)
+        log(f"[flash] {len(FLASH_HOPPER)} ragged at D 32 / 112 / 128 {str(dtype)[6:]}: "
+            f"max abs err {err:.3g}, max row err {row:.3g} (same limits)")
+    sass = _flash_sass()
+    if sass is None:
+        log("[flash] SASS of the bf16 body: not available (no cuobjdump)")
+    for fn, counts in (sass or {}).items():
+        log(f"[flash] SASS of {fn}: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
     layers = [("tinyllama", TINYLLAMA_ATTN, 0), ("tinyllama", TINYLLAMA_ATTN, 1024),
               ("zamba2", ZAMBA2_ATTN, 0)]
     for name, (b, h, hkv, s, _, d), window in layers:

@@ -13,24 +13,60 @@
 // Causal is aligned top-left (key j against query row i by absolute index),
 // as the reference aligns it, also when Sq != Skv.
 //
-// Design: one CTA of 128 threads (4 warps) per (query tile of 64 rows,
-// head, batch).  The CTA walks its key tiles of 64 in order (the TPU grid's
-// sequential kv axis becomes this loop), stages K and V in shared memory,
-// rescales its running max / denominator / accumulator and adds P·V.  The
-// input dtype picks one of two bodies:
-// - bfloat16 (the serving path): tensor cores through `mma.sync`
-//   m16n8k16, f32 accumulators.  Each warp owns 16 query rows; its Q
-//   fragments stay in registers, K and V fragments come from shared memory
-//   through `ldmatrix` (`.trans` for V).  The score fragments are the P
-//   fragments of the P·V product, rounded to bf16 (FlashAttention-2's
-//   layout trick); softmax and the denominator stay f32.  Tiles move as
-//   16-byte `cp.async` copies into a two-stage ring: the next K/V tile is
-//   in flight while the tensor cores work on this one.
+// Bound: operations.  Per kept (query, key) pair and head, 2·D FLOPs for
+// q.k and 2·D for p·v; TinyLlama's prefill layer (B 4, H 32, Hkv 4,
+// S 4,096, D 64, causal) is 2.75e11 FLOPs against 151 MB of q, k, v and o:
+// 0.278 ms at the card's 989 TFLOP/s bf16 tensor-core peak, 0.045 ms of
+// bytes at 3.35 TB/s; Zamba2's shared attention (H 32 = Hkv 32, D 112) is
+// 0.487 ms.  Only Hopper's `wgmma` reaches that peak, and only when its
+// operands arrive in shared memory without costing the tensor cores' issue
+// slots, so the input dtype picks one of two bodies:
+//
+// - bfloat16 (the serving path): the Hopper design.  One CTA of three
+//   warpgroups (384 threads) per (query tile of 128 rows, head, batch):
+//   * a producer warpgroup (registers lowered to 40 with `setmaxnreg`), one
+//     thread of which issues TMA loads: the Q tile once, then K and V tiles
+//     of 128 keys into a two-stage ring.  Each stage has a "full" mbarrier
+//     for K and one for V (arrive.expect_tx with the box bytes; the TMA
+//     completes the transaction) and an "empty" mbarrier that both
+//     consumers arrive on once the P·V product that read the stage has
+//     retired.
+//   * two consumer warpgroups (registers raised to 232), each owning 64
+//     query rows: S = Q Kᵀ as `wgmma.mma_async m64n128k16` with Q and K
+//     read from shared memory through descriptors (128-byte swizzle,
+//     K-major), DP/16 k-steps; the online softmax in registers (the
+//     accumulator gives each thread two rows, reduced over the quad with
+//     shuffles; exp2f with scale·log2(e) folded into one FMA; masks only on
+//     edge tiles); then O += P V as `wgmma m64n{DP}k16` with P from
+//     registers (the score accumulator's n-tiles 2kk and 2kk+1, rounded to
+//     bf16, are the A fragment of k-step kk) and V from shared memory as an
+//     MN-major operand.
+//   * tensor maps (built per launch with cuTensorMapEncodeTiled, found
+//     through the runtime's entry-point query, so no -lcuda) describe q, k
+//     and v as 4-d (D, S, heads, B) arrays with the caller's byte strides,
+//     boxes of {64, 128}, 128-byte swizzle and zero fill out of bounds:
+//     ragged S and D < DP arrive as zeros, and no thread computes an
+//     address.
+//   * DP is 64 (D <= 64) or 128 (D <= 128; D 96 and 112 run here).  A tile
+//     is DP/64 column blocks of 128 rows x 128 bytes.  Shared memory: Q
+//     16 KB + 2 stages x (K 16 KB + V 16 KB) = 80 KB at DP 64, Q 32 KB + 2 x
+//     (32 + 32 KB) = 160 KB at DP 128 (128 keys fit at DP 128, so both take
+//     128-key tiles), plus 1 KB of alignment slack and the barriers.  One
+//     CTA per SM (the consumers' registers).
+//   * Left for later: one warpgroup's softmax overlapping the other's
+//     GEMMs (FA3's ping-pong), S and P·V of consecutive tiles in flight
+//     together, persistent CTAs, packing GQA query heads into one CTA.
+//     Both consumers wait on the same barriers, so they run nearly in step:
+//     their softmaxes contend for the same issue slots and exp2 units while
+//     the tensor cores idle (kernels/flash_attention/phase_timing.py
+//     measures it; times in PERF.md).
 // - float32: f32 FMAs on the CUDA cores, as the reference's f32 math does
-//   it (tensor cores would round to TF32).  Thread (rg, cg) = (tid / 8,
-//   tid % 8) owns score rows rg + 16i (i < 4) and columns cg + 8j (j < 8);
-//   rows in shared memory are padded by 4 floats so the float4 reads of the
-//   8 column groups fall in distinct banks.
+//   it (tensor cores would round to TF32).  One CTA of 128 threads per
+//   (query tile of 64 rows, head, batch) walks key tiles of 64; thread
+//   (rg, cg) = (tid / 8, tid % 8) owns score rows rg + 16i (i < 4) and
+//   columns cg + 8j (j < 8); rows in shared memory are padded by 4 floats
+//   so the float4 reads of the 8 column groups fall in distinct banks.
+//   Only the f32 cross-checks run it.
 // Both:
 // - GQA: the kv head is read in place (no repeated K/V in memory).
 // - Tiles wholly above the diagonal (causal) or below the window are never
@@ -38,27 +74,19 @@
 //   hold a kept key.  Query tiles run heaviest first (the last tile of a
 //   causal sequence does the most work).
 // - Ragged edges: rows >= Sq and keys >= kv_len are zero-filled and
-//   masked.  D is a multiple of 8 up to 128 and every row starts on a
-//   16-byte boundary (the wrapper checks both); D is padded to DP in
-//   {32, 64, 96, 128} with zeros (a zero lane adds nothing to q.k or to the
-//   output it is not stored to); the scale uses the true D.
+//   masked; D is padded with zeros (a zero lane adds nothing to q.k or to
+//   the output it is not stored to); the scale uses the true D.
 // - A masked score gets probability exactly 0 (the reference's -1e30
 //   sentinel gives the same 0 once a row has a kept key).  A row with no
 //   kept key at all ends with l = 0 and is stored as 0, never NaN or inf.
-// - No fast-math: IEEE expf and division.
-//
-// Bound: operations.  Per kept (query, key) pair and head, 2·D FLOPs for
-// q.k and 2·D for p·v; TinyLlama's prefill layer (B 4, H 32, Hkv 4,
-// S 4,096, D 64, causal) is 2.75e11 FLOPs against 151 MB of q, k, v and o
-// (67 MB each for q and o, 8.4 MB each for k and v): 0.28 ms at the card's
-// 989 TFLOP/s bf16 tensor-core peak, 0.045 ms of bytes at 3.35 TB/s.  This
-// version uses `mma.sync`, not Hopper's `wgmma` / TMA; those are the next
-// steps toward the bound.
+// - No fast-math: IEEE expf / exp2f and division.
 
+#include <cuda.h>   // CUtensorMap and its enums only: nothing here links libcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
 
 // Mirrored by ctypes.Structure `_Params` in kernels/flash_attention/kernel.py;
 // keep the field order and types in step.
@@ -254,35 +282,118 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(const FlashPara
   }
 }
 
-// ---- bfloat16: tensor-core version (mma.sync m16n8k16, f32 accumulators) ----
 
+// ---- bfloat16: Hopper version (TMA, wgmma, warp specialisation) ----
+
+constexpr int kTile = 128;                 // query rows per CTA, keys per K/V tile
+constexpr int kWG = 128;                   // threads per warpgroup
+constexpr int kBf16Threads = 3 * kWG;      // consumers 0 and 1, producer 2
+constexpr int kStages = 2;                 // depth of the K/V ring
+constexpr int kBox = 64;                   // bf16 per 128-byte swizzled row
+constexpr int kRowBytes = 128;
+constexpr int kProducerRegs = 40;          // 40·128 + 232·256 <= 65,536
+constexpr int kConsumerRegs = 232;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr long long kWaitLimitCycles = 10000000000LL;   // ~5 s at 2 GHz
+
+// Shared memory of the bf16 body, in bytes from a 1024-aligned base (the
+// 128-byte swizzle repeats every 8 rows = 1024 bytes, and both the TMA and
+// the wgmma descriptors assume tiles start on that boundary).
 template <int DP>
-constexpr int bf16_smem_bytes() {   // Q, and two stages of K and V
-  return 5 * kBQ * (DP + 8) * static_cast<int>(sizeof(__nv_bfloat16));
+struct Bf16Smem {
+  static constexpr int kTileBytes = (DP / kBox) * kTile * kRowBytes;   // 128 rows of DP
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kTileBytes;                 // [kStages] tiles
+  static constexpr int kV = kK + kStages * kTileBytes;       // [kStages] tiles
+  static constexpr int kBar = kV + kStages * kTileBytes;     // q_full, k_full[], v_full[], empty[]
+  static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages) + 1024;   // + alignment slack
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
+// One arrival that also expects `bytes` of transactions (the TMA copies
+// that name this barrier complete them).
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
 }
 
-// c += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+// Returns once the barrier's phase of parity `parity` has completed (a
+// fresh barrier is in phase 0, so parity 1 passes at once).  A wait that
+// outlasts kWaitLimitCycles traps, so a wrong parity is a launch error, not
+// a hung card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  long long start = -1;
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    const long long now = clock64();
+    if (start < 0) start = now;
+    else if (now - start > kWaitLimitCycles) __trap();
+  }
+}
+
+// TMA: the box at coordinates (c0, c1, c2, c3) of `map` into shared memory
+// at `dst`, completing its bytes on `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor for a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (all in 16-byte units), layout
+// type 1 (128-byte swizzle) in bits 62-63.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Pins an accumulator in registers at this point, so the compiler moves no
+// register of it while an asynchronous wgmma may read or write it.
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -290,79 +401,130 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// 16 bytes global -> shared without passing through registers; src_bytes 0
-// fills the 16 bytes with zeros (and reads nothing).
-__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem, bool in) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(a), "l"(gmem), "r"(in ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-// Rows [row0, row0 + 64) of a (rows, D) bf16 matrix with row stride `ld`
-// into shared [64][DP + 8], zero beyond `nrows` and D, as 16-byte cp.async
-// copies (D % 8 == 0, rows 16-byte aligned), in flight until the caller
-// waits.
-template <int DP>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                               long long ld, int row0, int nrows, int D) {
-  constexpr int LDS = DP + 8;
-  constexpr int CH = DP / 8;
-  for (int idx = threadIdx.x; idx < kBK * CH; idx += kThreads) {
-    const int r = idx / CH, c = (idx % CH) * 8;
-    const bool in = row0 + r < nrows && c < D;
-    cp_async_16(dst + r * LDS + c, in ? src + (row0 + r) * ld + c : src, in);
-  }
+// d (64 x 128, f32) = a (64 x 16) * b (16 x 128) + (scale_d ? d : 0); a and b
+// from shared memory through descriptors, both K-major.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
+                                           uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40,"
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53,"
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),
+        "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
+        "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-// Online-softmax update of one warp's 16 x 64 score tile, in place: scores
-// become probabilities, the running max / denominator move, and the output
-// accumulator is rescaled.  kMasked: apply the kv_len / causal / window
-// masks (edge tiles only; an interior tile keeps every key).
-template <bool kMasked, int NT_O>
-__device__ __forceinline__ void softmax_tile(float (&s)[kBK / 8][4], float (&m_i)[2],
-                                             float (&l_i)[2], float (&acc)[NT_O][4],
-                                             const FlashParams& p, int r_lo, int k0,
-                                             int lane) {
-  constexpr int NT_S = kBK / 8;
+// d (64 x 64, f32) += a (64 x 16, bf16 registers) * b (16 x 64); b from shared
+// memory through a descriptor, MN-major (imm-trans-b 1).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                           uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      "%28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 128, f32) += a (64 x 16, bf16 registers) * b (16 x 128); b from shared
+// memory through a descriptor, MN-major (imm-trans-b 1).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                           uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40,"
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53,"
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),
+        "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
+        "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// Online-softmax update of one thread's two rows of a 64 x 128 score tile,
+// in place: raw scores become probabilities, the running max / denominator
+// move, and the output accumulator is rescaled.  s[4j + 2·half + e] is row
+// r_lo + 8·half, key k0 + 8j + 2·(lane % 4) + e (the wgmma accumulator
+// layout).  The max is kept in raw-score units and `c` = scale·log2(e), so
+// exp(scale·(x - m)) = exp2f(x·c - m·c), one FMA per score.  kMasked: apply
+// the kv_len / causal / window masks (edge tiles only; an interior tile
+// keeps every key).
+template <bool kMasked, int NO>
+__device__ __forceinline__ void softmax_tile(float (&s)[kTile / 2], float (&m_i)[2],
+                                             float (&l_i)[2], float (&o)[NO],
+                                             const FlashParams& p, float c, int r_lo,
+                                             int k0, int lane) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int qi = r_lo + 8 * half;
-    unsigned kept = 0xffffffffu;
+    unsigned kept = 0xffffffffu;   // bit 2j + e: key kept
     float mx = kNegInf;
 #pragma unroll
-    for (int j = 0; j < NT_S; ++j)
+    for (int j = 0; j < kTile / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        float& x = s[j][2 * half + e];
+        float& x = s[4 * j + 2 * half + e];
         if (kMasked) {
-          const int kj = k0 + j * 8 + 2 * (lane & 3) + e;
+          const int kj = k0 + 8 * j + 2 * (lane & 3) + e;
           const bool ok = kj < p.kv_len && (!p.causal || kj <= qi) &&
                           (p.window <= 0 || kj > qi - p.window);
-          x = ok ? x * p.scale : kNegInf;
-          if (!ok) kept &= ~(1u << (2 * j + e));
-        } else {
-          x *= p.scale;
+          if (!ok) {
+            x = kNegInf;
+            kept &= ~(1u << (2 * j + e));
+          }
         }
         mx = fmaxf(mx, x);
       }
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
     const float m_new = fmaxf(m_i[half], mx);
-    const float alpha = expf(m_i[half] - m_new);
+    const float alpha = exp2f((m_i[half] - m_new) * c);
+    const float mc = m_new * c;
     float sum = 0.f;
 #pragma unroll
-    for (int j = 0; j < NT_S; ++j)
+    for (int j = 0; j < kTile / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        float& x = s[j][2 * half + e];
-        x = (!kMasked || ((kept >> (2 * j + e)) & 1u)) ? expf(x - m_new) : 0.f;
+        float& x = s[4 * j + 2 * half + e];
+        x = (!kMasked || ((kept >> (2 * j + e)) & 1u)) ? exp2f(fmaf(x, c, -mc)) : 0.f;
         sum += x;
       }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
@@ -370,146 +532,222 @@ __device__ __forceinline__ void softmax_tile(float (&s)[kBK / 8][4], float (&m_i
     l_i[half] = alpha * l_i[half] + sum;
     m_i[half] = m_new;
 #pragma unroll
-    for (int n = 0; n < NT_O; ++n) {
-      acc[n][2 * half] *= alpha;
-      acc[n][2 * half + 1] *= alpha;
+    for (int n = 0; n < NO / 4; ++n) {
+      o[4 * n + 2 * half] *= alpha;
+      o[4 * n + 2 * half + 1] *= alpha;
     }
   }
 }
 
 template <int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_bf16_kernel(const FlashParams p) {
-  constexpr int LDS = DP + 8;      // padded row of the tiles, in bf16
-  constexpr int KSTEPS = DP / 16;  // k-steps of q.k
-  constexpr int NT_S = kBK / 8;    // score n-tiles (8 keys each) per warp
-  constexpr int NT_O = DP / 8;     // output n-tiles (8 dims each) per warp
-  using bf16 = __nv_bfloat16;
-  extern __shared__ float4 smem4[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem4);   // [kBQ][LDS]
-  bf16* Ks = Qs + kBQ * LDS;                   // [2][kBK][LDS], two stages
-  bf16* Vs = Ks + 2 * kBK * LDS;               // [2][kBK][LDS]
+__global__ void __launch_bounds__(kBf16Threads, 1)
+flash_fwd_bf16_kernel(const FlashParams p, const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v) {
+  using L = Bf16Smem<DP>;
+  constexpr int CB = DP / kBox;                  // 64-wide column blocks per tile
+  constexpr int CB_BYTES = kTile * kRowBytes;    // one column block of 128 rows
+  constexpr int NO = DP / 2;                     // output floats per thread (m64nDP)
+  constexpr uint32_t TX = L::kTileBytes;         // bytes one tile's TMA boxes deliver
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base + L::kQ, sK = base + L::kK, sV = base + L::kV;
+  const uint32_t bar_q = base + L::kBar;
+  auto k_full = [&](int st) { return bar_q + 8u * (1 + st); };
+  auto v_full = [&](int st) { return bar_q + 8u * (1 + kStages + st); };
+  auto empty = [&](int st) { return bar_q + 8u * (1 + 2 * kStages + st); };
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;   // heaviest tiles first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (p.heads / p.kv_heads);
-  const int D = p.head_dim;
-  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_stride[0] + h * p.q_stride[1];
-  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_stride[0] + hk * p.k_stride[1];
-  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_stride[0] + hk * p.v_stride[1];
-  bf16* o = static_cast<bf16*>(p.o) + b * p.o_stride[0] + h * p.o_stride[1];
 
+  // Key tiles that can hold a kept key for some row of this query tile.
   int k_lo = 0, k_hi = p.kv_len;
-  if (p.causal) k_hi = min(k_hi, q0 + kBQ);
+  if (p.causal) k_hi = min(k_hi, q0 + kTile);
   if (p.window > 0) k_lo = max(0, q0 - p.window + 1);
-  const int t_lo = k_lo / kBK;
-  const int t_hi = (k_hi + kBK - 1) / kBK;
+  const int t_lo = k_lo / kTile;
+  const int n_tiles = max(0, (k_hi + kTile - 1) / kTile - t_lo);
 
-  // Stage 0 gets Q and the first K/V tile in one group of copies.
-  load_tile_bf16<DP>(Qs, q, p.q_stride[2], q0, p.sq, D);
-  if (t_lo < t_hi) {
-    load_tile_bf16<DP>(Ks, k, p.k_stride[2], t_lo * kBK, p.kv_len, D);
-    load_tile_bf16<DP>(Vs, v, p.v_stride[2], t_lo * kBK, p.kv_len, D);
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(v_full(st), 1);
+      mbar_init(empty(st), 2);   // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cp_async_commit();
+  __syncthreads();
 
-  // A thread holds rows r_lo (half 0) and r_lo + 8 (half 1) of the warp's
-  // 16, at columns 2 (lane % 4) + {0, 1} of each 8-wide n-tile.
-  const int r_lo = q0 + warp * 16 + (lane >> 2);
-  float m_i[2] = {kNegInf, kNegInf}, l_i[2] = {0.f, 0.f};
-  float acc[NT_O][4];
+  const int wg = threadIdx.x / kWG;
+  if (wg == 2) {
+    // ---- producer: one thread keeps the ring full ----
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 2 * kWG && n_tiles > 0) {
+      mbar_arrive_expect_tx(bar_q, TX);
 #pragma unroll
-  for (int n = 0; n < NT_O; ++n)
+      for (int cb = 0; cb < CB; ++cb)
+        tma_load_4d(sQ + cb * CB_BYTES, &tm_q, bar_q, cb * kBox, q0, h, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % kStages;
+        const int k0 = (t_lo + i) * kTile;
+        mbar_wait(empty(st), ((i / kStages) & 1) ^ 1);   // the first round passes
+        mbar_arrive_expect_tx(k_full(st), TX);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  uint32_t qf[KSTEPS][4];   // this warp's 16 query rows as A fragments
-
-  for (int t = t_lo; t < t_hi; ++t) {
-    const int k0 = t * kBK;
-    const int stage = (t - t_lo) & 1;
-    // Prefetch the next tile into the other stage (free: the previous
-    // iteration ended with a barrier), then wait for this one.
-    if (t + 1 < t_hi) {
-      load_tile_bf16<DP>(Ks + (stage ^ 1) * kBK * LDS, k, p.k_stride[2], k0 + kBK,
-                         p.kv_len, D);
-      load_tile_bf16<DP>(Vs + (stage ^ 1) * kBK * LDS, v, p.v_stride[2], k0 + kBK,
-                         p.kv_len, D);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (t == t_lo) {
+        for (int cb = 0; cb < CB; ++cb)
+          tma_load_4d(sK + st * TX + cb * CB_BYTES, &tm_k, k_full(st), cb * kBox, k0, hk, b);
+        mbar_arrive_expect_tx(v_full(st), TX);
 #pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk)
-        ldmatrix_x4(qf[kk], &Qs[(warp * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LDS +
-                                kk * 16 + (lane >> 4) * 8]);
-    }
-    const bf16* Kt = Ks + stage * kBK * LDS;
-    const bf16* Vt = Vs + stage * kBK * LDS;
-
-    float s[NT_S][4];
-#pragma unroll
-    for (int j = 0; j < NT_S; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-#pragma unroll
-      for (int j = 0; j < NT_S; j += 2) {
-        uint32_t kb[4];   // B fragments (k 0-7, k 8-15) of n-tiles j and j + 1
-        ldmatrix_x4(kb, &Kt[((j + (lane >> 4)) * 8 + (lane & 7)) * LDS + kk * 16 +
-                            ((lane >> 3) & 1) * 8]);
-        mma_bf16(s[j], qf[kk], kb[0], kb[1]);
-        mma_bf16(s[j + 1], qf[kk], kb[2], kb[3]);
+        for (int cb = 0; cb < CB; ++cb)
+          tma_load_4d(sV + st * TX + cb * CB_BYTES, &tm_v, v_full(st), cb * kBox, k0, hk, b);
       }
     }
-
-    // Every key of this tile is kept for every row of the query tile?
-    const bool interior = k0 + kBK <= p.kv_len && (!p.causal || k0 + kBK - 1 <= q0) &&
-                          (p.window <= 0 || k0 > q0 + kBQ - 1 - p.window);
-    if (interior)
-      softmax_tile<false>(s, m_i, l_i, acc, p, r_lo, k0, lane);
-    else
-      softmax_tile<true>(s, m_i, l_i, acc, p, r_lo, k0, lane);
-
-    // O += P V: the score fragments of n-tiles 2kk, 2kk + 1 are the A
-    // fragment of k-step kk (keys 16kk..16kk+15), rounded to bf16.
+  } else {
+    // ---- consumers: warpgroup wg owns query rows q0 + 64·wg .. + 63 ----
+    setmaxnreg_inc<kConsumerRegs>();
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int qw0 = q0 + 64 * wg;
+    const int r_lo = qw0 + 16 * warp + (lane >> 2);   // this thread's rows: r_lo, r_lo + 8
+    const float c = p.scale * kLog2e;
+    float m_i[2] = {kNegInf, kNegInf}, l_i[2] = {0.f, 0.f};
+    float o[NO];
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+    for (int i = 0; i < NO; ++i) o[i] = 0.f;
+    float s[kTile / 2];
+
+    if (n_tiles > 0) mbar_wait(bar_q, 0);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % kStages;
+      const uint32_t phase = (i / kStages) & 1;
+      const int k0 = (t_lo + i) * kTile;
+
+      // S = Q Kᵀ: A = this warpgroup's 64 rows of Q, B = the K tile, both
+      // K-major; k-step kk is 32 bytes into column block kk / 4.
 #pragma unroll
-      for (int n = 0; n < NT_O; n += 2) {
-        uint32_t vb[4];   // B fragments of dim n-tiles n and n + 1 (V^T via .trans)
-        ldmatrix_x4_trans(vb, &Vt[(kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LDS +
-                                  (n + (lane >> 4)) * 8]);
-        mma_bf16(acc[n], pa, vb[0], vb[1]);
-        mma_bf16(acc[n + 1], pa, vb[2], vb[3]);
+      for (int j = 0; j < kTile / 2; ++j) s[j] = 0.f;
+      mbar_wait(k_full(st), phase);
+      fence_acc(s);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t off = (kk / 4) * CB_BYTES + (kk % 4) * 32;
+        wgmma_ss_n128(s, smem_desc(sQ + 64 * wg * kRowBytes + off, 16, 1024),
+                      smem_desc(sK + st * TX + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_acc(s);
+
+      // Every key of this tile is kept for every row of this warpgroup?
+      const bool interior = k0 + kTile <= p.kv_len &&
+                            (!p.causal || k0 + kTile - 1 <= qw0) &&
+                            (p.window <= 0 || k0 > qw0 + 63 - p.window);
+      if (interior)
+        softmax_tile<false>(s, m_i, l_i, o, p, c, r_lo, k0, lane);
+      else
+        softmax_tile<true>(s, m_i, l_i, o, p, c, r_lo, k0, lane);
+
+      // O += P V: the score n-tiles 2kk, 2kk + 1, rounded to bf16, are the
+      // A fragment of k-step kk (keys 16kk .. 16kk + 15); V is MN-major,
+      // k-step kk 16 rows (2,048 bytes) down, column blocks kTile rows apart.
+      uint32_t pa[kTile / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+        pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+      }
+      mbar_wait(v_full(st), phase);
+      fence_acc(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+        const uint64_t dv = smem_desc(sV + st * TX + kk * 16 * kRowBytes, CB_BYTES, 1024);
+        if constexpr (DP == 64)
+          wgmma_rs_n64(o, pa[kk], dv);
+        else
+          wgmma_rs_n128(o, pa[kk], dv);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_acc(o);
+      if (threadIdx.x % kWG == 0) mbar_arrive(empty(st));   // K and V of this stage are free
+    }
+
+    // O / l, rounded to bf16, into the strided output (the wrapper does not
+    // require its rows aligned, so element stores); rows >= Sq and columns
+    // >= D are not stored.
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.o) + b * p.o_stride[0] + h * p.o_stride[1];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int qi = r_lo + 8 * half;
+      if (qi >= p.sq) continue;
+      const float denom = fmaxf(l_i[half], 1e-30f);
+      __nv_bfloat16* row = out + qi * p.o_stride[2];
+#pragma unroll
+      for (int n = 0; n < NO / 4; ++n) {
+        const int d = 8 * n + 2 * (lane & 3);
+        if (d >= p.head_dim) continue;   // D % 8 == 0: d + 1 < D too
+        row[d] = __float2bfloat16_rn(o[4 * n + 2 * half] / denom);
+        row[d + 1] = __float2bfloat16_rn(o[4 * n + 2 * half + 1] / denom);
       }
     }
-    __syncthreads();  // every warp is done with this stage before it is refilled
   }
-  cp_async_wait<0>();   // no copy outlives the CTA (a query tile with no key tile)
+}
 
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int qi = r_lo + 8 * half;
-    if (qi >= p.sq) continue;
-    const float denom = fmaxf(l_i[half], 1e-30f);
-#pragma unroll
-    for (int n = 0; n < NT_O; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int d = n * 8 + 2 * (lane & 3) + e;
-        if (d < D) o[qi * p.o_stride[2] + d] = __float2bfloat16_rn(acc[n][2 * half + e] / denom);
-      }
-  }
+// ---- host side ----
+
+constexpr int kBadParams = -1;
+constexpr int kNoEncoder = -2;        // cuTensorMapEncodeTiled not found
+constexpr int kEncodeFailed = -1000;  // minus the CUresult of a failed encode
+
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave,
+                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                   CUtensorMapFloatOOBfill);
+
+// libcuda's tensor-map encoder, found through the runtime (so the library
+// needs no -lcuda); null if libcuda has none.
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (batch, heads, rows, D) bf16 array with the given element strides
+// (batch, head, row; D unit-stride) as a 4-d tensor map (D, rows, heads,
+// batch): boxes of 64 x 128, 128-byte swizzle, zeros out of bounds.
+int encode_bf16(CUtensorMap* map, const void* ptr, const long long (&stride)[3], int batch,
+                int heads, int rows, int head_dim) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return kNoEncoder;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(head_dim), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(stride[2]) * 2,
+                                 static_cast<cuuint64_t>(stride[1]) * 2,
+                                 static_cast<cuuint64_t>(stride[0]) * 2};
+  const cuuint32_t box[4] = {kBox, kTile, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeFailed - static_cast<int>(r);
 }
 
 template <typename Kernel>
@@ -521,38 +759,50 @@ int opt_in_smem(Kernel kernel, int bytes) {
 }
 
 template <int DP>
-int launch(const FlashParams& p, cudaStream_t stream) {
+int launch_f32(const FlashParams& p, cudaStream_t stream) {
   const dim3 grid((p.sq + kBQ - 1) / kBQ, p.heads, p.batch);
-  if (p.dtype == 0) {
-    constexpr int bytes = f32_smem_bytes<DP>();
-    if (int err = opt_in_smem(flash_fwd_f32_kernel<DP>, bytes)) return err;
-    flash_fwd_f32_kernel<DP><<<grid, kThreads, bytes, stream>>>(p);
-  } else {
-    constexpr int bytes = bf16_smem_bytes<DP>();
-    if (int err = opt_in_smem(flash_fwd_bf16_kernel<DP>, bytes)) return err;
-    flash_fwd_bf16_kernel<DP><<<grid, kThreads, bytes, stream>>>(p);
-  }
+  constexpr int bytes = f32_smem_bytes<DP>();
+  if (int err = opt_in_smem(flash_fwd_f32_kernel<DP>, bytes)) return err;
+  flash_fwd_f32_kernel<DP><<<grid, kThreads, bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch_dim(const FlashParams& p, cudaStream_t stream) {
-  if (p.head_dim <= 32) return launch<32>(p, stream);
-  if (p.head_dim <= 64) return launch<64>(p, stream);
-  if (p.head_dim <= 96) return launch<96>(p, stream);
-  return launch<128>(p, stream);
+template <int DP>
+int launch_bf16(const FlashParams& p, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (int err = encode_bf16(&tq, p.q, p.q_stride, p.batch, p.heads, p.sq, p.head_dim)) return err;
+  if (int err = encode_bf16(&tk, p.k, p.k_stride, p.batch, p.kv_heads, p.skv, p.head_dim))
+    return err;
+  if (int err = encode_bf16(&tv, p.v, p.v_stride, p.batch, p.kv_heads, p.skv, p.head_dim))
+    return err;
+  constexpr int bytes = Bf16Smem<DP>::kBytes;
+  if (int err = opt_in_smem(flash_fwd_bf16_kernel<DP>, bytes)) return err;
+  const dim3 grid((p.sq + kTile - 1) / kTile, p.heads, p.batch);
+  flash_fwd_bf16_kernel<DP><<<grid, kBf16Threads, bytes, stream>>>(p, tq, tk, tv);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch(const FlashParams& p, cudaStream_t stream) {
+  if (p.dtype == 1) return p.head_dim <= 64 ? launch_bf16<64>(p, stream)
+                                            : launch_bf16<128>(p, stream);
+  if (p.head_dim <= 32) return launch_f32<32>(p, stream);
+  if (p.head_dim <= 64) return launch_f32<64>(p, stream);
+  if (p.head_dim <= 96) return launch_f32<96>(p, stream);
+  return launch_f32<128>(p, stream);
 }
 
 }  // namespace
 
-// Launches on `stream`; returns a cudaError_t (0 = launched), or -1 for
-// parameters the kernel does not take.  The Python wrapper has checked
-// devices, dtypes, shapes and strides already.
+// Launches on `stream`; returns 0, a cudaError_t, -1 for parameters the
+// kernel does not take, -2 if libcuda has no tensor-map encoder, or
+// -1000 - r when encoding a tensor map failed with CUresult r.  The Python
+// wrapper has checked devices, dtypes, shapes and strides already.
 extern "C" int flash_attention_launch(const FlashParams* params, cudaStream_t stream) {
   const FlashParams& p = *params;
   if (p.head_dim < 8 || p.head_dim > 128 || p.head_dim % 8 != 0 || p.kv_heads < 1 ||
       p.heads % p.kv_heads != 0 || p.sq < 1 || p.skv < 1 || p.kv_len > p.skv ||
       p.heads > 65535 || p.batch > 65535)
-    return -1;
-  if (p.dtype != 0 && p.dtype != 1) return -1;
-  return dispatch_dim(p, stream);
+    return kBadParams;
+  if (p.dtype != 0 && p.dtype != 1) return kBadParams;
+  return dispatch(p, stream);
 }

@@ -7,8 +7,9 @@ in ``repro/kernels/flash_attention/kernel.py``).
 over ``(B, H, Sq, D)`` queries and ``(B, Hkv, Skv, D)`` keys and values,
 kv head ``h // (H/Hkv)``, causal aligned top-left (``k ≤ q``), an optional
 sliding window (``k > q − window``), f32 scores and accumulators, output in
-q's dtype.  bf16 inputs run on the tensor cores (``mma.sync``; P is rounded
-to bf16 for the P·V product), f32 inputs on the CUDA cores in full f32.
+q's dtype.  bf16 inputs run on Hopper's tensor cores (``wgmma``, with K and
+V tiles brought in by TMA for two consumer warpgroups; P is rounded to bf16
+for the P·V product), f32 inputs on the CUDA cores in full f32.
 Unlike the reference kernel it needs no padding: any sequence lengths (the
 kernel masks ragged edges itself) and any head dim ``D ≤ 128`` that is a
 multiple of 8, the head dims the configs have (32, 64, 96, 128).
@@ -16,8 +17,10 @@ multiple of 8, the head dims the configs have (32, 64, 96, 128).
 The tensors may be strided views, so the model's ``(B, S, H, D)``
 activations go in as ``transpose(1, 2)`` views with no copy, and ``out`` may
 be such a view of the caller's buffer.  The head dim must be unit-stride,
-and every row of q, k and v must start on a 16-byte boundary (the kernel
-copies rows in 16-byte pieces); the wrapper checks both, on either device.
+and every row of q, k and v must start on a 16-byte boundary; q, k and v
+must also fit what a TMA tensor map takes (every dim below 2**31, every
+byte stride below 2**40).  The wrapper checks all of it, on either device,
+so a view the kernel cannot take raises ``ValueError`` before any launch.
 
 A CUDA tensor launches the kernel — built from source with nvcc at first use
 (``kernels/build.py``) — or raises; a CPU tensor takes the plain PyTorch
@@ -37,6 +40,8 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 MAX_HEAD_DIM = 128
 HEAD_DIM_MULTIPLE = 8
 ROW_ALIGN_BYTES = 16
+MAX_DIM = 2**31             # the C struct's int fields (TMA itself takes up to 2**32)
+MAX_STRIDE_BYTES = 2**40    # a TMA tensor map's limit on each byte stride
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -61,6 +66,17 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
+
+
+def _launch_error(rc: int) -> str:
+    """What ``flash_attention_launch``'s return code means."""
+    if rc == -1:
+        return "bad parameters"
+    if rc == -2:
+        return "libcuda has no cuTensorMapEncodeTiled"
+    if rc <= -1000:
+        return f"cuTensorMapEncodeTiled failed with CUresult {-1000 - rc}"
+    return f"cudaError {rc}"
 
 
 def _check(q, k, v, out, window: int) -> None:
@@ -102,6 +118,11 @@ def _check(q, k, v, out, window: int) -> None:
                 st * t.element_size() % ROW_ALIGN_BYTES for st in t.stride()[:3])):
             raise ValueError(f"{name}'s rows must start on {ROW_ALIGN_BYTES}-byte "
                              f"boundaries (strides {t.stride()})")
+        if name != "out" and (max(t.shape) >= MAX_DIM or any(
+                st * t.element_size() >= MAX_STRIDE_BYTES for st in t.stride())):
+            raise ValueError(f"{name} {tuple(t.shape)} strides {t.stride()}: a TMA "
+                             f"tensor map takes dims below {MAX_DIM} and byte strides "
+                             f"below {MAX_STRIDE_BYTES}")
 
 
 def flash_attention_kernel(
@@ -136,8 +157,7 @@ def flash_attention_kernel(
     with torch.cuda.device(q.device):
         rc = fn(ctypes.byref(p), torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention launch failed: "
-                           f"{'bad parameters' if rc == -1 else f'cudaError {rc}'}")
+        raise RuntimeError(f"flash_attention launch failed: {_launch_error(rc)}")
     flash_attention_kernel.launches += 1
     return out
 

@@ -30,7 +30,7 @@ from repro.kernels.flash_attention import ops as jops
 from repro_torch import bridge
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import (attention_ref, flash_attention_kernel,
-                                                 kernel as fa_kernel, ops)
+                                                 kernel as fa_kernel, ops, phase_timing)
 
 torch.set_num_threads(1)   # one thread per xdist worker (see test_torch_masked_adam)
 
@@ -50,6 +50,13 @@ EXTRA = [
     (2, 3, 1, 130, 130, 96, True, 50),
     (1, 2, 2, 70, 200, 128, True, 0),
     (1, 2, 1, 200, 70, 64, True, 0),
+]
+# ragged shapes at each of the bf16 body's two widths, DP 64 and DP 128 with
+# D 112 (chip_smoke.py FLASH_HOPPER); run on a card only
+HOPPER = [
+    (2, 2, 2, 129, 257, 32, False, 0),
+    (1, 2, 1, 200, 333, 112, True, 0),
+    (1, 3, 1, 130, 255, 128, True, 40),
 ]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 ROW_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
@@ -122,7 +129,8 @@ def test_window_equals_full_when_large():
 
 @pytest.mark.parametrize("bad", ["dim", "dtype", "mixed", "heads", "head_dim",
                                  "window", "empty", "out", "head_dim_not_8",
-                                 "misaligned_rows", "strided_head_dim"])
+                                 "misaligned_rows", "strided_head_dim",
+                                 "tma_dim", "tma_stride"])
 def test_wrapper_rejects(bad):
     q = torch.zeros(1, 4, 8, 16)
     k = torch.zeros(1, 2, 8, 16)
@@ -150,6 +158,11 @@ def test_wrapper_rejects(bad):
         k = torch.zeros(1 * 2 * 8 * 16 + 1)[1:].view(1, 2, 8, 16)
     elif bad == "strided_head_dim":
         v = torch.zeros(1, 2, 8, 32)[..., ::2]
+    elif bad == "tma_dim":       # 2**31 keys: past the C int and a tensor map's dims
+        k = torch.zeros(1, 2, 1, 16).expand(1, 2, 2**31, 16)
+        v = k
+    elif bad == "tma_stride":    # a batch stride of 2**40 bytes: past a tensor map's strides
+        q = torch.zeros(512).as_strided((1, 4, 8, 16), (2**38, 128, 16, 1))
     with pytest.raises((ValueError, TypeError)):
         flash_attention_kernel(q, k, v, **kw)
 
@@ -189,6 +202,20 @@ def test_launcher_declares_its_c_signature(monkeypatch):
     assert fn.restype is ctypes.c_int
 
 
+def test_phase_timing_instruments_every_step():
+    """The on-card phase-timing tool finds each place it instruments in the
+    kernel source exactly once (it raises otherwise)."""
+    src = phase_timing.instrumented_source(4096)
+    # the wait loop's own clock, the start mark, five step ends, the producer's two
+    assert src.count("clock64()") == 9
+    assert "g_dbg[4096 * 2 * 5]" in src and "flash_dbg_read" in src
+
+
+def test_phase_timing_counts_the_key_tiles_of_a_causal_grid():
+    # grid x 0 runs the last query tile, which walks every key tile
+    assert phase_timing._tiles(4, 512).tolist() == [4, 3, 2, 1]
+
+
 def test_flash_attention_is_built_with_the_port():
     assert "flash_attention" in build.KERNELS
     assert (build.CSRC / "flash_attention.cu").is_file()
@@ -201,7 +228,7 @@ def test_cuda_kernel_matches_plain(dtype):
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     gen = torch.Generator(device="cuda").manual_seed(0)
     tol = TOL[str(dtype)[6:]]
-    for b, h, hkv, sq, skv, d, causal, window in CASES + EXTRA:
+    for b, h, hkv, sq, skv, d, causal, window in CASES + EXTRA + HOPPER:
         q = torch.randn(b, sq, h, d, device="cuda", generator=gen).to(dtype)
         k = torch.randn(b, skv, hkv, d, device="cuda", generator=gen).to(dtype)
         v = torch.randn(b, skv, hkv, d, device="cuda", generator=gen).to(dtype)
