@@ -43,17 +43,22 @@ Phases, in order; any failure raises and the script exits non-zero:
               on the card, f32 and bf16: the reference's four cases,
               Zamba2's smoke shape, a ragged chunk, head-broadcast
               (stride-0) q and k, odd N / P / chunk (the kernel's
-              element-wise loads), a slow decay over 8 chunks, and Zamba2's
+              element-wise loads), a slow decay over 8 chunks, steep decays
+              (chunk totals near -128, and below -160: the per-element
+              decay), Zamba2's widths without the broadcast, and Zamba2's
               layer (B 4, H 112, S 4,096, N 64, P 64, chunk 128); each
               element, each output row and the final state held to its
-              limit.  Times (CUDA events) at Zamba2's layer against its
-              bound, the plain chunked form and ``ssd_ref``; registers and
-              spills from nvcc.
+              limit, and the body that ran each case named.  The bf16
+              ``wgmma`` body's ``HGMMA`` / ``UTMALDG`` / ``HMMA`` counts from
+              ``cuobjdump -sass``.  Times (CUDA events) at Zamba2's layer:
+              the CUDA-core and ``wgmma`` bodies in turns, against the bound
+              and the tensor FLOPs the ``wgmma`` body issues, the plain
+              chunked form and ``ssd_ref``; registers and spills from nvcc.
 9. serve_hybrid — ``serve_session`` on zamba2-7b at full width, bf16,
               random weights from a seed, B 4 x 4,096 prompt, 32 greedy
               tokens: every Mamba2 prefill scan must launch the SSD kernel
-              once (81) and every shared-attention prefill the flash kernel
-              once (13).  One prefill under ``torch.profiler``.  Then the
+              once (81), all through its ``wgmma`` body, and every
+              shared-attention prefill the flash kernel once (13).  One prefill under ``torch.profiler``.  Then the
               f32 cross-check at full width (B 4 x 512, 4 tokens, TF32
               off): kernel path against plain PyTorch, every step's logits
               within 1e-3 and the same tokens.
@@ -137,20 +142,26 @@ SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 # their whole size.  The final state is f32 on both sides for either dtype.
 SSD_ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 SSD_STATE_TOL = 2e-4
-# (b, h, s, n, p, chunk, broadcast q/k over heads, slow decay)
+# (b, h, s, n, p, chunk, broadcast q/k over heads, decay: "ref" as the
+# reference's tests draw it, "slow" in (-0.01, 0), "steep" in (-1.1, -0.9)
+# (chunk totals near -128: the factorised decay's rebased range), "steeper"
+# in (-2.2, -1.8) (totals below -160: the per-element decay))
 SSD_CASES = [
-    (1, 2, 128, 128, 128, 64, False, False),    # tests/test_kernels_ssd.py CASES
-    (2, 3, 256, 128, 128, 128, False, False),
-    (1, 2, 128, 64, 128, 32, False, False),
-    (1, 1, 256, 128, 64, 128, False, False),
-    (2, 8, 32, 16, 32, 16, False, False),       # zamba2-7b smoke: N 16, P 32, chunk 16
-    (2, 8, 12, 16, 32, 16, False, False),       # ragged: S 12 < chunk 16
-    (2, 8, 64, 16, 32, 16, True, False),        # stride-0 q / k, as mamba2_forward
-    (1, 3, 52, 5, 7, 13, False, False),         # odd N, P, chunk: element-wise staging
-    (1, 4, 1024, 64, 64, 128, True, True),      # log_a in (-0.01, 0) over 8 chunks
+    (1, 2, 128, 128, 128, 64, False, "ref"),    # tests/test_kernels_ssd.py CASES
+    (2, 3, 256, 128, 128, 128, False, "ref"),
+    (1, 2, 128, 64, 128, 32, False, "ref"),
+    (1, 1, 256, 128, 64, 128, False, "ref"),
+    (2, 8, 32, 16, 32, 16, False, "ref"),       # zamba2-7b smoke: N 16, P 32, chunk 16
+    (2, 8, 12, 16, 32, 16, False, "ref"),       # ragged: S 12 < chunk 16
+    (2, 8, 64, 16, 32, 16, True, "ref"),        # stride-0 q / k, as mamba2_forward
+    (1, 3, 52, 5, 7, 13, False, "ref"),         # odd N, P, chunk: element-wise staging
+    (1, 4, 1024, 64, 64, 128, True, "slow"),    # log_a in (-0.01, 0) over 8 chunks
+    (1, 4, 512, 64, 64, 128, True, "steep"),
+    (1, 4, 512, 64, 64, 128, True, "steeper"),
+    (2, 8, 1024, 64, 64, 128, False, "ref"),    # zamba2's widths, q / k per head
 ]
 # zamba2-7b's Mamba2 layer at the serve prompt, as the main path calls it
-ZAMBA2_SSD = (SERVE_BATCH, 112, SERVE_PROMPT, 64, 64, 128, True, False)
+ZAMBA2_SSD = (SERVE_BATCH, 112, SERVE_PROMPT, 64, 64, 128, True, "ref")
 
 
 def log(msg: str) -> None:
@@ -428,31 +439,6 @@ def _flash_bound_ms(b, h, hkv, sq, skv, d, causal, window, dtype) -> tuple[float
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def _flash_sass() -> dict | None:
-    """Counts of Hopper's ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load)
-    instructions, and of ``HMMA`` (mma.sync), in each bf16 body of the built
-    library's SASS; None when ``cuobjdump`` is absent."""
-    from repro_torch.kernels import build
-    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    if not os.access(tool, os.X_OK):
-        return None
-    sass = subprocess.run([tool, "-sass", str(build.library_path("flash_attention"))],
-                          capture_output=True, text=True, check=True, timeout=120).stdout
-    counts, fn = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            name = line.split("Function :")[1].strip()
-            fn = name if "flash_fwd_bf16" in name else None
-            if fn:
-                counts[fn] = {"HGMMA": 0, "UTMALDG": 0, "HMMA": 0}
-        elif fn and "*/" in line:   # "/*0050*/  @P0 UTMALDG.4D [UR8], [UR4] ;"
-            toks = [t for t in line.split("*/", 1)[1].split() if not t.startswith("@")]
-            op = toks[0].split(".")[0] if toks else ""
-            if op in counts[fn]:
-                counts[fn][op] += 1
-    return counts
-
-
 def _flash_layer(name: str, shape, gen) -> dict:
     """Times one bf16 causal layer in the model's (B, S, H, D) layout: the
     kernel, the plain version, ``F.scaled_dot_product_attention`` as the
@@ -502,7 +488,7 @@ def phase_flash() -> dict:
         worst = max(worst, err)
         log(f"[flash] {len(FLASH_HOPPER)} ragged at D 32 / 112 / 128 {str(dtype)[6:]}: "
             f"max abs err {err:.3g}, max row err {row:.3g} (same limits)")
-    sass = _flash_sass()
+    sass = _sass("flash_attention", "flash_fwd_bf16")
     if sass is None:
         log("[flash] SASS of the bf16 body: not available (no cuobjdump)")
     for fn, counts in (sass or {}).items():
@@ -535,9 +521,9 @@ def _ssd_inputs(case, dtype, gen):
     """q, k (B, S, H, N) and v (B, S, H, P) of ``dtype``, log_a (B, S, H)
     f32, in the model's layout; q and k as ``expand`` views over heads
     (stride 0) where the case says so, as ``mamba2_forward`` passes them.
-    Decays as the reference's tests draw them (-|N(0,1)|·0.2), or in
-    (-0.01, 0) for the slow case."""
-    b, h, s, n, p, _, bcast, slow = case
+    Decays as the reference's tests draw them (-|N(0,1)|·0.2), or uniform
+    in the case's range (``SSD_CASES``)."""
+    b, h, s, n, p, _, bcast, decay = case
     dev = "cuda"
     hq = 1 if bcast else h
     q = (torch.randn(b, s, hq, n, device=dev, generator=gen) * 0.3).to(dtype)
@@ -545,19 +531,23 @@ def _ssd_inputs(case, dtype, gen):
     if bcast:
         q, k = q.expand(b, s, h, n), k.expand(b, s, h, n)
     v = torch.randn(b, s, h, p, device=dev, generator=gen).to(dtype)
-    if slow:
-        la = -0.01 * torch.rand(b, s, h, device=dev, generator=gen)
-    else:
+    if decay == "ref":
         la = -0.2 * torch.randn(b, s, h, device=dev, generator=gen).abs()
+    else:
+        lo, hi = {"slow": (0.0, 0.01), "steep": (0.9, 1.1), "steeper": (1.8, 2.2)}[decay]
+        la = -(lo + (hi - lo) * torch.rand(b, s, h, device=dev, generator=gen))
     return q, k, v, la
 
 
-def _ssd_check(case, dtype, gen) -> tuple[float, float, float]:
+def _ssd_check(case, dtype, gen) -> tuple[float, float, float, str]:
     """Kernel vs plain version on one case; returns the max abs error of y,
-    the max row error over the row's norm, and the state's max abs error."""
-    from repro_torch.kernels.ssd_chunk import ops
+    the max row error over the row's norm, the state's max abs error and
+    the body that ran."""
+    from repro_torch.kernels.ssd_chunk import ops, ssd_chunk_kernel
     q, k, v, la = _ssd_inputs(case, dtype, gen)
+    before = dict(ssd_chunk_kernel.launches_by_body)
     y, st = ops.ssd_scan(q, k, v, la, chunk=case[5])
+    body, = [b for b, n in ssd_chunk_kernel.launches_by_body.items() if n != before[b]]
     y_ref, st_ref = ops.ssd_reference(q, k, v, la)
     torch.cuda.synchronize()
     if y.dtype != dtype or y.shape != v.shape or st.dtype != torch.float32:
@@ -579,7 +569,7 @@ def _ssd_check(case, dtype, gen) -> tuple[float, float, float]:
             (st_err > SSD_STATE_TOL * (1 + st_ref.abs())).any()):
         raise AssertionError(f"ssd {case} {dtype}: state max abs err "
                              f"{float(st_err.max()):.3g} beyond {SSD_STATE_TOL:g}·(1 + |ref|)")
-    return float(err.max()), row, float(st_err.max())
+    return float(err.max()), row, float(st_err.max()), body
 
 
 def _ssd_bound_ms(case, dtype) -> tuple[float, str]:
@@ -599,50 +589,106 @@ def _ssd_bound_ms(case, dtype) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def _ssd_wgmma_flops(case) -> int:
+    """Tensor FLOPs the ``wgmma`` body issues for one scan: per chunk and
+    head, at its padded 64-wide N and P over a 128-row box, Q·Kᵀ for 64 x 64
+    and 64 x 128 (row, key) blocks, W·V over the same blocks twice (bf16 hi
+    and lo), q·S_prev twice (128 x 64 x 64) and k_decᵀ·V twice (64 x 128 x
+    64)."""
+    b, h, s, _, _, chunk, _, _ = case
+    blocks = 64 * 64 + 64 * 128
+    per_chunk = 2 * blocks * 64 * 3 + 2 * 2 * 128 * 64 * 64 + 2 * 2 * 64 * 128 * 64
+    return b * h * (s // min(chunk, s)) * per_chunk
+
+
+def _sass(lib: str, fn_filter: str) -> dict | None:
+    """Counts of Hopper's ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load)
+    instructions, and of ``HMMA`` (mma.sync), in each function of the built
+    library ``lib`` whose name holds ``fn_filter``, from its SASS; None when
+    ``cuobjdump`` is absent."""
+    from repro_torch.kernels import build
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.access(tool, os.X_OK):
+        return None
+    sass = subprocess.run([tool, "-sass", str(build.library_path(lib))],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            fn = name if fn_filter in name else None
+            if fn:
+                counts[fn] = {"HGMMA": 0, "UTMALDG": 0, "HMMA": 0}
+        elif fn and "*/" in line:   # "/*0050*/  @P0 UTMALDG.4D [UR8], [UR4] ;"
+            toks = [t for t in line.split("*/", 1)[1].split() if not t.startswith("@")]
+            op = toks[0].split(".")[0] if toks else ""
+            if op in counts[fn]:
+                counts[fn][op] += 1
+    return counts
+
+
 def phase_ssd() -> dict:
     """The SSD chunk kernel against its plain version (``ssd_ref``) on every
-    case in f32 and bf16, then times at Zamba2's layer: the kernel, the
-    plain chunked form (``impl="plain"``), ``ssd_ref``, the bound."""
+    case in f32 and bf16, naming the body that ran; then, at Zamba2's layer,
+    the CUDA-core and ``wgmma`` bodies timed in turns (old, new, new, old),
+    the plain chunked form (``impl="plain"``), ``ssd_ref``, the bound."""
     from repro_torch.kernels import build
+    from repro_torch.kernels.ssd_chunk import kernel as sk
     from repro_torch.kernels.ssd_chunk import ops
     from repro_torch.models.ssm import chunked_decay_attention
     gen = torch.Generator(device="cuda").manual_seed(13)
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         for case in SSD_CASES + [ZAMBA2_SSD]:
-            err, row, st = _ssd_check(case, dtype, gen)
+            err, row, st, body = _ssd_check(case, dtype, gen)
             worst = max(worst, err)
-            b, h, s, n, p, chunk, bcast, slow = case
+            b, h, s, n, p, chunk, bcast, decay = case
             log(f"[ssd] B{b} H{h} S{s} N{n} P{p} chunk {min(chunk, s)}"
-                f"{' stride-0 q/k' if bcast else ''}{' slow decay' if slow else ''} "
-                f"{str(dtype)[6:]}: max abs err {err:.3g} (tolerance "
-                f"{SSD_TOL[dtype]:g}·(1+|ref|)), max row err {row:.3g} (limit "
-                f"{SSD_ROW_TOL[dtype]:g}), state max abs err {st:.3g} (limit "
-                f"{SSD_STATE_TOL:g}·(1+|ref|))")
+                f"{' stride-0 q/k' if bcast else ''}"
+                f"{'' if decay == 'ref' else f' {decay} decay'} {str(dtype)[6:]}, {body} "
+                f"body: max abs err {err:.3g} (tolerance {SSD_TOL[dtype]:g}·(1+|ref|)), max "
+                f"row err {row:.3g} (limit {SSD_ROW_TOL[dtype]:g}), state max abs err "
+                f"{st:.3g} (limit {SSD_STATE_TOL:g}·(1+|ref|))")
         torch.cuda.empty_cache()
+    sass = _sass("ssd_chunk", "ssd_wgmma")
+    if sass is None:
+        log("[ssd] SASS of the wgmma body: not available (no cuobjdump)")
+    for fn, counts in (sass or {}).items():
+        log(f"[ssd] SASS of {fn}: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
 
     b, h, s, n, p, chunk, _, _ = ZAMBA2_SSD
     q, k, v, la = _ssd_inputs(ZAMBA2_SSD, torch.bfloat16, gen)
-    ms = cuda_ms(lambda: ops.ssd_scan(q, k, v, la, chunk=chunk), 5)
+    y = torch.empty_like(v)
+    views = [t.transpose(1, 2) for t in (q, k, v, la)]
+    turns = [(body, cuda_ms(lambda: sk.ssd_chunk_body(*views, body=body, chunk=chunk,
+                                                      out=y.transpose(1, 2)), 5))
+             for body in ("cuda_core", "wgmma", "wgmma", "cuda_core")]
+    ms = statistics.mean(t for body, t in turns if body == "wgmma")
+    old_ms = statistics.mean(t for body, t in turns if body == "cuda_core")
     chunked_ms = cuda_ms(lambda: chunked_decay_attention(q, k, v, la, chunk), 1)
     torch.cuda.empty_cache()
     ref_ms = cuda_ms(lambda: ops.ssd_reference(q, k, v, la), 1)
     bound, bound_by = _ssd_bound_ms(ZAMBA2_SSD, torch.bfloat16)
-    log(f"[ssd] zamba2 layer B{b} H{h} S{s} N{n} P{p} chunk {chunk} bf16, stride-0 "
-        f"q/k: kernel {ms:.6f} ms, plain chunked form {chunked_ms:.6f} ms, ssd_ref "
-        f"{ref_ms:.6f} ms, bound {bound:.6f} ms ({bound_by}; {100 * bound / ms:.2f}% "
-        f"of it); no single PyTorch call computes this scan")
+    flops = _ssd_wgmma_flops(ZAMBA2_SSD)
+    log(f"[ssd] zamba2 layer B{b} H{h} S{s} N{n} P{p} chunk {chunk} bf16, stride-0 q/k, "
+        f"in turns: " + ", ".join(f"{body} {t:.6f} ms" for body, t in turns))
+    log(f"[ssd] zamba2 layer: wgmma body {ms:.6f} ms (cuda_core body {old_ms:.6f} ms, "
+        f"{old_ms / ms:.2f}x), bound {bound:.6f} ms ({bound_by}; {100 * bound / ms:.2f}% "
+        f"of it); the wgmma body issues {flops:.4g} tensor FLOPs ({flops / ms / 1e9:.1f} "
+        f"TFLOP/s, {flops / BF16_FLOPS_PER_S * 1e3:.6f} ms at the bf16 peak); plain "
+        f"chunked form {chunked_ms:.6f} ms, ssd_ref {ref_ms:.6f} ms; no single PyTorch "
+        f"call computes this scan")
     for line in build.library_path("ssd_chunk").with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"[ssd] nvcc: {line.strip()}")
-    del q, k, v, la
+    del q, k, v, la, y, views
     torch.cuda.empty_cache()
     return {"name": "ssd_chunk", "route": "cuda",
             "source": "src/repro_torch/csrc/ssd_chunk.cu",
             "replaces": "src/repro/kernels/ssd_chunk/kernel.py:84",
             "launches": None, "max_abs_err": worst, "ms": ms, "plain_ms": ref_ms,
-            "plain_chunked_ms": chunked_ms, "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": None}
+            "plain_chunked_ms": chunked_ms, "cuda_core_ms": old_ms, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": None}
 
 
 def _vision_setup(clients: int = 8, per_client: int = 500):
@@ -866,14 +912,15 @@ def phase_serve() -> int:
     return launches
 
 
-def phase_serve_hybrid() -> tuple[int, int]:
+def phase_serve_hybrid() -> tuple[int, int, dict]:
     """The hybrid serving path: ``serve_session`` on zamba2-7b at full
     width, bf16, random weights from a seed, B 4 × 4,096 prompt, 32 tokens;
     every Mamba2 prefill scan through the SSD kernel (81 launches) and every
     shared-attention prefill through the flash kernel (13).  Then the same
     config in f32 (TF32 off), prompt 512, 4 tokens: the kernel path against
     plain PyTorch, every step's logits within ``SERVE_CROSS_TOL``.  Returns
-    the counted run's (ssd_chunk, flash_attention) launches."""
+    the counted run's (ssd_chunk, flash_attention) launches and the SSD
+    launches by body."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention_kernel
     from repro_torch.kernels.ssd_chunk import ssd_chunk_kernel
@@ -901,11 +948,13 @@ def phase_serve_hybrid() -> tuple[int, int]:
     torch.cuda.reset_peak_memory_stats()
 
     ssd_chunk_kernel.launches = 0
+    ssd_chunk_kernel.launches_by_body = dict.fromkeys(ssd_chunk_kernel.launches_by_body, 0)
     flash_attention_kernel.launches = 0
     res = serve_session(cfg, b, s, g, device="cuda", params=params, prompt=prompt,
                         verbose=False)
     torch.cuda.synchronize()
     ssd_n, flash_n = ssd_chunk_kernel.launches, flash_attention_kernel.launches
+    by_body = dict(ssd_chunk_kernel.launches_by_body)
 
     toks = res.tokens
     decoded = b * (g - 1)
@@ -917,11 +966,14 @@ def phase_serve_hybrid() -> tuple[int, int]:
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     log(f"[serve_hybrid] tokens[0] {toks[0].tolist()}")
     log(f"[serve_hybrid] ssd_chunk launches {ssd_n} (one per Mamba2 layer: "
-        f"{mamba_layers}), flash_attention launches {flash_n} (one per shared-attention "
-        f"application: {n_chunks})")
+        f"{mamba_layers}; by body {by_body}), flash_attention launches {flash_n} (one per "
+        f"shared-attention application: {n_chunks})")
     if ssd_n != mamba_layers or flash_n != n_chunks:
         raise AssertionError(f"launches: ssd {ssd_n} != {mamba_layers} or flash "
                              f"{flash_n} != {n_chunks}")
+    if by_body["wgmma"] != mamba_layers:
+        raise AssertionError(f"ssd launches by body {by_body}: not all {mamba_layers} "
+                             f"through the wgmma body")
     if toks.shape != (b, g) or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
         raise AssertionError(f"bad tokens {tuple(toks.shape)}")
     for i, x in enumerate(res.logits):
@@ -950,7 +1002,7 @@ def phase_serve_hybrid() -> tuple[int, int]:
         raise AssertionError("f32 hybrid serve: kernel and plain paths disagree")
     del params, prompt, out
     torch.cuda.empty_cache()
-    return ssd_n, flash_n
+    return ssd_n, flash_n, by_body
 
 
 def main() -> int:
@@ -966,7 +1018,7 @@ def main() -> int:
     flash = phase_flash()
     flash_serve = phase_serve()
     ssd = phase_ssd()
-    ssd["launches"], flash_hybrid = phase_serve_hybrid()
+    ssd["launches"], flash_hybrid, ssd["launches_by_body"] = phase_serve_hybrid()
     flash["launches"] = flash_serve + flash_hybrid
     flash["launches_by_path"] = {"serve": flash_serve, "serve_hybrid": flash_hybrid}
     print(json.dumps({"kernels": [adam, flash, ssd]}))

@@ -7,10 +7,12 @@ root (a directory ``.gitignore`` lists), for ``sm_90a``:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o lib<name>-<hash>.so <name>.cu
 
-The hash covers the source and the flags, so an edited kernel rebuilds and
-an unchanged one loads from the previous build.  No ``--use_fast_math``:
-IEEE sqrt and division keep each kernel op-for-op with its plain PyTorch
-version.  nvcc's output (``-Xptxas -v``: registers, spills) is kept beside
+The hash covers the source, every ``csrc/*.cuh`` header it includes
+(``hopper.cuh``: the Hopper helpers of the flash and SSD kernels) and the
+flags, so an edited kernel or header rebuilds and an unchanged one loads
+from the previous build; ``csrc/`` is on the include path.  No
+``--use_fast_math``: IEEE sqrt and division keep each kernel op-for-op with
+its plain PyTorch version.  nvcc's output (``-Xptxas -v``: registers, spills) is kept beside
 the library as ``.log``.  Nothing is built at import time: a kernel's first
 launch builds it, and ``build_all`` starts one nvcc per source at once.
 """
@@ -20,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -43,10 +46,34 @@ def nvcc_path() -> str:
                        "the port's CUDA kernels are built from source")
 
 
+def headers(src: Path) -> list[Path]:
+    """The ``csrc/*.cuh`` headers ``src`` includes (``#include "x.cuh"``),
+    and theirs, in the order first met."""
+    found: list[Path] = []
+    todo = [src]
+    while todo:
+        text = todo.pop(0).read_text()
+        for name in re.findall(r'^\s*#include\s+"([^"]+\.cuh)"', text, re.M):
+            path = CSRC / name
+            if path not in found:
+                found.append(path)
+                todo.append(path)
+    return found
+
+
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(src.read_bytes())
+    for header in headers(src):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def nvcc_command(src: Path, out: Path) -> list[str]:
+    """The nvcc command that builds ``src`` into ``out``, with ``csrc/`` on
+    the include path (the phase-timing tools build copies from ``build/``)."""
+    return [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out), str(src)]
 
 
 def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
@@ -57,9 +84,8 @@ def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+    proc = subprocess.Popen(nvcc_command(CSRC / f"{name}.cu", tmp),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
 
 

@@ -99,8 +99,7 @@ def _build_instrumented(ctas: int) -> ctypes.CDLL:
     src = build.BUILD_DIR / "flash_attention_phases.cu"
     lib = build.BUILD_DIR / "libflash_attention_phases.so"
     src.write_text(instrumented_source(ctas))
-    out = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib), str(src)],
-                         capture_output=True, text=True)
+    out = subprocess.run(build.nvcc_command(src, lib), capture_output=True, text=True)
     if out.returncode != 0:
         raise RuntimeError(f"nvcc failed:\n{out.stdout}{out.stderr}")
     return ctypes.CDLL(str(lib))

@@ -20,7 +20,13 @@ use; the wrapper raises for anything else, on either device.
 A CUDA tensor launches the kernel — built from source with nvcc at first use
 (``kernels/build.py``) — or raises; a CPU tensor takes the plain PyTorch
 version (``ref.ssd_ref``).  There is no fallback from one to the other.
-``ssd_chunk_kernel.launches`` counts kernel launches (CUDA only).
+
+The kernel has two bodies, and ``body_for`` picks one from the shapes and
+strides before the launch (``wgmma_ok`` in the CUDA source is the same
+test): ``"wgmma"`` (bf16, N and P ≤ 64, chunk ≤ 128, every view one a TMA
+tensor map can describe — the Zamba2 path) and ``"cuda_core"`` (f32 and
+every other call).  ``ssd_chunk_kernel.launches`` counts kernel launches
+(CUDA only), ``ssd_chunk_kernel.launches_by_body`` the same per body.
 """
 
 from __future__ import annotations
@@ -39,6 +45,10 @@ MAX_SMEM_BYTES = 232_448       # 227 KB, Hopper's per-block limit
 # 128, 32 rows take 112 KB (two CTAs per SM), 64 rows 137 KB (one)
 TILE_Q = (32, 16, 8, 4)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+BODIES = ("cuda_core", "wgmma")   # SsdParams.body 0, 1
+WGMMA_MAX_DIM = 64             # N and P of the wgmma body: one 128-byte row of bf16
+WGMMA_MAX_CHUNK = 128          # its chunk: one 128-row box
+TMA_MAX_STRIDE_BYTES = 2 ** 40
 
 
 class _Params(ctypes.Structure):
@@ -51,7 +61,7 @@ class _Params(ctypes.Structure):
         ("la_stride", ctypes.c_longlong * 3),
         ("batch", ctypes.c_int), ("heads", ctypes.c_int), ("seq", ctypes.c_int),
         ("n", ctypes.c_int), ("p", ctypes.c_int), ("chunk", ctypes.c_int),
-        ("tile_q", ctypes.c_int), ("dtype", ctypes.c_int),
+        ("tile_q", ctypes.c_int), ("dtype", ctypes.c_int), ("body", ctypes.c_int),
     ]
 
 
@@ -87,6 +97,28 @@ def tile_rows(n: int, p: int, chunk: int) -> int:
     raise ValueError(f"chunk {chunk} at N {n}, P {p} needs "
                      f"{_smem_bytes(n, p, chunk, 4)} bytes of shared memory, more "
                      f"than the {MAX_SMEM_BYTES} a block may use")
+
+
+def _tma_view(t: torch.Tensor) -> bool:
+    """A tensor map can describe the (B, H, rows, cols) bf16 view ``t``:
+    16-byte-aligned base, unit-stride columns, the other strides 16-byte
+    multiples (0 included) below 2**40 bytes (``tma_view`` in the CUDA
+    source)."""
+    e = t.element_size()
+    return (t.data_ptr() % 16 == 0 and t.stride(3) == 1
+            and all(0 <= st * e < TMA_MAX_STRIDE_BYTES and st * e % 16 == 0
+                    for st in t.stride()[:3]))
+
+
+def body_for(q, k, v, chunk: int, out) -> str:
+    """The body that runs the (checked, clamped-chunk) call writing ``out``:
+    ``"wgmma"`` for bf16 with N, P ≤ 64, chunk ≤ 128 and q, k, v and out
+    views a tensor map can describe, else ``"cuda_core"``."""
+    if (v.dtype == torch.bfloat16 and q.shape[-1] <= WGMMA_MAX_DIM
+            and v.shape[-1] <= WGMMA_MAX_DIM and chunk <= WGMMA_MAX_CHUNK
+            and all(_tma_view(t) for t in (q, k, v, out))):
+        return "wgmma"
+    return "cuda_core"
 
 
 def _check(q, k, v, log_a, chunk: int, out) -> tuple[int, int]:
@@ -146,10 +178,31 @@ def ssd_chunk_kernel(
         return (y if out is None else out.copy_(y)), state
     if v.device.type != "cuda":
         raise ValueError(f"ssd_chunk runs on cuda or cpu, not {v.device}")
-    b, h, s, n = q.shape
-    p = v.shape[-1]
     if out is None:
         out = torch.empty_like(v, memory_format=torch.contiguous_format)
+    return _launch(q, k, v, log_a, chunk, tile, out, body_for(q, k, v, chunk, out))
+
+
+def ssd_chunk_body(q, k, v, log_a, *, body: str, chunk: int = 128, out=None):
+    """``ssd_chunk_kernel`` on CUDA tensors through the named body (one of
+    ``BODIES``), for timing one body against the other; raises where that
+    body cannot take the call.  Nothing on the main path calls it."""
+    chunk, tile = _check(q, k, v, log_a, chunk, out)
+    if v.device.type != "cuda":
+        raise ValueError(f"ssd_chunk_body runs on cuda, not {v.device}")
+    if out is None:
+        out = torch.empty_like(v, memory_format=torch.contiguous_format)
+    if body not in BODIES or (body == "wgmma" and body_for(q, k, v, chunk, out) != body):
+        raise ValueError(f"the {body!r} body cannot take this call")
+    return _launch(q, k, v, log_a, chunk, tile, out, body)
+
+
+_ERRORS = {-1: "bad parameters", -2: "libcuda has no cuTensorMapEncodeTiled"}
+
+
+def _launch(q, k, v, log_a, chunk: int, tile: int, out, body: str):
+    b, h, s, n = q.shape
+    p = v.shape[-1]
     state = torch.empty((b, h, n, p), dtype=torch.float32, device=v.device)
     prm = _Params(q.data_ptr(), k.data_ptr(), v.data_ptr(), log_a.data_ptr(),
                   out.data_ptr(), state.data_ptr(),
@@ -158,15 +211,18 @@ def ssd_chunk_kernel(
                   (ctypes.c_longlong * 4)(*v.stride()),
                   (ctypes.c_longlong * 4)(*out.stride()),
                   (ctypes.c_longlong * 3)(*log_a.stride()),
-                  b, h, s, n, p, chunk, tile, _DTYPES[v.dtype])
+                  b, h, s, n, p, chunk, tile, _DTYPES[v.dtype], BODIES.index(body))
     fn = _lib().ssd_chunk_launch
     with torch.cuda.device(v.device):
         rc = fn(ctypes.byref(prm), torch.cuda.current_stream(v.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"ssd_chunk launch failed: "
-                           f"{'bad parameters' if rc == -1 else f'cudaError {rc}'}")
+        why = _ERRORS.get(rc) or (f"tensor map encoding failed (CUresult {-1000 - rc})"
+                                  if rc <= -1000 else f"cudaError {rc}")
+        raise RuntimeError(f"ssd_chunk launch ({body} body) failed: {why}")
     ssd_chunk_kernel.launches += 1
+    ssd_chunk_kernel.launches_by_body[body] += 1
     return out, state
 
 
 ssd_chunk_kernel.launches = 0
+ssd_chunk_kernel.launches_by_body = dict.fromkeys(BODIES, 0)

@@ -206,8 +206,11 @@ def test_phase_timing_instruments_every_step():
     """The on-card phase-timing tool finds each place it instruments in the
     kernel source exactly once (it raises otherwise)."""
     src = phase_timing.instrumented_source(4096)
-    # the wait loop's own clock, the start mark, five step ends, the producer's two
-    assert src.count("clock64()") == 9
+    # the wait loop's own clock (in the included hopper.cuh), the start mark,
+    # five step ends, the producer's two
+    assert '#include "hopper.cuh"' in src
+    assert (build.CSRC / "hopper.cuh").read_text().count("clock64()") == 1
+    assert src.count("clock64()") == 8
     assert "g_dbg[4096 * 2 * 5]" in src and "flash_dbg_read" in src
 
 

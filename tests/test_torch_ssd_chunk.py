@@ -14,6 +14,12 @@
   wrapper's checks, its tile choice and its C interface (``struct
   SsdParams`` in the CUDA source, field for field); the phase-timing
   tool's markers in the CUDA source;
+* the bf16 ``wgmma`` body's rounding plan (``ref.ssd_rounded``: W, k_dec
+  and S_prev as bf16 hi + lo, the decay factorised or per element) against
+  the JAX oracle at Zamba2's widths, at the unchanged limits, and one bf16
+  k_dec breaking the state's limit, one bf16 S_prev y's; which body
+  ``body_for`` picks for the Zamba2 layer's views and for the layouts it
+  leaves to the CUDA cores; the build hashing the shared Hopper header;
 * the CUDA kernel against the plain version, on a card only (``gpu``).
 
 Tolerances: ``ssd_ref`` ≤ 5e-5 (f32, sums in another order; rounding
@@ -39,6 +45,7 @@ from repro_torch import bridge
 from repro_torch.kernels import build
 from repro_torch.kernels.ssd_chunk import kernel as sk
 from repro_torch.kernels.ssd_chunk import ops, phase_timing, ssd_chunk_kernel, ssd_ref
+from repro_torch.kernels.ssd_chunk.ref import FACTOR_SPAN, ssd_rounded
 from repro_torch.models import ssm
 
 torch.set_num_threads(1)   # one thread per xdist worker (see test_torch_masked_adam)
@@ -248,12 +255,32 @@ def test_params_struct_matches_cuda_source():
         assert expect[ctype] == pytype, name
 
 
-def test_cuda_limits_match_the_wrapper():
+def _cuda_consts() -> dict[str, int]:
     src = (build.CSRC / "ssd_chunk.cu").read_text()
-    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
-    assert int(consts["kMaxDim"]) == sk.MAX_DIM
-    assert int(consts["kMaxChunk"]) == sk.MAX_CHUNK
-    assert int(consts["kMaxSmem"]) == sk.MAX_SMEM_BYTES
+    return {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+
+
+def test_cuda_limits_match_the_wrapper():
+    consts = _cuda_consts()
+    assert consts["kMaxDim"] == sk.MAX_DIM
+    assert consts["kMaxChunk"] == sk.MAX_CHUNK
+    assert consts["kMaxSmem"] == sk.MAX_SMEM_BYTES
+    assert consts["kWgmmaDim"] == sk.WGMMA_MAX_DIM
+    assert consts["kWgmmaChunk"] == sk.WGMMA_MAX_CHUNK
+    assert consts["kFactorSpan"] == FACTOR_SPAN
+
+
+def test_wgmma_body_fits_shared_memory():
+    """The wgmma body's ring of q / k / v boxes and k_dec hi / lo tiles, two
+    S_prev hi / lo buffers, the per-stage vectors and barriers fit in the
+    227 KB a block may use (``WgSmem`` in the CUDA source), one CTA per SM."""
+    c = _cuda_consts()
+    tile, state = c["kWgmmaChunk"] * c["kRowBytes"], c["kWgmmaDim"] * c["kRowBytes"]
+    assert (c["kRowBytes"], tile, state) == (128, 16_384, 8_192)
+    st = c["kStages"]
+    total = (5 * st * tile + 4 * state + st * 5 * c["kWgmmaChunk"] * 4
+             + st * 8 + 8 * 4 * st + 1024)
+    assert 116 * 1024 < total <= sk.MAX_SMEM_BYTES
 
 
 def test_launcher_declares_its_c_signature(monkeypatch):
@@ -266,11 +293,20 @@ def test_launcher_declares_its_c_signature(monkeypatch):
 
 
 def test_phase_timing_instruments_every_phase():
-    """The on-card phase-timing tool finds each barrier it instruments in
-    the kernel source exactly once (it raises otherwise)."""
+    """The on-card phase-timing tool finds each place it instruments in the
+    kernel source exactly once (it raises otherwise): the CUDA-core body's
+    five phase ends, the wgmma body's ten steps per consumer warpgroup and
+    the producer's wait for a free stage."""
     src = phase_timing.instrumented_source(448)
-    assert src.count("clock64()") == 6      # the start mark and five phase ends
-    assert "g_dbg[448 * 5]" in src and "ssd_dbg_read" in src
+    n_ph = len(phase_timing.WG_PHASES)
+    assert n_ph == 10
+    # CUDA-core: the start mark and five phase ends; wgmma: the start mark,
+    # ten step ends, and the two clocks around the producer's wait
+    assert src.count("clock64()") == (1 + 5) + (1 + n_ph + 2)
+    for slot in range(n_ph):
+        assert src.count(f"ph[{slot}] += t - t_mark") == 1
+    assert "g_dbg[448 * 5]" in src and f"g_ph[448 * 2 * {n_ph}]" in src
+    assert "g_wait[448]" in src and "ssd_dbg_read" in src
 
 
 def test_ssd_chunk_is_built_with_the_port():
@@ -298,3 +334,163 @@ def test_cuda_kernel_matches_plain(dtype):
         torch.testing.assert_close(y.float(), y_ref.float(), rtol=TOL[name],
                                    atol=TOL[name])
         torch.testing.assert_close(st, st_ref, rtol=STATE_TOL, atol=STATE_TOL)
+
+
+# -- the bf16 wgmma body: rounding plan, route, build -------------------------
+
+ZAMBA2_WIDTH = (1, 4, 1024, 64, 64, 128)   # N = P = 64, chunk 128, 4 heads, 8 chunks
+# log_a ranges: the reference's draw; slow decays (the state grows to ~30);
+# totals near -128 (the factorised decay's rebased range); totals below
+# -2·FACTOR_SPAN (the per-element decay)
+DECAYS = {"ref": None, "slow": (0.0, 0.01), "steep": (0.9, 1.1), "steeper": (1.8, 2.2)}
+
+
+def _zamba2_width_inputs(decay: str, seed: int = 21):
+    """Head-broadcast q, k (B,H,S,N) and v (B,H,S,P) bf16 as numpy arrays
+    rounded by JAX, log_a (B,H,S) f32, in the kernel's (B, H, S, ·) layout."""
+    b, h, s, n, p, _ = ZAMBA2_WIDTH
+    rng = np.random.default_rng(seed)
+    q = np.broadcast_to(rng.standard_normal((b, 1, s, n)).astype(np.float32) * 0.3,
+                        (b, h, s, n))
+    k = np.broadcast_to(rng.standard_normal((b, 1, s, n)).astype(np.float32) * 0.3,
+                        (b, h, s, n))
+    v = rng.standard_normal((b, h, s, p)).astype(np.float32)
+    if DECAYS[decay] is None:
+        log_a = -np.abs(rng.standard_normal((b, h, s))).astype(np.float32) * 0.2
+    else:
+        log_a = -rng.uniform(*DECAYS[decay], (b, h, s)).astype(np.float32)
+    cast = [np.ascontiguousarray(jnp.asarray(a, jnp.bfloat16)) for a in (q, k, v)]
+    return (*cast, log_a)
+
+
+def _rel(out: torch.Tensor, ref: torch.Tensor) -> float:
+    return float(((out.float() - ref).abs() / (1 + ref.abs())).max())
+
+
+@pytest.mark.parametrize("decay", list(DECAYS))
+def test_rounding_plan_holds_the_limits(decay):
+    """The wgmma body's operand rounding, emulated by ``ssd_rounded``, keeps
+    y within ``TOL["bfloat16"]`` per element and ``ROW_TOL`` per row, and the
+    f32 final state within ``STATE_TOL``, of the JAX oracle at Zamba2's
+    widths, for the factorised decay and the per-element one."""
+    arrs = _zamba2_width_inputs(decay)
+    totals = arrs[3].reshape(*arrs[3].shape[:2], -1, ZAMBA2_WIDTH[-1]).sum(-1)
+    assert (totals >= -2 * FACTOR_SPAN).all() == (decay != "steeper")
+    y_j, st_j = j_ssd_ref(*map(jnp.asarray, arrs))
+    y, st = ssd_rounded(*_torch(arrs), ZAMBA2_WIDTH[-1])
+    ref = torch.from_numpy(np.asarray(y_j, np.float32))
+    assert y.dtype == torch.bfloat16 and bool(torch.isfinite(y.float()).all())
+    assert _rel(y, ref) <= TOL["bfloat16"]
+    row = (y.float() - ref).norm(dim=-1) / ref.norm(dim=-1).clamp_min(1e-30)
+    assert float(row.max()) <= ROW_TOL
+    assert _rel(st, torch.from_numpy(np.array(st_j))) <= STATE_TOL
+
+
+def test_single_bf16_kdec_breaks_the_state_limit():
+    """Why k_dec enters the state product as bf16 hi + lo: one bf16 term
+    puts the f32 final state past ``STATE_TOL``, compounding over chunks."""
+    arrs = _zamba2_width_inputs("ref")
+    _, st_j = j_ssd_ref(*map(jnp.asarray, arrs))
+    _, st = ssd_rounded(*_torch(arrs), ZAMBA2_WIDTH[-1], split_kdec=False)
+    assert _rel(st, torch.from_numpy(np.array(st_j))) > 5 * STATE_TOL
+
+
+def test_single_bf16_state_breaks_the_element_limit():
+    """Why S_prev enters q·S_prev as bf16 hi + lo: under slow decays the
+    state grows, and one bf16 copy of it puts y past ``TOL["bfloat16"]``."""
+    arrs = _zamba2_width_inputs("slow")
+    y_j, _ = j_ssd_ref(*map(jnp.asarray, arrs))
+    y, _ = ssd_rounded(*_torch(arrs), ZAMBA2_WIDTH[-1], split_state=False)
+    assert _rel(y, torch.from_numpy(np.asarray(y_j, np.float32))) > TOL["bfloat16"]
+
+
+def _meta(shape, dtype=torch.bfloat16, offset: int = 0):
+    return torch.empty(int(np.prod(shape)) + offset, dtype=dtype,
+                       device="meta")[offset:].view(shape)
+
+
+def test_route_takes_the_zamba2_layer_views():
+    """The Zamba2 layer as ``ops.ssd_scan`` hands it over: head-broadcast
+    q / k (stride 0), v and y as (B, H, S, P) views of (B, S, H, P)."""
+    b, h, s, n, p = 4, 112, 4096, 64, 64
+    q = _meta((b, s, 1, n)).expand(b, s, h, n).transpose(1, 2)
+    k = _meta((b, s, 1, n)).expand(b, s, h, n).transpose(1, 2)
+    v, y = (_meta((b, s, h, p)).transpose(1, 2) for _ in range(2))
+    assert q.stride(1) == 0 and v.stride(2) == h * p
+    assert sk.body_for(q, k, v, 128, y) == "wgmma"
+
+
+@pytest.mark.parametrize("case", ["odd", "unaligned_stride", "unaligned_base",
+                                  "float32", "wide", "long_chunk", "strided_cols"])
+def test_route_leaves_the_rest_to_the_cuda_cores(case):
+    b, h, s, n, p, chunk = 1, 4, 256, 64, 64, 128
+    dtype, offset, row_pad = torch.bfloat16, 0, 0
+    if case == "odd":            # rows of 10 / 14 bytes
+        b, h, s, n, p, chunk = 1, 3, 52, 5, 7, 13
+    elif case == "unaligned_stride":   # rows 68 elements apart: 136 bytes
+        row_pad = 4
+    elif case == "unaligned_base":
+        offset = 1
+    elif case == "float32":
+        dtype = torch.float32
+    elif case == "wide":
+        p = 128
+    elif case == "long_chunk":
+        chunk = 256
+    q = _meta((b, h, s, n + row_pad), dtype, offset)[..., :n]
+    k = _meta((b, h, s, n), dtype)
+    v, y = _meta((b, h, s, p), dtype), _meta((b, h, s, p), dtype)
+    if case == "strided_cols":
+        v = _meta((b, h, s, 2 * p), dtype)[..., ::2]
+    assert sk.body_for(q, k, v, chunk, y) == "cuda_core"
+
+
+def test_body_helper_needs_a_card():
+    q, k, v, la = (t.transpose(1, 2) for t in _torch(_inputs(SMOKE, "bfloat16", seed=3)))
+    with pytest.raises(ValueError, match="cuda"):
+        sk.ssd_chunk_body(q, k, v, la, body="wgmma", chunk=SMOKE[-1])
+
+
+def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
+    """An edited ``.cuh`` header renames (so rebuilds) every library whose
+    source includes it, and no other."""
+    (tmp_path / "hopper.cuh").write_text("// helpers v1\n")
+    (tmp_path / "a.cu").write_text('#include "hopper.cuh"\nint a;\n')
+    (tmp_path / "b.cu").write_text("int b;\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = build.library_path("a"), build.library_path("b")
+    assert build.headers(tmp_path / "a.cu") == [tmp_path / "hopper.cuh"]
+    (tmp_path / "hopper.cuh").write_text("// helpers v2\n")
+    assert build.library_path("a") != before[0]
+    assert build.library_path("b") == before[1]
+
+
+def test_both_hopper_kernels_include_the_shared_header(monkeypatch):
+    monkeypatch.setattr(build, "nvcc_path", lambda: "nvcc")
+    for name in ("flash_attention", "ssd_chunk"):
+        assert build.headers(build.CSRC / f"{name}.cu") == [build.CSRC / "hopper.cuh"]
+    cmd = build.nvcc_command(build.CSRC / "ssd_chunk.cu", build.BUILD_DIR / "x.so")
+    assert cmd[cmd.index("-I") + 1] == str(build.CSRC)
+
+
+@pytest.mark.gpu
+def test_cuda_zamba2_width_call_takes_the_wgmma_body():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    b, h, s, n, p, chunk = 2, 8, 512, 64, 64, 128
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q = (torch.randn(b, s, 1, n, device="cuda", generator=gen) * 0.3).bfloat16()
+    k = (torch.randn(b, s, 1, n, device="cuda", generator=gen) * 0.3).bfloat16()
+    q, k = q.expand(b, s, h, n), k.expand(b, s, h, n)
+    v = torch.randn(b, s, h, p, device="cuda", generator=gen).bfloat16()
+    la = -torch.rand(b, s, h, device="cuda", generator=gen) * 0.2
+    before = dict(ssd_chunk_kernel.launches_by_body)
+    y, st = ops.ssd_scan(q, k, v, la, chunk=chunk)
+    torch.cuda.synchronize()
+    after = ssd_chunk_kernel.launches_by_body
+    assert after["wgmma"] == before["wgmma"] + 1
+    assert after["cuda_core"] == before["cuda_core"]
+    y_ref, st_ref = ops.ssd_reference(q, k, v, la)
+    torch.testing.assert_close(y.float(), y_ref.float(), rtol=TOL["bfloat16"],
+                               atol=TOL["bfloat16"])
+    torch.testing.assert_close(st, st_ref, rtol=STATE_TOL, atol=STATE_TOL)
