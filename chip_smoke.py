@@ -9,17 +9,35 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build    — nvcc builds every CUDA kernel of the port from ``csrc/``
               (``masked_adam``, ``flash_attention`` and ``ssd_chunk``, in
               parallel).
-3. kernel   — ``masked_adam`` against its plain PyTorch version on the card,
-              at the ResNet-8 shape (1,576 rows) and at 2**20 rows, several
-              masks, steps 1 and 1000; frozen blocks must be bit-exact and the
-              client-stacked launch must equal per-client launches.  Times
-              (CUDA events), the bound and ``torch.optim.Adam(fused=True)``
-              on the same buffers as a yardstick.
+3. kernel   — the masked-Adam kernel (one CUDA kernel for both TPU
+              functions) against its plain PyTorch version on the card.  One
+              client (``masked_adam_``) at the ResNet-8 shape (1,576 rows)
+              and at 2**20 rows, several masks, steps 1 and 1000; frozen
+              blocks must be bit-exact and the client-stacked launch must
+              equal per-client launches.  Then the cohort launch
+              (``MaskedAdamCohort``) at ResNet-8 x 8 clients: FNU, each
+              FedPart group, a nested plan, every client valid and one
+              padded, steps 1 and 1000; bit-identical, untrained blocks and
+              the padded client bit-exact to their inputs, and equal to 8
+              one-client launches.  Times (CUDA events, cycling through
+              enough buffer sets that each launch finds its data outside the
+              50 MB L2, as the main path does after a forward and backward),
+              host microseconds per wrapper call, the bound and
+              ``torch.optim.Adam(fused=True)`` on the same buffers as a
+              yardstick.
 4. fedpart  — the main path: sync FedPart on ResNet-8 at the paper's width,
               8 iid clients x 500 samples, batch 64, one local epoch, FedAvg,
               ``fused_adam=True``: 12 FedPart rounds, then the matched FNU
-              baseline's 12.  Every local step must launch the kernel once.
-              Then fused-vs-unfused cross-checks for FedAvg / FedProx / MOON.
+              baseline's 12.  Every local step must launch the kernel once
+              (a one-client cohort).  Then fused-vs-unfused cross-checks for
+              FedAvg / FedProx / MOON.
+   fedpart_vmap — the same runs through ``engine="vmap"``: one cohort
+              launch per bucket and local step (168, against ``fedpart``'s
+              1,344 one-client launches); seconds per round beside
+              ``fedpart``'s; one FNU round under ``torch.profiler``; then
+              vmap-vs-sequential cross-checks for FedAvg / FedProx / MOON
+              and a nested plan at ``adam_eps=1e-3``, with deterministic
+              cuDNN convolutions.
 5. profile  — one FNU round under ``torch.profiler``: device time by kernel.
 6. flash    — ``flash_attention`` against its plain PyTorch version on the
               card: the reference's seven cases, four ragged ones and three
@@ -69,6 +87,7 @@ one before it the ``kernels`` JSON; the last line is the ``ok`` JSON.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -88,7 +107,8 @@ F32_FLOPS_PER_S = 67e12        # H100 SXM float32, non-tensor-core (data sheet)
 BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense (data sheet)
 ADAM_FLOPS_PER_ELEM = 12       # two EMAs, bias corrections, sqrt, eps, div, scale, sub
 KERNEL_TOL = 1e-6              # kernel vs plain: same f32 ops, IEEE sqrt/div, no FMA
-CROSS_TOL = 1e-4               # fused vs unfused FL runs at adam_eps=1e-3 (the reference's regime)
+CROSS_TOL = 1e-4               # fused vs unfused, vmap vs sequential FL runs at adam_eps=1e-3
+L2_BYTES = 50 * 2 ** 20        # H100 SXM L2 (data sheet)
 # flash kernel vs plain, per element: |k - p| <= tol + tol*|p|; f32 is the
 # reference's own kernel-vs-oracle tolerance, bf16 its test_dtypes tolerance
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -173,6 +193,32 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def host_us(fn, n: int = 2000) -> float:
+    """Host microseconds per call of ``fn`` (enqueue only), ``n`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / n * 1e6
+
+
+def cold_sets(make, set_bytes: int) -> list:
+    """Enough results of ``make()`` (each a fresh set of buffers of
+    ``set_bytes``) that cycling through them moves more than twice the L2
+    between two uses of one set: a timed launch then finds its data in HBM,
+    as the main path's optimizer step does after a forward and backward."""
+    return [make() for _ in range(max(1, math.ceil(2 * L2_BYTES / set_bytes)))]
+
+
+def cycling(fns):
+    """One callable that calls ``fns`` in turn, one per call."""
+    it = itertools.cycle(fns)
+    return lambda: next(it)()
 
 
 def cuda_ms(fn, reps: int, repeats: int = 5) -> float:
@@ -291,34 +337,190 @@ def _check_stacked(rows: int, gen: torch.Generator, clients: int = 4,
 
 def _time_masked_adam(rows: int, mask: torch.Tensor, reps: int,
                       library: bool, br: int = 8) -> dict:
-    from repro_torch.kernels.masked_adam import masked_adam_, masked_adam_ref, ops
+    """The one-client launch as the sequential engine makes it (a cohort of
+    one, validated once, then ``step``), on cold buffers (``cold_sets``):
+    CUDA-event ms, host microseconds per call, the plain version, the bound
+    and, with ``library``, ``torch.optim.Adam(fused=True)``."""
+    from repro_torch.kernels.masked_adam import MaskedAdamCohort, masked_adam_ref, ops
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(rows)
-    p = torch.randn(rows, 128, device=dev, generator=gen)
-    g = torch.randn(rows, 128, device=dev, generator=gen)
-    m = torch.zeros_like(p)
-    v = torch.zeros_like(p)
-    sc = ops.adam_scalars(torch.tensor(1, device=dev), 1e-3, 0.9, 0.999, 1e-8)
+    sc = ops.adam_scalars(torch.tensor([1], device=dev), 1e-3, 0.9, 0.999, 1e-8)
+    gid = torch.arange(mask.numel(), dtype=torch.int32, device=dev)
+
+    def make():
+        p = torch.randn(1, rows, 128, device=dev, generator=gen)
+        g = torch.randn(1, rows, 128, device=dev, generator=gen)
+        m, v = torch.zeros_like(p), torch.zeros_like(p)
+        return p, g, m, v, MaskedAdamCohort(p, m, v, gid, mask[None],
+                                            np.ones((1, 1), np.int32), sc, block_rows=br)
+
+    sets = cold_sets(make, 16 * rows * 128)
     trained = int(mask.sum()) * br * 128
     bound, bound_by = _bound_ms(trained, mask.numel())
     out = {"rows": rows, "trained_blocks": int(mask.sum()), "blocks": mask.numel(),
-           "ms": cuda_ms(lambda: masked_adam_(p, g, m, v, mask, sc, block_rows=br), reps),
-           "plain_ms": cuda_ms(lambda: masked_adam_ref(p, g, m, v, mask, sc,
-                                                       block_rows=br), reps),
+           "buffer_sets": len(sets),
+           "ms": cuda_ms(cycling([lambda s=s: s[4].step(0, s[1]) for s in sets]), reps),
+           "host_us": host_us(lambda: sets[0][4].step(0, sets[0][1]), min(2000, 20 * reps)),
+           "plain_ms": cuda_ms(cycling([lambda s=s: masked_adam_ref(
+               s[0][0], s[1][0], s[2][0], s[3][0], mask, sc[0], block_rows=br)
+               for s in sets]), reps),
            "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
     if library:
-        param = torch.nn.Parameter(p.clone())
-        param.grad = g
-        opt = torch.optim.Adam([param], lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
-                               fused=True)
-        out["library_ms"] = cuda_ms(opt.step, reps)
-        del opt, param
-    del p, g, m, v
+        opts = []
+        for p, g, *_ in sets:
+            param = torch.nn.Parameter(p[0].clone())
+            param.grad = g[0]
+            opts.append(torch.optim.Adam([param], lr=1e-3, betas=(0.9, 0.999),
+                                         eps=1e-8, fused=True))
+        out["library_ms"] = cuda_ms(cycling([o.step for o in opts]), reps)
+        del opts
+    del sets
     torch.cuda.empty_cache()
     return out
 
 
-def phase_kernel() -> dict:
+COHORT_CLIENTS = 8     # the FL phases' cohort: 8 clients in one bucket
+
+
+def _cohort_bound_ms(trained_elems: int, clients: int, blocks: int,
+                     groups: int) -> tuple[float, str]:
+    """Least time for one cohort launch: p, g, m, v read and p, m, v written
+    once per trained element, the group ids, group mask, valid column and
+    scalar row read once, against the op count."""
+    nbytes = 7 * 4 * trained_elems + 4 * (blocks + clients * groups + clients) + 16
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ADAM_FLOPS_PER_ELEM * trained_elems / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _cohort_cases(part, clients: int) -> dict:
+    """(clients, groups) bool group masks: FNU, each FedPart group, and a
+    nested plan (tiers 0.3 / 0.6 / 1.0) on a partial round of group 8."""
+    from repro_torch.core.schedule import PlanAssigner, RoundSpec
+    g = part.num_groups
+    cases = {"fnu": np.ones((clients, g), bool)}
+    for k in range(g):
+        cases[f"group{k}"] = np.broadcast_to(np.arange(g) == k, (clients, g))
+    plan = PlanAssigner(num_groups=g, kind="nested", capacity_tiers=(0.3, 0.6, 1.0),
+                        seed=0).assign(RoundSpec(1, "partial", 0, 8), list(range(clients)))
+    if plan is None or len({tuple(r) for r in plan}) < 2:
+        raise AssertionError(f"the nested plan case is not mixed: {plan}")
+    cases["nested"] = plan
+    return cases
+
+
+def _check_cohort(params, part, gen, clients: int = COHORT_CLIENTS,
+                  br: int = 8) -> float:
+    """Cohort launch vs its plain version at ResNet-8 x ``clients``: every
+    case of ``_cohort_cases``, every client valid and client 5 padded, steps
+    1 and 1000.  Bit-identical, untrained blocks and the padded client
+    bit-exact to their inputs; the nested case also equals one one-client
+    launch per client.  Returns the max abs error (0 when bit-identical)."""
+    from repro_torch.core.aggregation import is_local_stat
+    from repro_torch.kernels.masked_adam import (MaskedAdamCohort, masked_adam_,
+                                                 masked_adam_cohort_ref, ops)
+    dev = "cuda"
+    rows = ops.packed_rows(params, br)
+    gid = torch.as_tensor(ops.block_group_ids(params, part, br, exclude=is_local_stat),
+                          device=dev)
+    p = torch.randn(clients, rows, 128, device=dev, generator=gen)
+    g = torch.randn(clients, rows, 128, device=dev, generator=gen)
+    m = torch.randn(clients, rows, 128, device=dev, generator=gen) * 0.1
+    v = torch.rand(clients, rows, 128, device=dev, generator=gen) * 0.01
+    padded = np.ones(clients, np.float32)
+    padded[5] = 0.0
+    worst = 0.0
+    for cname, rows_mask in _cohort_cases(part, clients).items():
+        gmask = torch.as_tensor(np.ascontiguousarray(rows_mask), dtype=torch.int32,
+                                device=dev)
+        for vname, valid in (("all valid", np.ones(clients, np.float32)),
+                             ("client 5 padded", padded)):
+            for step in (1, 1000):
+                table = ops.adam_scalars(torch.tensor([step], device=dev), 1e-3, 0.9,
+                                         0.999, 1e-8)
+                valid_t = torch.as_tensor(valid, dtype=torch.int32, device=dev)
+                ref = masked_adam_cohort_ref(p, g, m, v, gid, gmask, valid_t, table[0],
+                                             block_rows=br)
+                out = (p.clone(), m.clone(), v.clone())
+                MaskedAdamCohort(*out, gid, gmask, valid[:, None], table,
+                                 block_rows=br).step(0, g)
+                torch.cuda.synchronize()
+                trained = torch.repeat_interleave(
+                    ops.plan_block_mask(gid, gmask, valid_t) != 0, br, dim=1)
+                what = f"cohort {cname}, {vname}, step {step}"
+                for name, k, r, x in zip("pmv", out, ref, (p, m, v)):
+                    worst = max(worst, float((k - r).abs().max()))
+                    if not torch.equal(k, r):
+                        raise AssertionError(f"{what}: {name} differs from the plain "
+                                             f"version (max {float((k - r).abs().max()):.3g})")
+                    if not torch.equal(k[~trained], x[~trained]):
+                        raise AssertionError(f"{what}: an untrained {name} block changed")
+                if cname == "nested" and vname == "client 5 padded" and step == 1000:
+                    bm = ops.plan_block_mask(gid, gmask, valid_t)
+                    for c in range(clients):
+                        single = (p[c].clone(), m[c].clone(), v[c].clone())
+                        masked_adam_(single[0], g[c], single[1], single[2], bm[c],
+                                     table[0], block_rows=br)
+                        if not all(torch.equal(a, b[c]) for a, b in zip(single, out)):
+                            raise AssertionError(f"{what}: client {c} != its "
+                                                 "one-client launch")
+    del p, g, m, v
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _time_cohort(params, part, reps: int = 200, clients: int = COHORT_CLIENTS,
+                 br: int = 8) -> dict:
+    """The cohort launch at ResNet-8 x ``clients``, FNU, every client valid,
+    on cold buffers (``cold_sets``; ``l2_hot_ms`` is one set back to back):
+    CUDA-event ms, host microseconds per wrapper call, the plain version,
+    the bound and ``torch.optim.Adam(fused=True)`` on the same bytes."""
+    from repro_torch.core.aggregation import is_local_stat
+    from repro_torch.kernels.masked_adam import (MaskedAdamCohort,
+                                                 masked_adam_cohort_ref, ops)
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = ops.packed_rows(params, br)
+    gids = ops.block_group_ids(params, part, br, exclude=is_local_stat)
+    gid = torch.as_tensor(gids, device=dev)
+    gmask = torch.ones(clients, part.num_groups, dtype=torch.int32, device=dev)
+    table = ops.adam_scalars(torch.tensor([1], device=dev), 1e-3, 0.9, 0.999, 1e-8)
+    valid = torch.ones(clients, dtype=torch.int32, device=dev)
+
+    def make():
+        p = torch.randn(clients, rows, 128, device=dev, generator=gen)
+        g = torch.randn(clients, rows, 128, device=dev, generator=gen)
+        m, v = torch.zeros_like(p), torch.zeros_like(p)
+        return p, g, m, v, MaskedAdamCohort(p, m, v, gid, gmask,
+                                            np.ones((clients, 1), np.float32), table,
+                                            block_rows=br)
+
+    sets = cold_sets(make, 16 * clients * rows * 128)
+    trained = clients * int((gids >= 0).sum()) * br * 128
+    bound, bound_by = _cohort_bound_ms(trained, clients, len(gids), part.num_groups)
+    first = sets[0]
+    out = {"clients": clients, "rows": rows, "trained_elems": trained,
+           "buffer_sets": len(sets),
+           "ms": cuda_ms(cycling([lambda s=s: s[4].step(0, s[1]) for s in sets]), reps),
+           "l2_hot_ms": cuda_ms(lambda: first[4].step(0, first[1]), reps),
+           "host_us": host_us(lambda: first[4].step(0, first[1])),
+           "plain_ms": cuda_ms(cycling([lambda s=s: masked_adam_cohort_ref(
+               s[0], s[1], s[2], s[3], gid, gmask, valid, table[0], block_rows=br)
+               for s in sets]), 20),
+           "bound_ms": bound, "bound_by": bound_by}
+    opts = []
+    for p, g, *_ in sets:
+        param = torch.nn.Parameter(p.clone())
+        param.grad = g
+        opts.append(torch.optim.Adam([param], lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
+                                     fused=True))
+    out["library_ms"] = cuda_ms(cycling([o.step for o in opts]), reps)
+    del opts, sets, first
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_kernel() -> tuple[dict, dict]:
     from repro_torch.core.aggregation import is_local_stat
     from repro_torch.fl.tasks import resnet_task
     from repro_torch.kernels.masked_adam import ops
@@ -353,9 +555,9 @@ def phase_kernel() -> dict:
     worst = max(worst, _check_masked_adam(big, bmasks, gen, br))
     _check_stacked(rows, gen)
     torch.cuda.empty_cache()
-    log(f"[kernel] masked_adam vs plain: max abs err {worst:.3g} on trained "
-        f"blocks (tolerance {KERNEL_TOL:g} x max(1,|ref|)); frozen blocks "
-        f"bit-exact; stacked == per-client launches (rows {rows} and {big})")
+    log(f"[kernel] masked_adam (one-client cohort launches) vs plain: max abs err "
+        f"{worst:.3g} on trained blocks (tolerance {KERNEL_TOL:g} x max(1,|ref|)); "
+        f"frozen blocks bit-exact; stacked == per-client launches (rows {rows} and {big})")
 
     timings = {
         "resnet8 all-on": _time_masked_adam(rows, rmasks["all-on"], 200, True),
@@ -368,16 +570,42 @@ def phase_kernel() -> dict:
         lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.6f}"
         log(f"[kernel] masked_adam {name}: rows {t['rows']} trained blocks "
             f"{t['trained_blocks']}/{t['blocks']} kernel {t['ms']:.6f} ms "
-            f"plain {t['plain_ms']:.6f} ms bound {t['bound_ms']:.6f} ms "
-            f"({t['bound_by']}) torch.optim.Adam(fused=True) {lib} ms")
+            f"({t['buffer_sets']} buffer sets in turn) plain {t['plain_ms']:.6f} ms "
+            f"bound {t['bound_ms']:.6f} ms ({t['bound_by']}) "
+            f"torch.optim.Adam(fused=True) {lib} ms; host {t['host_us']:.3f} us per "
+            f"step call")
     main = timings["resnet8 all-on"]
-    return {"name": "masked_adam", "route": "cuda",
+    adam = {"name": "masked_adam", "route": "cuda",
             "source": "src/repro_torch/csrc/masked_adam.cu",
             "replaces": "src/repro/kernels/masked_adam/kernel.py:66",
             "launches": None, "max_abs_err": worst,
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": main["library_ms"]}
+            "library_ms": main["library_ms"], "clients": 1, "host_us": main["host_us"]}
+
+    cworst = _check_cohort(params, part, gen)
+    log(f"[kernel] masked_adam_cohort vs plain at ResNet-8 x {COHORT_CLIENTS}: "
+        f"FNU, {part.num_groups} FedPart groups and a nested plan, all valid and one "
+        f"padded client, steps 1 and 1000: bit-identical (max abs err {cworst:.3g}); "
+        f"untrained blocks and the padded client bit-exact; equal to "
+        f"{COHORT_CLIENTS} one-client launches")
+    t = _time_cohort(params, part)
+    log(f"[kernel] masked_adam_cohort resnet8 x {t['clients']} fnu: rows {t['rows']} "
+        f"trained elements {t['trained_elems']} kernel {t['ms']:.6f} ms "
+        f"({t['buffer_sets']} buffer sets in turn; one set back to back, L2-hot: "
+        f"{t['l2_hot_ms']:.6f} ms) plain {t['plain_ms']:.6f} ms bound "
+        f"{t['bound_ms']:.6f} ms ({t['bound_by']}; {100 * t['bound_ms'] / t['ms']:.2f}% "
+        f"of it) torch.optim.Adam(fused=True) {t['library_ms']:.6f} ms; host "
+        f"{t['host_us']:.3f} us per step call (one client: {main['host_us']:.3f} us)")
+    cohort = {"name": "masked_adam_cohort", "route": "cuda",
+              "source": "src/repro_torch/csrc/masked_adam.cu",
+              "replaces": "src/repro/kernels/masked_adam/kernel.py:115",
+              "launches": None, "max_abs_err": cworst,
+              "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+              "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+              "clients": t["clients"], "host_us": t["host_us"],
+              "l2_hot_ms": t["l2_hot_ms"]}
+    return adam, cohort
 
 
 def _flash_qkv(b, h, hkv, sq, skv, d, dtype, gen):
@@ -701,13 +929,13 @@ def _vision_setup(clients: int = 8, per_client: int = 500):
             balanced_eval_set(xe, ye, per_class=20))
 
 
-def phase_fedpart() -> int:
+def phase_fedpart() -> tuple[int, dict]:
     from repro_torch.core.schedule import FedPartSchedule, matched_fnu
     from repro_torch.data.pipeline import batch_plan
     from repro_torch.fl import AlgoConfig, FLRunConfig, resnet_task, run_federated
     from repro_torch.fl.population import client_round_seed
-    from repro_torch.kernels.masked_adam import masked_adam_
-    from repro_torch.tree import tree_leaves, tree_paths
+    from repro_torch.kernels.masked_adam import MaskedAdamCohort
+    from repro_torch.tree import tree_leaves
 
     clients, eval_set = _vision_setup()
     adapter = resnet_task("resnet8", num_classes=20)
@@ -722,32 +950,15 @@ def phase_fedpart() -> int:
                    for rounds in runs.values() for s in rounds
                    for c in range(len(clients)))
 
-    masked_adam_.launches = 0
+    MaskedAdamCohort.launches = 0
     results = {name: run_federated(adapter, clients, eval_set, rounds, cfg)
                for name, rounds in runs.items()}
     torch.cuda.synchronize()
-    launches = masked_adam_.launches
+    launches = MaskedAdamCohort.launches
 
-    for name, res in results.items():
-        for h in res.history:
-            log(f"[fedpart] {name} round {h['round']:2d} [{h['phase']}:{h['group']:3d}] "
-                f"loss {h['loss']:.6f} acc {h['acc']:.4f} {h['seconds']:.4f} s")
-        secs = [h["seconds"] for h in res.history]
-        log(f"[fedpart] {name}: comm {res.comm_total_bytes} B (FNU "
-            f"{res.comm_fnu_bytes} B) comp {res.comp_total_flops:.0f} (FNU "
-            f"{res.comp_fnu_flops:.0f}) seconds/round mean {statistics.mean(secs):.4f} "
-            f"median {statistics.median(secs):.4f} first {secs[0]:.4f} "
-            f"final acc {res.final_acc:.4f}")
-        losses = [h["loss"] for h in res.history]
-        if not all(math.isfinite(x) for x in losses):
-            raise AssertionError(f"{name}: non-finite loss {losses}")
-        if not losses[-1] < losses[0]:
-            raise AssertionError(f"{name}: loss did not fall ({losses[0]} -> {losses[-1]})")
-        init = adapter.init(torch.Generator().manual_seed(cfg.seed))
-        for (path, a), b in zip(tree_paths(res.params), tree_leaves(init)):
-            if a.shape != b.shape or not bool(torch.isfinite(a).all()):
-                raise AssertionError(f"{name}: param {'/'.join(path)} bad")
-    log(f"[fedpart] masked_adam launches {launches}, local steps {expected}")
+    medians = _report_fl_runs("fedpart", adapter, results, cfg)
+    log(f"[fedpart] masked_adam launches {launches} (one client each), local steps "
+        f"{expected}")
     if launches != expected:
         raise AssertionError(f"kernel launches {launches} != local steps {expected}")
 
@@ -771,20 +982,139 @@ def phase_fedpart() -> int:
             raise AssertionError(f"{algo}: fused and unfused disagree")
         if not all(math.isfinite(h["loss"]) for h in out[True].history):
             raise AssertionError(f"{algo}: non-finite fused loss")
+    return launches, medians
+
+
+def _report_fl_runs(tag: str, adapter, results: dict, cfg) -> dict:
+    """Log every round and each run's books; check losses finite and
+    falling and params finite; returns each run's median seconds per round."""
+    from repro_torch.tree import tree_leaves, tree_paths
+    medians = {}
+    for name, res in results.items():
+        for h in res.history:
+            log(f"[{tag}] {name} round {h['round']:2d} [{h['phase']}:{h['group']:3d}] "
+                f"loss {h['loss']:.6f} acc {h['acc']:.4f} {h['seconds']:.4f} s")
+        secs = [h["seconds"] for h in res.history]
+        medians[name] = statistics.median(secs)
+        log(f"[{tag}] {name}: comm {res.comm_total_bytes} B (FNU "
+            f"{res.comm_fnu_bytes} B) comp {res.comp_total_flops:.0f} (FNU "
+            f"{res.comp_fnu_flops:.0f}) seconds/round mean {statistics.mean(secs):.4f} "
+            f"median {medians[name]:.4f} first {secs[0]:.4f} "
+            f"final acc {res.final_acc:.4f}")
+        losses = [h["loss"] for h in res.history]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{name}: non-finite loss {losses}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"{name}: loss did not fall ({losses[0]} -> {losses[-1]})")
+        init = adapter.init(torch.Generator().manual_seed(cfg.seed))
+        for (path, a), b in zip(tree_paths(res.params), tree_leaves(init)):
+            if a.shape != b.shape or not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"{name}: param {'/'.join(path)} bad")
+    return medians
+
+
+def phase_fedpart_vmap(seq_medians: dict) -> int:
+    """``fedpart``'s runs through ``engine="vmap"``: one cohort launch per
+    bucket and local step, not one per client; seconds per round beside
+    the sequential engine's; one FNU round under the profiler; then vmap vs
+    sequential on the card for FedAvg / FedProx / MOON and a nested plan.
+    Returns the counted run's cohort launches."""
+    from repro_torch.core.schedule import FedPartSchedule, RoundSpec, matched_fnu
+    from repro_torch.data.pipeline import bucket_plans
+    from repro_torch.fl import AlgoConfig, FLRunConfig, resnet_task, run_federated
+    from repro_torch.fl.population import client_round_seed
+    from repro_torch.kernels.masked_adam import MaskedAdamCohort
+    from repro_torch.tree import tree_leaves
+
+    clients, eval_set = _vision_setup()
+    adapter = resnet_task("resnet8", num_classes=20)
+    sched = FedPartSchedule(num_groups=10, warmup_rounds=2, rounds_per_layer=1,
+                            cycles=1)
+    runs = {"fedpart": sched.rounds(), "fnu": matched_fnu(sched).rounds()}
+    cfg = FLRunConfig(local_epochs=1, batch_size=64, algo=AlgoConfig("fedavg"),
+                      fused_adam=True, engine="vmap", device="cuda")
+    # every bucket's longest client, over rounds (all 8 clients each round)
+    expected = sum(
+        plans.shape[1]
+        for rounds in runs.values() for s in rounds
+        for _, plans, _ in bucket_plans(
+            clients, cfg.batch_size, cfg.local_epochs,
+            [client_round_seed(cfg.seed, s.index, c) for c in range(len(clients))]))
+
+    MaskedAdamCohort.launches = 0
+    results = {name: run_federated(adapter, clients, eval_set, rounds, cfg)
+               for name, rounds in runs.items()}
+    torch.cuda.synchronize()
+    launches = MaskedAdamCohort.launches
+
+    medians = _report_fl_runs("fedpart_vmap", adapter, results, cfg)
+    for name in runs:
+        log(f"[fedpart_vmap] {name} median seconds per round: vmap "
+            f"{medians[name]:.4f}, sequential {seq_medians[name]:.4f} "
+            f"({seq_medians[name] / medians[name]:.2f}x)")
+    log(f"[fedpart_vmap] masked_adam_cohort launches {launches} (sum over rounds and "
+        f"buckets of the longest client's steps: {expected})")
+    if launches != expected:
+        raise AssertionError(f"cohort launches {launches} != {expected}")
+    _profile_fl_round(cfg, "fedpart_vmap")
+
+    # Cross-checks: vmap == sequential on the card (warm-up FNU + one partial;
+    # the nested plan's partial round is on group 8, which tier 0.3 clamps),
+    # at adam_eps=1e-3 as the fused-vs-unfused check.  The vmapped convs are
+    # grouped cuDNN convs, not the per-client ones, so the two engines round
+    # differently; cuDNN's deterministic algorithms make that difference the
+    # same in every run (its default ones reduce weight gradients in a
+    # different order from run to run).
+    short = FedPartSchedule(num_groups=10, warmup_rounds=1, rounds_per_layer=1,
+                            cycles=1).rounds()[:2]
+    checks = [(a, short, {}) for a in ("fedavg", "fedprox", "moon")]
+    checks.append(("fedavg", [short[0], RoundSpec(1, "partial", 0, 8)],
+                   dict(plan="nested", capacity_tiers=(0.3, 0.6, 1.0))))
+    for algo, rounds, kw in checks:
+        out = {}
+        for engine in ("vmap", "sequential"):
+            c = FLRunConfig(local_epochs=1, batch_size=64, adam_eps=1e-3,
+                            algo=AlgoConfig(algo), fused_adam=True, engine=engine,
+                            device="cuda", **kw)
+            torch.backends.cudnn.deterministic = True
+            try:
+                out[engine] = run_federated(adapter, clients, eval_set, rounds, c)
+            finally:
+                torch.backends.cudnn.deterministic = False
+        diff = max(float((a - b).abs().max()) for a, b in
+                   zip(tree_leaves(out["vmap"].params), tree_leaves(out["sequential"].params)))
+        ldiff = max(abs(a["loss"] - b["loss"]) for a, b in
+                    zip(out["vmap"].history, out["sequential"].history))
+        what = algo + (f" {kw['plan']} plan" if "plan" in kw else "")
+        log(f"[fedpart_vmap] cross-check {what} (adam_eps 0.001): vmap vs "
+            f"sequential max param diff {diff:.3g}, max loss diff {ldiff:.3g} "
+            f"(tolerance {CROSS_TOL:g}), "
+            f"losses {[round(h['loss'], 6) for h in out['vmap'].history]}")
+        if not (diff <= CROSS_TOL and ldiff <= CROSS_TOL):
+            raise AssertionError(f"{what}: vmap and sequential disagree")
+        if not all(math.isfinite(h["loss"]) for h in out["vmap"].history):
+            raise AssertionError(f"{what}: non-finite vmap loss")
     return launches
 
 
 def phase_profile() -> None:
     """Device time by kernel over one main-path FNU round (warm)."""
+    from repro_torch.fl import AlgoConfig, FLRunConfig
+    _profile_fl_round(FLRunConfig(local_epochs=1, batch_size=64,
+                                  algo=AlgoConfig("fedavg"), fused_adam=True,
+                                  device="cuda"), "profile")
+
+
+def _profile_fl_round(cfg, tag: str) -> None:
+    """One warm FNU round of ``cfg`` under ``torch.profiler``: wall, device
+    busy share, launches, the top kernels and the masked-Adam kernels."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.schedule import FNUSchedule
-    from repro_torch.fl import AlgoConfig, FLRunConfig, resnet_task, run_federated
+    from repro_torch.fl import resnet_task, run_federated
 
     clients, eval_set = _vision_setup()
     adapter = resnet_task("resnet8", num_classes=20)
     rounds = FNUSchedule(total=1).rounds()
-    cfg = FLRunConfig(local_epochs=1, batch_size=64, algo=AlgoConfig("fedavg"),
-                      fused_adam=True, device="cuda")
     run_federated(adapter, clients, eval_set, rounds, cfg)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -796,17 +1126,17 @@ def phase_profile() -> None:
                if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = sum(getattr(e, "self_device_time_total", 0.0) for e in kernels)
     if dev_us <= 0:
-        log("[profile] the profiler recorded no device time: not measured")
+        log(f"[{tag}] the profiler recorded no device time: not measured")
         return
-    log(f"[profile] one FNU round, 8 clients x 7 steps: wall {wall_us / 1e3:.3f} ms "
-        f"(under the profiler), device busy {dev_us / 1e3:.3f} ms "
+    log(f"[{tag}] one FNU round, 8 clients x 7 steps ({cfg.engine} engine): wall "
+        f"{wall_us / 1e3:.3f} ms (under the profiler), device busy {dev_us / 1e3:.3f} ms "
         f"({100 * dev_us / wall_us:.1f}%), {sum(e.count for e in kernels)} kernel launches")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x "
+        log(f"[{tag}]   {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x "
             f"{e.key[:100]}")
     for e in kernels:
         if "masked_adam" in e.key:
-            log(f"[profile] masked_adam_kernel on the main path: {e.count} launches, "
+            log(f"[{tag}] {e.key[:40]} on the main path: {e.count} launches, "
                 f"{e.self_device_time_total / e.count:.3f} us device time each, "
                 f"{100 * e.self_device_time_total / dev_us:.2f}% of device busy")
 
@@ -1012,8 +1342,9 @@ def main() -> int:
         return 2
     smi = phase_env()
     phase_build()
-    adam = phase_kernel()
-    adam["launches"] = phase_fedpart()
+    adam, cohort = phase_kernel()
+    adam["launches"], seq_medians = phase_fedpart()
+    cohort["launches"] = phase_fedpart_vmap(seq_medians)
     phase_profile()
     flash = phase_flash()
     flash_serve = phase_serve()
@@ -1021,7 +1352,7 @@ def main() -> int:
     ssd["launches"], flash_hybrid, ssd["launches_by_body"] = phase_serve_hybrid()
     flash["launches"] = flash_serve + flash_hybrid
     flash["launches_by_path"] = {"serve": flash_serve, "serve_hybrid": flash_hybrid}
-    print(json.dumps({"kernels": [adam, flash, ssd]}))
+    print(json.dumps({"kernels": [adam, cohort, flash, ssd]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

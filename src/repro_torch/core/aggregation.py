@@ -1,22 +1,30 @@
-"""Server-side aggregation, full and partial (port of
-``repro.core.aggregation``, list-of-trees forms).
+"""Server-side aggregation, full, partial and per-client plan (port of
+``repro.core.aggregation``).
 
 FNU rounds average every parameter; partial rounds average only the
 trainable group's (pruned) subtrees and splice them into the global model.
 Per the paper (§4, following FedBN), client-local statistics (BatchNorm
 running moments) are *never* aggregated, on full and partial rounds alike:
-they are filtered by path suffix.  The stacked (client-axis) forms arrive
-with the vmap engine.
+they are filtered by path suffix.
+
+Two layouts: lists of trees (the sequential engine's) and one tree with a
+leading client axis (``*_stacked``, the vmap engine's: one weighted
+reduction per leaf).  Heterogeneous cohorts (per-client layer plans) use
+the ``aggregate_plan*`` pair: each layer group is averaged over only the
+clients whose plan bit for it is set, with its own denominator; a group
+nobody trained keeps the global verbatim.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Any, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.core import masking
-from repro_torch.tree import PyTree, tree_map, tree_map_with_path
+from repro_torch.core.partition import Partition
+from repro_torch.tree import PyTree, tree_leaves, tree_map, tree_map_with_path
 
 # Path components that denote client-local statistics (never aggregated).
 LOCAL_STAT_KEYS = ("mean_ema", "var_ema", "num_batches")
@@ -49,6 +57,31 @@ def tree_mean(trees: Sequence[PyTree], weights: Sequence[float] | None = None) -
         return acc.to(leaves[0].dtype)
 
     return tree_map(_avg, *trees)
+
+
+def _stacked_weights(num: int, weights, device) -> torch.Tensor:
+    """Normalised ``(num,)`` f32 client weights on ``device``."""
+    if weights is None:
+        return torch.full((num,), 1.0 / num, dtype=torch.float32, device=device)
+    w = torch.as_tensor(weights, dtype=torch.float32, device=device)
+    if w.shape != (num,):
+        raise ValueError(f"weights shape {tuple(w.shape)} != ({num},)")
+    if w.device.type == "cpu" and float(w.sum()) <= 0.0:
+        # a device tensor is not value-checked here (that would sync); the
+        # vmap engine checks its host weights before the round
+        raise ValueError(
+            f"client weights must sum to a positive value, got {float(w.sum())}")
+    return w / w.sum()
+
+
+def tree_mean_stacked(stacked: PyTree, weights=None) -> PyTree:
+    """Weighted mean over the leading *client* axis of a stacked tree: one
+    ``tensordot`` per leaf, on the leaves' device."""
+    leaves = tree_leaves(stacked)
+    w = _stacked_weights(leaves[0].shape[0], weights, leaves[0].device)
+    return tree_map(
+        lambda leaf: torch.tensordot(w, leaf.float(), dims=1).to(leaf.dtype),
+        stacked)
 
 
 def _splice_skipping_local_stats(global_params: PyTree, averaged: PyTree) -> PyTree:
@@ -98,3 +131,89 @@ def aggregate_partial(
     """
     averaged = drop_local_stats(tree_mean(client_subtrees, weights))
     return masking.tree_update(global_params, averaged)
+
+
+def aggregate_full_stacked(global_params: PyTree, stacked_params: PyTree,
+                           weights=None) -> PyTree:
+    """``aggregate_full`` over a stacked (client-axis) tree, on the device."""
+    return _splice_skipping_local_stats(global_params,
+                                        tree_mean_stacked(stacked_params, weights))
+
+
+def aggregate_partial_stacked(global_params: PyTree, stacked_params: PyTree,
+                              partition: Partition, group: int,
+                              weights=None) -> PyTree:
+    """``aggregate_partial`` over stacked *full* client params: select the
+    trainable group under the client axis, average with one reduction per
+    leaf, splice — BN running moments excluded as in the list path."""
+    sub = masking.select(stacked_params, partition, group)
+    averaged = drop_local_stats(tree_mean_stacked(sub, weights))
+    return masking.tree_update(global_params, averaged)
+
+
+# ---------------------------------------------------------------------------
+# Per-client layer plans (heterogeneous cohorts)
+# ---------------------------------------------------------------------------
+
+def plan_group_denominators(plan: Any, weights: Any) -> np.ndarray:
+    """Per-group denominators under a ``(clients, M)`` plan: group ``g``'s is
+    the weight sum of exactly the clients that trained it (0 when nobody
+    did, and the group keeps the global verbatim)."""
+    p = np.asarray(plan, dtype=np.float32)
+    w = np.asarray(weights, dtype=np.float32)
+    if p.ndim != 2 or w.shape != (p.shape[0],):
+        raise ValueError(f"plan {p.shape} / weights {w.shape} mismatch")
+    return w @ p
+
+
+def aggregate_plan(global_params: PyTree, client_subtrees: Sequence[PyTree],
+                   partition: Partition, plan: Any,
+                   weights: Sequence[float]) -> PyTree:
+    """Per-group participant-weighted aggregation (list path):
+    ``client_subtrees[i]`` holds at least client ``i``'s trained groups.
+    Each group is averaged over only the clients whose plan row sets its
+    bit, with its own denominator; a group nobody trained keeps the global
+    verbatim; BN running moments never travel."""
+    p = np.asarray(plan, dtype=bool)
+    if len(client_subtrees) != p.shape[0]:
+        raise ValueError(
+            f"{len(client_subtrees)} client trees for plan of {p.shape[0]}")
+    new_params = global_params
+    for g in range(p.shape[1]):
+        members = np.flatnonzero(p[:, g])
+        if members.size == 0:
+            continue                      # zero-trainer group: frozen global
+        subs = [masking.select(client_subtrees[i], partition, g) for i in members]
+        averaged = drop_local_stats(
+            tree_mean(subs, [float(weights[i]) for i in members]))
+        new_params = masking.tree_update(new_params, averaged)
+    return new_params
+
+
+def aggregate_plan_stacked(global_params: PyTree, stacked_params: PyTree,
+                           partition: Partition, plan: Any, weights: Any) -> PyTree:
+    """``aggregate_plan`` over stacked full client params, on the device: a
+    leaf of group ``g`` is averaged with the plan-masked weights
+    ``w * plan[:, g]`` over that group's own denominator; a zero-trainer
+    group's leaves stay the global's, bit for bit (``torch.where``)."""
+    leaves = tree_leaves(stacked_params)
+    num, device = leaves[0].shape[0], leaves[0].device
+    plan_f = torch.as_tensor(np.asarray(plan, dtype=np.float32), device=device)
+    w = torch.as_tensor(weights, dtype=torch.float32, device=device)
+    if plan_f.shape != (num, partition.num_groups) or w.shape != (num,):
+        raise ValueError(
+            f"plan {tuple(plan_f.shape)} / weights {tuple(w.shape)} do not match "
+            f"{num} stacked clients x {partition.num_groups} groups")
+    eff = w[:, None] * plan_f                       # (clients, M)
+    denom = eff.sum(dim=0)                          # (M,)
+    trained = denom > 0
+    wg_all = eff / torch.where(trained, denom, torch.ones_like(denom))
+
+    def _leaf(path, g_leaf, s_leaf):
+        if is_local_stat(path):
+            return g_leaf
+        g = partition.group_of(path)
+        avg = torch.tensordot(wg_all[:, g], s_leaf.float(), dims=1)
+        return torch.where(trained[g], avg.to(g_leaf.dtype), g_leaf)
+
+    return tree_map_with_path(_leaf, global_params, stacked_params)

@@ -8,6 +8,10 @@ Two equivalent realisations of the paper's Eq. 1 masked update:
   out as a *pruned subtree*, gradients are taken w.r.t. that subtree only
   (only its leaves ``requires_grad``, so autograd never builds the frozen
   layers' weight gradients), and the result is merged back.
+
+The stacked helpers (``stack_trees``, ``unstack_tree``,
+``apply_mask_stacked``) work on trees with a leading client axis, the vmap
+engine's layout.
 """
 
 from __future__ import annotations
@@ -95,6 +99,30 @@ def tree_update(base: PyTree, patch: PyTree) -> PyTree:
     for k, v in (patch or {}).items():
         out[k] = tree_update(base[k], v) if k in out else v
     return out
+
+
+# ---------------------------------------------------------------------------
+# Client-axis (stacked) helpers — used by the vmap engine
+# ---------------------------------------------------------------------------
+
+def stack_trees(trees: Sequence[PyTree]) -> PyTree:
+    """Stack same-structure trees along a new leading *client* axis."""
+    return tree_map(lambda *leaves: torch.stack(leaves), *trees)
+
+
+def unstack_tree(stacked: PyTree, num_clients: int) -> list[PyTree]:
+    """Inverse of ``stack_trees``: one tree per client-axis index (views into
+    the stacked leaves; nothing is copied)."""
+    return [tree_map(lambda x, i=i: x[i], stacked) for i in range(num_clients)]
+
+
+def apply_mask_stacked(update: PyTree, mask: PyTree) -> PyTree:
+    """``S ⊙ update`` where ``update`` carries a leading client axis and
+    ``mask`` is an unbatched bool tree (``mask_tree`` output): the group
+    mask broadcasts across clients — the paper's Eq. 1 under a client
+    axis."""
+    return tree_map(lambda u, m: torch.where(m[None, ...], u, torch.zeros_like(u)),
+                    update, mask)
 
 
 @torch.no_grad()

@@ -11,7 +11,10 @@ from repro_torch.data.partitioner import (  # noqa: F401
 )
 from repro_torch.data.pipeline import (  # noqa: F401
     ClientDataset,
+    StackedClientBatches,
     balanced_eval_set,
     batch_plan,
+    bucket_plans,
     build_clients,
+    stack_client_batches,
 )

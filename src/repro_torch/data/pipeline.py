@@ -2,16 +2,15 @@
 deterministic shuffling, plus a balanced held-out eval set (the paper tests
 the global model on a balanced set).
 
-A numpy-only copy of ``repro.data.pipeline``, value-identical.  The
-sequential engine is the only consumer so far; ``stack_client_batches``
-(the vmap engine's pad-and-mask stacking) arrives with that engine
-(ROADMAP Queue 1 item 9).
+A numpy-only copy of ``repro.data.pipeline``, value-identical, including
+``stack_client_batches``: the vmap engine's pad-and-mask stacking (clients
+bucketed by batch width, ragged step counts padded at the tail).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator
+from typing import Iterator, Sequence
 
 import numpy as np
 
@@ -48,6 +47,92 @@ class ClientDataset:
         one batch per epoch even if the client has < batch_size samples)."""
         for idx in batch_plan(len(self), batch_size, epochs, seed):
             yield self.inputs[idx], self.labels[idx]
+
+
+@dataclasses.dataclass
+class StackedClientBatches:
+    """One bucket of same-batch-width clients, stacked along a client axis.
+
+    ``inputs``/``labels`` carry a leading ``(clients, steps, bs, ...)`` shape;
+    ``step_valid`` is ``(clients, steps)`` float32 — 0.0 marks padded steps
+    whose results the batched engine discards (the pad-and-mask contract).
+    ``members`` maps bucket rows back to positions in the round's picked-client
+    order.
+    """
+
+    inputs: np.ndarray
+    labels: np.ndarray
+    step_valid: np.ndarray
+    members: tuple[int, ...]
+
+    @property
+    def num_clients(self) -> int:
+        return self.inputs.shape[0]
+
+    @property
+    def num_steps(self) -> int:
+        return self.inputs.shape[1]
+
+    @property
+    def batch_width(self) -> int:
+        return self.inputs.shape[2]
+
+
+def stack_client_batches(
+    datasets: Sequence[ClientDataset],
+    batch_size: int,
+    epochs: int,
+    seeds: Sequence[int],
+) -> list[StackedClientBatches]:
+    """Stack the round's clients into vmap-ready buckets.
+
+    Clients are bucketed by effective batch width ``min(batch_size, n)`` (one
+    batch shape per bucket); within a bucket, ragged step counts are
+    padded with the client's first batch and masked out via ``step_valid``.
+    """
+    out = []
+    for members, plans, valid in bucket_plans(datasets, batch_size, epochs, seeds):
+        src = [datasets[i] for i in members]
+        out.append(StackedClientBatches(
+            inputs=np.stack([d.inputs[pl] for d, pl in zip(src, plans)]),
+            labels=np.stack([d.labels[pl] for d, pl in zip(src, plans)]),
+            step_valid=valid, members=members))
+    return out
+
+
+def bucket_plans(
+    datasets: Sequence[ClientDataset],
+    batch_size: int,
+    epochs: int,
+    seeds: Sequence[int],
+) -> list[tuple[tuple[int, ...], np.ndarray, np.ndarray]]:
+    """The index side of ``stack_client_batches``: per bucket, ``(members,
+    plans, step_valid)`` with ``plans`` the ``(clients, steps, bs)`` batch
+    indices into each client's own dataset, so an engine can gather the
+    batches where the data lives."""
+    if len(datasets) != len(seeds):
+        raise ValueError("one seed per client dataset is required")
+    buckets: dict[int, list[int]] = {}
+    for pos, ds in enumerate(datasets):
+        buckets.setdefault(min(batch_size, len(ds)), []).append(pos)
+
+    out = []
+    for bs in sorted(buckets):
+        members = buckets[bs]
+        plans = [batch_plan(len(datasets[p]), batch_size, epochs, seeds[p])
+                 for p in members]
+        max_steps = max(len(pl) for pl in plans)
+        padded, valid = [], []
+        for plan in plans:
+            pad = max_steps - len(plan)
+            if pad:
+                plan = np.concatenate([plan, np.repeat(plan[:1], pad, axis=0)])
+            padded.append(plan)
+            v = np.zeros(max_steps, dtype=np.float32)
+            v[: max_steps - pad] = 1.0
+            valid.append(v)
+        out.append((tuple(members), np.stack(padded), np.stack(valid)))
+    return out
 
 
 def build_clients(

@@ -1,11 +1,26 @@
-"""Client-simulation engines (port of ``repro.fl.batched``: the sequential
-oracle).
+"""Client-simulation engines (port of ``repro.fl.batched``): the sequential
+oracle and the vmap engine.
 
-``SequentialEngine`` trains the round's clients one at a time through
-``LocalTrainer`` and aggregates on the device: the full tree on FNU rounds,
-the trainable group's subtree on partial rounds, BN running moments never.
-The batched engines (``vmap``, ``shard_map``) and heterogeneous per-client
-layer plans are not ported yet and are refused loudly.
+* ``SequentialEngine`` trains the round's clients one at a time through
+  ``LocalTrainer.run_local_round`` and aggregates on the device: the full
+  tree on FNU rounds, the trainable group's subtree on partial rounds, each
+  group over its own trainers under a heterogeneous per-client layer plan;
+  BN running moments never.
+* ``VmapEngine`` stacks each bucket of clients along a leading client axis
+  (``data.pipeline.bucket_plans``: one bucket per effective batch width,
+  ragged step counts padded at the tail and masked via ``step_valid``) and
+  trains the bucket together (``LocalTrainer.run_cohort_round``): per local
+  step, one ``torch.func.vmap`` gradient over the clients and, with
+  ``fused_adam``, one launch of the cohort masked-Adam kernel for the whole
+  bucket.  The round ends in one stacked aggregation
+  (``core.aggregation.*_stacked``).
+
+The reference's ``jit`` buffer donation has no counterpart: the port
+updates its packed buffers in place and never writes the global params, so
+there is nothing to donate.  The shard_map engine (ROADMAP Queue 1 item
+13) and the async runtime's cohort entry points (item 12) are not ported
+and raise; transmission compression (item 10) is refused by
+``FLRunConfig``.
 """
 
 from __future__ import annotations
@@ -14,17 +29,18 @@ import dataclasses
 from typing import Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.core import aggregation, masking
 from repro_torch.core.partition import Partition
 from repro_torch.core.schedule import RoundSpec, round_base_mask
-from repro_torch.data.pipeline import ClientDataset
+from repro_torch.data.pipeline import ClientDataset, bucket_plans
 from repro_torch.fl.algorithms import AlgoConfig
 from repro_torch.fl.client import LocalTrainer
 from repro_torch.optim.partial import guard_fused_config
-from repro_torch.tree import PyTree
+from repro_torch.tree import PyTree, tree_leaves, tree_map
 
-ENGINES = ("sequential",)
+ENGINES = ("sequential", "vmap")
 
 
 def resolve_plan(plan, spec: RoundSpec, num_groups: int):
@@ -42,6 +58,12 @@ def resolve_plan(plan, spec: RoundSpec, num_groups: int):
     if (p == round_base_mask(spec, num_groups)[None, :]).all():
         return None
     return p
+
+
+def _refuse_async():
+    raise NotImplementedError(
+        "cohort training without aggregation is the async runtime's backend, "
+        "not ported yet (ROADMAP Queue 1 item 12)")
 
 
 @dataclasses.dataclass
@@ -71,39 +93,174 @@ class SequentialEngine:
         prev_params: Sequence[PyTree | None] | None = None,
         plan=None,
     ) -> tuple[PyTree, list[float], list[PyTree] | None]:
-        if resolve_plan(plan, spec, self.partition.num_groups) is not None:
-            raise NotImplementedError(
-                "heterogeneous per-client layer plans need the plan paths "
-                "(aggregate_plan, plan steps), not ported yet (ROADMAP "
-                "Queue 1 item 9)")
+        plan = resolve_plan(plan, spec, self.partition.num_groups)
         keep_locals = self.algo.name == "moon"
         uploads, losses, new_locals = [], [], ([] if keep_locals else None)
         for i, (ds, seed) in enumerate(zip(datasets, seeds)):
+            groups_i = (tuple(int(g) for g in np.flatnonzero(plan[i]))
+                        if plan is not None else None)
             local, loss = self.trainer.run_local_round(
                 params, spec.group, ds, epochs=epochs, batch_size=batch_size,
                 seed=seed,
                 prev_params=prev_params[i] if prev_params is not None else None,
-                fused=self.fused_adam)
+                groups=groups_i, fused=self.fused_adam)
             losses.append(loss)
             if keep_locals:
                 new_locals.append(local)     # MOON keeps the TRUE local model
-            uploads.append(local if spec.is_full
-                           else masking.select(local, self.partition, spec.group))
-        if spec.is_full:
+            if plan is not None:
+                uploads.append(masking.select(local, self.partition, groups_i))
+            elif spec.is_full:
+                uploads.append(local)
+            else:
+                uploads.append(masking.select(local, self.partition, spec.group))
+        if plan is not None:
+            new_params = aggregation.aggregate_plan(params, uploads, self.partition,
+                                                    plan, weights)
+        elif spec.is_full:
             new_params = aggregation.aggregate_full(params, uploads, weights)
         else:
             new_params = aggregation.aggregate_partial(params, uploads, weights)
         return new_params, losses, new_locals
 
 
+@dataclasses.dataclass
+class _BatchedEngineBase:
+    """The pad-and-mask local-round plumbing of the stacked engines: bucket
+    the round's clients (``_buckets``), gather each bucket's batches on the
+    device, stack MOON's previous local models, and put the per-bucket
+    outputs back into the round's client order (``_gather_order``)."""
+
+    trainer: LocalTrainer
+    partition: Partition
+    algo: AlgoConfig
+    fused_adam: bool = False
+
+    def __post_init__(self):
+        if self.fused_adam:
+            guard_fused_config(self.trainer.adam)
+
+    @staticmethod
+    def _guard_round(weights: Sequence[float]) -> None:
+        # the stacked aggregation does not value-check device weights (that
+        # would sync); check the host's here, as tree_mean does for the oracle
+        if float(sum(weights)) <= 0.0:
+            raise ValueError(
+                f"client weights must sum to a positive value, got {sum(weights)}")
+
+    @staticmethod
+    def _bucket_gmask(plan: np.ndarray, members: tuple[int, ...]) -> np.ndarray:
+        """This bucket's rows of the cohort plan, ``(clients, M)`` bool."""
+        return plan[list(members)]
+
+    def _buckets(self, params: PyTree, datasets: Sequence[ClientDataset], *,
+                 batch_size: int, epochs: int, seeds: Sequence[int],
+                 prev_params: Sequence[PyTree | None] | None, use_prev: bool):
+        """Yield ``(members, inputs, labels, step_valid, prev_arg)`` per
+        batch-width bucket: ``inputs`` / ``labels`` the ``(clients, steps,
+        bs, ...)`` batches gathered on the params' device, ``prev_arg`` the
+        stacked MOON previous local models (the global model where a client
+        has none) or ``None``."""
+        device = tree_leaves(params)[0].device
+        for members, plans, valid in bucket_plans(datasets, batch_size, epochs,
+                                                  seeds):
+            xs, ys = [], []
+            for m, plan in zip(members, plans):
+                idx = torch.as_tensor(plan, device=device)
+                xs.append(torch.as_tensor(datasets[m].inputs, device=device)[idx])
+                ys.append(torch.as_tensor(np.asarray(datasets[m].labels, np.int64),
+                                          device=device)[idx])
+            prev_arg = None
+            if use_prev:
+                prev_arg = masking.stack_trees([
+                    prev_params[m] if prev_params is not None
+                    and prev_params[m] is not None else params for m in members])
+            yield members, torch.stack(xs), torch.stack(ys), valid, prev_arg
+
+    @staticmethod
+    def _gather_order(parts: list[tuple[tuple[int, ...], PyTree, torch.Tensor]],
+                      num: int) -> tuple[PyTree, torch.Tensor]:
+        """Concatenate per-bucket ``(members, stacked locals, losses)`` back
+        into the round's picked-client order."""
+        if len(parts) == 1 and parts[0][0] == tuple(range(num)):
+            return parts[0][1], parts[0][2]
+        order = np.concatenate([np.asarray(m) for m, _, _ in parts])
+        inv = torch.as_tensor(np.argsort(order), device=parts[0][2].device)
+        stacked = tree_map(lambda *xs: torch.cat(xs, dim=0)[inv],
+                           *[t for _, t, _ in parts])
+        return stacked, torch.cat([lo for _, _, lo in parts])[inv]
+
+    def run_local(self, *args, **kwargs):
+        _refuse_async()
+
+    def run_local_async(self, *args, **kwargs):
+        _refuse_async()
+
+    def cohort_pool(self, max_inflight: int):
+        _refuse_async()
+
+
+@dataclasses.dataclass
+class VmapEngine(_BatchedEngineBase):
+    """Batched engine: each bucket's clients train together (one vmapped
+    gradient and, fused, one cohort-kernel launch per local step), then one
+    stacked aggregation on the device."""
+
+    name: str = "vmap"
+
+    def run_round(
+        self,
+        params: PyTree,
+        spec: RoundSpec,
+        datasets: Sequence[ClientDataset],
+        *,
+        seeds: Sequence[int],
+        weights: Sequence[float],
+        epochs: int,
+        batch_size: int,
+        prev_params: Sequence[PyTree | None] | None = None,
+        plan=None,
+    ) -> tuple[PyTree, list[float], list[PyTree] | None]:
+        self._guard_round(weights)
+        plan = resolve_plan(plan, spec, self.partition.num_groups)
+        use_prev = self.algo.name == "moon"
+        num = len(datasets)
+        parts = []
+        for members, xs, ys, valid, prev_arg in self._buckets(
+                params, datasets, batch_size=batch_size, epochs=epochs, seeds=seeds,
+                prev_params=prev_params, use_prev=use_prev):
+            stacked, losses = self.trainer.run_cohort_round(
+                params, xs, ys, valid, group=spec.group,
+                plan_rows=None if plan is None else self._bucket_gmask(plan, members),
+                prev_params=prev_arg, fused=self.fused_adam)
+            parts.append((members, stacked, losses))
+        stacked, losses_dev = self._gather_order(parts, num)
+        if plan is not None:
+            new_params = aggregation.aggregate_plan_stacked(
+                params, stacked, self.partition, plan, weights)
+        elif spec.is_full:
+            new_params = aggregation.aggregate_full_stacked(params, stacked, weights)
+        else:
+            new_params = aggregation.aggregate_partial_stacked(
+                params, stacked, self.partition, spec.group, weights)
+        # MOON keeps each TRUE local model: a copy, so no client's entry holds
+        # the whole bucket's buffer alive
+        new_locals = ([tree_map(torch.clone, t) for t in masking.unstack_tree(stacked, num)]
+                      if use_prev else None)
+        return new_params, losses_dev.tolist(), new_locals
+
+
 def make_engine(name: str, *, trainer: LocalTrainer, partition: Partition,
-                algo: AlgoConfig, fused_adam: bool = False) -> SequentialEngine:
-    """Build a client-simulation engine by name (``"sequential"`` only)."""
+                algo: AlgoConfig, fused_adam: bool = False):
+    """Build a client-simulation engine by name (``"sequential"`` or
+    ``"vmap"``)."""
     if name == "sequential":
         return SequentialEngine(trainer=trainer, partition=partition,
                                 algo=algo, fused_adam=fused_adam)
-    if name in ("vmap", "shard_map"):
+    if name == "vmap":
+        return VmapEngine(trainer=trainer, partition=partition, algo=algo,
+                          fused_adam=fused_adam)
+    if name == "shard_map":
         raise NotImplementedError(
-            f"engine={name!r} is not ported yet (ROADMAP Queue 1 item "
-            f"{9 if name == 'vmap' else 13}); use engine='sequential'")
+            "engine='shard_map' is not ported yet (ROADMAP Queue 1 item 13); "
+            "use engine='sequential' or 'vmap'")
     raise ValueError(f"unknown engine {name!r}; expected one of {ENGINES}")

@@ -9,14 +9,28 @@ forms, as in the reference:
   builds no weight gradient for frozen layers, and Adam state exists for the
   group only;
 * fused (``fused=True``): full-tree gradient, then one launch of the
-  masked-Adam kernel with a per-block mask of the round's group (BN running
-  moments excluded via ``is_local_stat``); the parameters live as views in
-  one packed buffer for the whole local round (``optim.partial.PackedTree``),
-  and packed m / v start from zero at every local round.
+  masked-Adam kernel, a one-client cohort (``optim.partial.fused_adam``)
+  that trains the blocks of the round's group (BN running moments excluded
+  via ``is_local_stat``); the parameters live as views in one packed buffer
+  for the whole local round (``optim.partial.PackedTree``), and packed
+  m / v start from zero at every local round.
 
 BN running moments ride along the forward pass and are spliced in after
 every update, in every form.  Batches are gathered on the device and losses
 stay there until the round ends, so a round syncs the host once.
+
+``groups=`` (a per-client layer plan's group set) trains that set: the
+pruned partial step over it, or the fused step with its group mask.
+
+``run_cohort_round`` is the functional local round of a stacked cohort
+(the vmap engine's): the gradient of every client's step comes from one
+``torch.func.vmap`` of ``torch.func.grad_and_value`` over the client axis,
+and with ``fused=True`` the parameters live in one packed ``(clients, rows,
+128)`` buffer — the gradient is taken with respect to each client's packed
+``(rows, 128)`` slice, so it arrives in the kernel's layout — and one
+cohort masked-Adam launch (``MaskedAdamCohort``) per step updates every
+client in place.  The launch sits outside the ``vmap``: a ctypes call
+cannot be batched.
 """
 
 from __future__ import annotations
@@ -33,12 +47,13 @@ from repro_torch.core.partition import Partition
 from repro_torch.data.pipeline import ClientDataset, batch_plan
 from repro_torch.fl.algorithms import AlgoConfig, augment_loss
 from repro_torch.fl.tasks import TaskAdapter
+from repro_torch.kernels.masked_adam import MaskedAdamCohort
 from repro_torch.kernels.masked_adam import ops as madam_ops
-from repro_torch.optim.adam import AdamConfig, adam_init, adam_update
-from repro_torch.optim.partial import (PackedTree, fused_adam_init,
-                                       fused_masked_step, guard_fused_config,
-                                       value_and_grad)
-from repro_torch.tree import PyTree, tree_leaves
+from repro_torch.optim.adam import AdamConfig, AdamState, adam_init, adam_update
+from repro_torch.optim.partial import (PackedTree, fused_adam, fused_masked_step,
+                                       guard_fused_config, value_and_grad)
+from repro_torch.tree import (PyTree, tree_from_paths, tree_leaves, tree_map,
+                              tree_map_with_path, tree_paths)
 
 FUSED_BLOCK_ROWS = 8     # kernel block granularity the fused step packs to
 
@@ -51,7 +66,8 @@ class LocalTrainer:
     adam: AdamConfig
 
     def __post_init__(self):
-        self._block_masks: dict[Any, torch.Tensor] = {}
+        self._group_masks: dict[Any, torch.Tensor] = {}
+        self._group_ids: dict[str, torch.Tensor] = {}
 
     # -- loss assembly -----------------------------------------------------
 
@@ -83,9 +99,10 @@ class LocalTrainer:
             new_params = masking.tree_update(new_params, stats)
         return new_params, new_state, loss
 
-    def partial_step(self, group: int, params, opt_state, inputs, labels,
+    def partial_step(self, group, params, opt_state, inputs, labels,
                      global_params, prev_params):
-        """Partial step for ``group``: gradient and Adam over its subtree."""
+        """Partial step for ``group`` (an int, or a plan's group set):
+        gradient and Adam over its subtree."""
         trainable = masking.select(params, self.partition, group)
         frozen = masking.complement(params, self.partition, group)
         (loss, stats), grads = value_and_grad(
@@ -98,20 +115,29 @@ class LocalTrainer:
             new_params = masking.tree_update(new_params, stats)
         return new_params, new_state, loss
 
-    def block_mask(self, params: PyTree, group: int) -> torch.Tensor:
-        """The fused step's per-block int32 mask for ``group`` (every group
-        when ``group < 0``), BN running moments excluded; built once per
-        (group, device) on the host and kept on the device."""
-        device = tree_leaves(params)[0].device
+    def group_mask(self, group, device) -> torch.Tensor:
+        """The fused step's ``(groups,)`` int32 row of trained groups for
+        ``group`` (an int, a plan's group set, or every group when
+        ``group < 0``); built once per (group, device) and kept there."""
         key = (group, str(device))
-        if key not in self._block_masks:
-            sel = (tuple(range(self.partition.num_groups)) if group < 0
-                   else group)
-            bm = madam_ops.block_mask_for_group(
-                params, self.partition, sel, FUSED_BLOCK_ROWS,
-                exclude=aggregation.is_local_stat)
-            self._block_masks[key] = torch.as_tensor(bm, device=device)
-        return self._block_masks[key]
+        if key not in self._group_masks:
+            sel = range(self.partition.num_groups) if group == -1 else (
+                [group] if isinstance(group, (int, np.integer)) else group)
+            row = np.isin(np.arange(self.partition.num_groups), list(sel))
+            self._group_masks[key] = torch.as_tensor(row.astype(np.int32),
+                                                     device=device)
+        return self._group_masks[key]
+
+    def group_ids(self, params: PyTree) -> torch.Tensor:
+        """Per-block layer-group ids of the fused layout (``-1`` for BN
+        running moments and never trained), the cohort kernel's ``gid``;
+        built once per device."""
+        device = tree_leaves(params)[0].device
+        if str(device) not in self._group_ids:
+            gids = madam_ops.block_group_ids(params, self.partition, FUSED_BLOCK_ROWS,
+                                             exclude=aggregation.is_local_stat)
+            self._group_ids[str(device)] = torch.as_tensor(gids, device=device)
+        return self._group_ids[str(device)]
 
     # -- local round ---------------------------------------------------------
 
@@ -125,11 +151,20 @@ class LocalTrainer:
         batch_size: int,
         seed: int,
         prev_params: PyTree | None = None,
+        groups=None,
         fused: bool = False,
     ) -> tuple[PyTree, float]:
-        """Train locally; returns (updated full params, mean loss).  ``fused``
-        routes every step through the masked-Adam kernel."""
+        """Train locally; returns (updated full params, mean loss).
+
+        ``groups`` (a per-client layer plan) overrides ``group`` with a set
+        of trainable groups; a set covering every group is the FNU step.
+        ``fused`` routes every step through the masked-Adam kernel."""
         prev = prev_params if prev_params is not None else global_params
+        sel = group                       # an int (-1: every group) or a set
+        if groups is not None:
+            sel = tuple(sorted(int(g) for g in groups))
+            if len(sel) == self.partition.num_groups:
+                sel = -1
         device = tree_leaves(global_params)[0].device
         plan = torch.as_tensor(batch_plan(len(data), batch_size, epochs, seed),
                                device=device)
@@ -137,30 +172,29 @@ class LocalTrainer:
         labels = torch.as_tensor(np.asarray(data.labels, np.int64), device=device)
         losses = []
         if fused:
-            guard_fused_config(self.adam)
             packed = PackedTree.from_tree(global_params, FUSED_BLOCK_ROWS)
-            state = fused_adam_init(packed.flat.shape[0], device)
-            bm = self.block_mask(global_params, group)
             scalars = madam_ops.adam_scalars(
                 torch.arange(1, len(plan) + 1, device=device), self.adam.lr,
                 self.adam.b1, self.adam.b2, self.adam.eps)
+            adam = fused_adam(packed, self.group_ids(global_params),
+                              self.group_mask(sel, device), scalars, self.adam,
+                              block_rows=FUSED_BLOCK_ROWS)
             params = packed.detached()
             for i, idx in enumerate(plan):
                 x, y = inputs[idx], labels[idx]
-                state, loss, stats = fused_masked_step(
+                loss, stats = fused_masked_step(
                     lambda p: self._total_loss(p, x, y, global_params, prev),
-                    packed, state, bm, scalars[i], self.adam,
-                    block_rows=FUSED_BLOCK_ROWS)
+                    packed, adam, i)
                 masking.tree_update_(params, stats)
                 losses.append(loss)
         else:
-            if group < 0:
+            if sel == -1:
                 opt_state = adam_init(global_params)
                 step = self.full_step
             else:
                 opt_state = adam_init(
-                    masking.select(global_params, self.partition, group))
-                step = partial(self.partial_step, group)
+                    masking.select(global_params, self.partition, sel))
+                step = partial(self.partial_step, sel)
             params = global_params
             for idx in plan:
                 params, opt_state, loss = step(
@@ -168,3 +202,166 @@ class LocalTrainer:
                     prev)
                 losses.append(loss)
         return params, float(torch.stack(losses).mean()) if losses else 0.0
+
+    # -- cohort local round (the vmap engine's) ------------------------------
+
+    def run_cohort_round(
+        self,
+        global_params: PyTree,
+        inputs: torch.Tensor,          # (K, steps, bs, ...) on the device
+        labels: torch.Tensor,          # (K, steps, bs)
+        step_valid: np.ndarray,        # (K, steps) 0 / 1, padded at the tail
+        *,
+        group: int = -1,               # the round's group (FULL_NETWORK = -1)
+        plan_rows: np.ndarray | None = None,   # (K, M) bool per-client plan
+        prev_params: PyTree | None = None,     # stacked (K, ...) MOON prev models
+        fused: bool = False,
+    ) -> tuple[PyTree, torch.Tensor]:
+        """Train ``K`` stacked clients from ``global_params`` together; returns
+        (stacked locals ``(K, ...)``, ``(K,)`` mean losses on the device).
+
+        A padded step (``step_valid`` 0) computes but leaves the client's
+        parameters, optimizer state, BN moments and loss as they were — the
+        reference's pad-and-mask ``where(keep, ...)``.  With ``plan_rows`` a
+        client trains its own group set: the fused path reads it as the
+        cohort kernel's group mask; the unfused path runs the FNU-shaped
+        step and keeps a leaf's update only where the client's bit for its
+        group is set (Eq. 1's masked form, as the reference's plan step);
+        BN moments always update on a valid step."""
+        num, steps = step_valid.shape
+        device = inputs.device
+        m_groups = self.partition.num_groups
+        if plan_rows is None:
+            gm = np.zeros((num, m_groups), dtype=bool)
+            gm[:, :] = True if group < 0 else np.arange(m_groups) == group
+        else:
+            gm = np.asarray(plan_rows, dtype=bool)
+        keep_cols = torch.as_tensor(np.ascontiguousarray(step_valid.T) > 0,
+                                    device=device)                    # (steps, K)
+        all_valid = step_valid.all(axis=0)                            # host (steps,)
+        prev = prev_params if prev_params is not None else global_params
+        prev_dim = 0 if prev_params is not None else None
+
+        def f(params, x, y, pv):
+            """One client's (loss, BN stats): ``torch.func.grad_and_value(
+            has_aux=True)`` of it returns ``(grad, (loss, stats))``."""
+            return self._total_loss(params, x, y, global_params, pv)
+
+        losses = []
+        if fused:
+            guard_fused_config(self.adam)
+            flat, meta = madam_ops.pack(global_params, FUSED_BLOCK_ROWS)
+            packed = flat.unsqueeze(0).repeat(num, 1, 1)              # (K, rows, 128)
+            adam = MaskedAdamCohort(
+                packed, torch.zeros_like(packed), torch.zeros_like(packed),
+                self.group_ids(global_params),
+                torch.as_tensor(gm, dtype=torch.int32, device=device), step_valid,
+                madam_ops.adam_scalars(torch.arange(1, steps + 1, device=device),
+                                       self.adam.lr, self.adam.b1, self.adam.b2,
+                                       self.adam.eps),
+                b1=self.adam.b1, b2=self.adam.b2, block_rows=FUSED_BLOCK_ROWS)
+            params = madam_ops.unpack_stacked(packed, meta)           # views
+            grad_fn = torch.func.vmap(
+                torch.func.grad_and_value(
+                    lambda fl, x, y, pv: f(_unpack_flat(fl, meta), x, y, pv),
+                    has_aux=True),
+                in_dims=(0, 0, 0, prev_dim))
+            for t in range(steps):
+                g, (loss, stats) = grad_fn(packed, inputs[:, t], labels[:, t], prev)
+                adam.step(t, g.contiguous())
+                _splice_stats_(params, stats, keep_cols[t], bool(all_valid[t]))
+                losses.append(loss)
+        else:
+            params, losses = self._cohort_unfused(
+                global_params, inputs, labels, keep_cols, gm, group,
+                plan_rows is not None, prev, prev_dim, f)
+        valid = torch.as_tensor(step_valid, dtype=torch.float32, device=device)
+        loss_mat = torch.where(valid > 0, torch.stack(losses, dim=1).float(), 0.0)
+        return params, loss_mat.sum(dim=1) / valid.sum(dim=1).clamp(min=1.0)
+
+    def _cohort_unfused(self, global_params, inputs, labels, keep_cols, gm,
+                        group, is_plan, prev, prev_dim, f):
+        """``run_cohort_round`` with plain Adam (``optim.adam``) over stacked
+        trees: the pruned partial step on a homogeneous partial round, the
+        FNU step (with per-client leaf bits on a plan round) otherwise."""
+        num, steps = inputs.shape[0], inputs.shape[1]
+        params = tree_map(lambda a: a.unsqueeze(0).repeat(num, *([1] * a.dim())),
+                          global_params)
+        pruned = not is_plan and group >= 0
+        opt = adam_init(masking.select(params, self.partition, group) if pruned
+                        else params)
+        bits = None
+        if is_plan:
+            gm_dev = torch.as_tensor(gm, device=inputs.device)
+            bits = tree_map_with_path(
+                lambda p, _: (torch.ones(num, dtype=torch.bool, device=inputs.device)
+                              if aggregation.is_local_stat(p)
+                              else gm_dev[:, self.partition.group_of(p)]),
+                global_params)
+        if pruned:
+            grad_fn = torch.func.vmap(
+                torch.func.grad_and_value(
+                    lambda sub, fr, x, y, pv: f(masking.merge(sub, fr), x, y, pv),
+                    has_aux=True),
+                in_dims=(0, 0, 0, 0, prev_dim))
+        else:
+            grad_fn = torch.func.vmap(torch.func.grad_and_value(f, has_aux=True),
+                                      in_dims=(0, 0, 0, prev_dim))
+        losses = []
+        for t in range(steps):
+            x, y, keep = inputs[:, t], labels[:, t], keep_cols[t]
+            if pruned:
+                sub = masking.select(params, self.partition, group)
+                frozen = masking.complement(params, self.partition, group)
+                g, (loss, stats) = grad_fn(sub, frozen, x, y, prev)
+                new_sub, new_opt = adam_update(g, opt, sub, self.adam)
+                new_params = masking.merge(new_sub, frozen)
+            else:
+                g, (loss, stats) = grad_fn(params, x, y, prev)
+                new_params, new_opt = adam_update(g, opt, params, self.adam)
+            if stats is not None:
+                new_params = masking.tree_update(new_params, stats)
+
+            def pick(n, o, bit=None):
+                k = keep if bit is None else keep & bit
+                return torch.where(k.view(-1, *([1] * (n.dim() - 1))), n, o)
+
+            params = (tree_map(pick, new_params, params) if bits is None
+                      else tree_map(pick, new_params, params, bits))
+            opt = AdamState(new_opt.step, tree_map(pick, new_opt.m, opt.m),
+                            tree_map(pick, new_opt.v, opt.v))
+            losses.append(loss)
+        return params, losses
+
+
+def _unpack_flat(flat: torch.Tensor, meta: madam_ops.PackMeta) -> PyTree:
+    """One client's tree from its packed ``(rows, 128)`` slice, for use
+    inside ``torch.func``: ``split`` (whose backward is one ``cat``) and
+    reshapes, so the gradient with respect to ``flat`` is assembled in the
+    packed layout at the cost of one copy of the buffer, not one per
+    leaf."""
+    pieces = flat.reshape(-1).split(list(meta.padded))
+    return tree_from_paths(
+        (path, piece[:n].reshape(shape))
+        for path, piece, n, shape in zip(meta.paths, pieces, meta.sizes, meta.shapes))
+
+
+@torch.no_grad()
+def _splice_stats_(params: PyTree, stats: PyTree | None, keep: torch.Tensor,
+                   all_valid: bool) -> None:
+    """Write a cohort step's stacked BN moments into the stacked parameter
+    views ``params``, for the clients whose step was valid."""
+    if not stats:
+        return
+    items = tree_paths(stats)
+    dst = []
+    for path, _ in items:
+        node = params
+        for k in path:
+            node = node[k]
+        dst.append(node)
+    src = [s for _, s in items]
+    if not all_valid:
+        src = [torch.where(keep.view(-1, *([1] * (s.dim() - 1))), s, d)
+               for s, d in zip(src, dst)]
+    torch._foreach_copy_(dst, src)

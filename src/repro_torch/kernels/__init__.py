@@ -15,3 +15,22 @@ count), ``ref.py`` (the plain PyTorch version the CPU takes and the tests
 hold the kernel against) and ``ops.py`` (layout helpers).  ``build.py``
 compiles the CUDA sources with nvcc at first use.
 """
+
+import torch
+
+
+def refuse_grad(name: str, *inputs: torch.Tensor) -> None:
+    """Raise when autograd would need a backward through kernel ``name``.
+
+    The serving kernels (flash attention, the SSD scan) have no backward,
+    as their TPU counterparts have none, and on a CUDA tensor they write
+    their outputs through raw pointers, so autograd would see no graph and
+    a loss would silently back-propagate nothing.  The check runs before
+    the device dispatch, so the CPU (plain version) and the card refuse
+    alike; serving runs under ``torch.no_grad`` / ``inference_mode`` and
+    never trips it."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        raise RuntimeError(
+            f"{name} has no backward: an input requires grad with grad mode "
+            "on; differentiate through impl='plain', or call it under "
+            "torch.no_grad()")

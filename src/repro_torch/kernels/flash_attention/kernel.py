@@ -34,7 +34,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_grad
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 MAX_HEAD_DIM = 128
@@ -135,7 +135,9 @@ def flash_attention_kernel(
     out: torch.Tensor | None = None,   # (B, H, Sq, D), written in place
 ) -> torch.Tensor:
     """Attention of ``q`` over ``k`` / ``v``; returns ``out`` (allocated
-    contiguous when not given)."""
+    contiguous when not given).  Refuses inputs that require grad while
+    grad mode is on (``kernels.refuse_grad``), on every device."""
+    refuse_grad("flash_attention_kernel", q, k, v)
     _check(q, k, v, out, window)
     if q.device.type == "cpu":
         o = attention_ref(q, k, v, causal=causal, window=window)

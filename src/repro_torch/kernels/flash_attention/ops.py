@@ -11,7 +11,9 @@ size for the TPU, the CUDA kernel masks ragged edges itself.  Unlike the
 reference's ``flash_attention``, which takes ``mask=`` "for API parity" and
 ignores it, ``causal`` and ``window`` are the only masks and both are
 honoured.  A CUDA tensor launches the kernel, a CPU tensor takes the plain
-version (``kernel.flash_attention_kernel``).
+version (``kernel.flash_attention_kernel``).  Neither has a backward:
+both raise when an input requires grad with grad mode on
+(``kernels.refuse_grad``); training differentiates ``impl="plain"``.
 """
 
 from __future__ import annotations

@@ -14,7 +14,9 @@ layer-group) selection.  The buffer is float32.
 ``unpack`` returns *views* into the packed buffer for float32 leaves, so a
 tree can live inside one buffer: the fused local step (``optim.partial``)
 trains such a tree and the kernel updates it in place, never packing per
-step.
+step.  ``pack_stacked`` / ``unpack_stacked`` lay a client-stacked tree out
+per client the same way, as ``(clients, rows, 128)``: the cohort kernel's
+layout, which the vmap engine trains in place the same way.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 
 from repro_torch.core.partition import Partition
 from repro_torch.kernels.masked_adam.kernel import LANES
+from repro_torch.kernels.masked_adam.ref import plan_block_mask  # noqa: F401 (re-exported)
 from repro_torch.tree import Path, PyTree, path_str, tree_from_paths, tree_paths
 
 
@@ -92,6 +95,48 @@ def unpack(packed: torch.Tensor, meta: PackMeta) -> PyTree:
     return tree_from_paths(out)
 
 
+def pack_stacked(tree: PyTree, block_rows: int = 8) -> tuple[torch.Tensor, PackMeta]:
+    """``pack`` for client-stacked trees (every leaf has a leading
+    ``clients`` axis): returns ``(clients, R, 128)`` where each client's
+    rows follow the single-tree layout exactly (``meta.shapes`` are the
+    *per-client* shapes)."""
+    items = tree_paths(tree)
+    if not items:
+        raise ValueError("pack_stacked needs at least one leaf to size the "
+                         "client axis")
+    clients = items[0][1].shape[0]
+    for path, leaf in items:
+        if leaf.shape[0] != clients:
+            raise ValueError(f"stacked leaves disagree on the client axis: "
+                             f"{leaf.shape[0]} vs {clients} at {path_str(path)}")
+    sizes, padded = zip(*(_leaf_blocks(leaf[0], block_rows) for _, leaf in items))
+    flat = torch.zeros((clients, sum(padded)), dtype=torch.float32,
+                       device=items[0][1].device)
+    off = 0
+    for (_, leaf), n, pn in zip(items, sizes, padded):
+        flat[:, off:off + n] = leaf.detach().reshape(clients, -1)
+        off += pn
+    meta = PackMeta(tuple(p for p, _ in items),
+                    tuple(tuple(leaf.shape[1:]) for _, leaf in items),
+                    tuple(sizes), tuple(padded),
+                    tuple(leaf.dtype for _, leaf in items))
+    return flat.view(clients, -1, LANES), meta
+
+
+def unpack_stacked(packed: torch.Tensor, meta: PackMeta) -> PyTree:
+    """Invert ``pack_stacked`` (leading client axis on every leaf); float32
+    leaves are views into ``packed``, as ``unpack``'s are."""
+    clients = packed.shape[0]
+    flat = packed.reshape(clients, -1)
+    out, off = [], 0
+    for path, shape, n, pn, dt in zip(meta.paths, meta.shapes, meta.sizes,
+                                      meta.padded, meta.dtypes):
+        leaf = flat[:, off:off + n].view((clients,) + shape)
+        out.append((path, leaf if dt == torch.float32 else leaf.to(dt)))
+        off += pn
+    return tree_from_paths(out)
+
+
 # ---------------------------------------------------------------------------
 # Block-mask builders (host-side, static layout)
 # ---------------------------------------------------------------------------
@@ -126,6 +171,26 @@ def block_mask_for_group(
     gids = block_group_ids(tree, partition, block_rows, exclude)
     return np.where(np.isin(gids, sorted(sel)) & (gids >= 0), 1, 0).astype(
         np.int32)
+
+
+def block_masks_for_plan(
+    tree: PyTree, partition: Partition, plan, block_rows: int = 8,
+    exclude: Callable[[str], bool] | None = None,
+) -> np.ndarray:
+    """Per-client per-block masks for a ``(clients, M)`` layer-plan bitmask:
+    row ``c`` is ``block_mask_for_group`` of client ``c``'s trained group
+    set.  Shape ``(clients, nblocks)`` int32.  ``plan_block_mask`` (from
+    ``ref``) is its device-side counterpart."""
+    p = np.asarray(plan, dtype=bool)
+    if p.ndim != 2 or p.shape[1] != partition.num_groups:
+        raise ValueError(
+            f"plan shape {p.shape} does not match "
+            f"{partition.num_groups} layer groups")
+    gids = block_group_ids(tree, partition, block_rows, exclude)
+    out = np.zeros((p.shape[0], gids.shape[0]), dtype=np.int32)
+    valid = gids >= 0
+    out[:, valid] = p[:, gids[valid]]
+    return out
 
 
 def adam_scalars(step: torch.Tensor, lr: float, b1: float, b2: float,

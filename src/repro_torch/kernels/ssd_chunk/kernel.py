@@ -35,7 +35,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_grad
 from repro_torch.kernels.ssd_chunk.ref import ssd_ref
 
 MAX_DIM = 128                  # N and P
@@ -171,7 +171,9 @@ def ssd_chunk_kernel(
     out: torch.Tensor | None = None,   # (B, H, S, P), written in place
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (y: ``out`` or a new (B,H,S,P) tensor in v's dtype,
-    final_state: (B,H,N,P) f32)."""
+    final_state: (B,H,N,P) f32).  Refuses inputs that require grad while
+    grad mode is on (``kernels.refuse_grad``), on every device."""
+    refuse_grad("ssd_chunk_kernel", q, k, v, log_a)
     chunk, tile = _check(q, k, v, log_a, chunk, out)
     if v.device.type == "cpu":
         y, state = ssd_ref(q, k, v, log_a)
@@ -187,6 +189,7 @@ def ssd_chunk_body(q, k, v, log_a, *, body: str, chunk: int = 128, out=None):
     """``ssd_chunk_kernel`` on CUDA tensors through the named body (one of
     ``BODIES``), for timing one body against the other; raises where that
     body cannot take the call.  Nothing on the main path calls it."""
+    refuse_grad("ssd_chunk_body", q, k, v, log_a)
     chunk, tile = _check(q, k, v, log_a, chunk, out)
     if v.device.type != "cuda":
         raise ValueError(f"ssd_chunk_body runs on cuda, not {v.device}")

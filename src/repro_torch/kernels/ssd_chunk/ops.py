@@ -28,7 +28,9 @@ def ssd_scan(
     *,
     chunk: int = 128,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (y: (B,S,H,P) in v's dtype, final_state: (B,H,N,P) f32)."""
+    """Returns (y: (B,S,H,P) in v's dtype, final_state: (B,H,N,P) f32).
+    No backward: raises when an input requires grad with grad mode on
+    (``kernels.refuse_grad``)."""
     y = torch.empty_like(v, memory_format=torch.contiguous_format)
     _, state = ssd_chunk_kernel(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                                 log_a.transpose(1, 2), chunk=chunk,

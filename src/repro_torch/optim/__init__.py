@@ -1,6 +1,6 @@
 from repro_torch.optim.adam import (AdamConfig, AdamState,  # noqa: F401
                                     adam_init, adam_update)
 from repro_torch.optim.partial import (PackedTree, full_step,  # noqa: F401
-                                      fused_adam_init, fused_masked_step,
+                                      fused_adam, fused_masked_step,
                                       guard_fused_config, masked_step,
                                       partitioned_step, value_and_grad)

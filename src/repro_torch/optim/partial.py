@@ -11,8 +11,9 @@ Three realisations of the paper's Eq. 1, equal up to rounding:
 * ``fused_masked_step`` — Eq. 1 through the masked-Adam kernel
   (``kernels/masked_adam``).  The parameters live in one packed
   ``(rows, 128)`` f32 buffer as views (``PackedTree``) and their gradients
-  in a second one, so autograd delivers the gradient already packed and the
-  kernel updates parameters and packed m / v in place: nothing is packed or
+  in a second one, so autograd delivers the gradient already packed, and a
+  one-client cohort launch (``fused_adam``, validated once per local round)
+  updates parameters and packed m / v in place: nothing is packed or
   unpacked per step.
 """
 
@@ -21,12 +22,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from repro_torch.core import masking
 from repro_torch.core.partition import Partition
 from repro_torch.kernels.masked_adam import ops as madam_ops
-from repro_torch.kernels.masked_adam.kernel import LANES, masked_adam_
+from repro_torch.kernels.masked_adam.kernel import MaskedAdamCohort
 from repro_torch.optim.adam import AdamConfig, AdamState, adam_init, adam_update
 from repro_torch.tree import PyTree, tree_from_paths, tree_map, tree_paths
 
@@ -89,14 +91,6 @@ class PackedTree:
         return madam_ops.unpack(self.flat, self.meta)
 
 
-def fused_adam_init(rows: int, device: torch.device | str) -> AdamState:
-    """Adam state over the *packed* ``(rows, 128)`` layout: m / v are single
-    f32 buffers aligned with ``ops.pack`` (``step`` is a host count here;
-    the kernel reads its bias corrections from a device scalar row)."""
-    z = torch.zeros((rows, LANES), dtype=torch.float32, device=device)
-    return AdamState(step=0, m=z, v=torch.zeros_like(z))
-
-
 def guard_fused_config(cfg: AdamConfig) -> None:
     """The kernel implements plain Adam — weight decay would silently not be
     applied, so refuse it loudly."""
@@ -106,30 +100,42 @@ def guard_fused_config(cfg: AdamConfig) -> None:
             f"(got {cfg.weight_decay}); use the unfused engines")
 
 
-def fused_masked_step(
-    loss_fn: Callable[[PyTree], tuple[torch.Tensor, Any]],
+def fused_adam(
     packed: PackedTree,
-    opt_state: AdamState,            # packed state from ``fused_adam_init``
-    block_mask: torch.Tensor,        # (rows // block_rows,) int32, packed's device
-    scalars: torch.Tensor,           # (4,) f32 ``ops.adam_scalars`` row for step + 1
+    gid: torch.Tensor,               # (blocks,) int32 group id, -1 = never trained
+    gmask: torch.Tensor,             # (groups,) int32 0 / 1: the groups trained
+    scalars: torch.Tensor,           # (steps, 4) ``ops.adam_scalars`` table
     cfg: AdamConfig,
     *,
     block_rows: int = 8,
-) -> tuple[AdamState, torch.Tensor, Any]:
-    """Eq. 1 through the fused kernel, in place: full-tree gradient, then a
-    block-masked packed Adam update of ``packed`` and ``opt_state``'s m / v;
-    frozen blocks are left untouched.  ``loss_fn`` returns ``(loss, aux)``;
-    returns ``(new_state, loss, aux)``."""
+) -> MaskedAdamCohort:
+    """A local round's masked Adam over ``packed``: a one-client
+    ``MaskedAdamCohort`` with packed m / v from zero, validated once for the
+    round's ``len(scalars)`` steps; block ``b`` is trained iff ``gid[b] >=
+    0`` and ``gmask[gid[b]]`` is set."""
     guard_fused_config(cfg)
+    p = packed.flat[None]
+    return MaskedAdamCohort(p, torch.zeros_like(p), torch.zeros_like(p), gid,
+                            gmask.reshape(1, -1), np.ones((1, scalars.shape[0]), np.int32),
+                            scalars, b1=cfg.b1, b2=cfg.b2, block_rows=block_rows)
+
+
+def fused_masked_step(
+    loss_fn: Callable[[PyTree], tuple[torch.Tensor, Any]],
+    packed: PackedTree,
+    adam: MaskedAdamCohort,          # ``fused_adam(packed, ...)``
+    t: int,                          # 0-based local step
+) -> tuple[torch.Tensor, Any]:
+    """Eq. 1 through the fused kernel, in place: full-tree gradient, then
+    local step ``t`` of ``adam`` on ``packed`` and its packed m / v; frozen
+    blocks are left untouched.  ``loss_fn`` returns ``(loss, aux)``;
+    returns ``(loss, aux)``."""
     packed.grad.zero_()
     with torch.enable_grad():
         loss, aux = loss_fn(packed.tree)
         loss.backward()
-    masked_adam_(packed.flat, packed.grad, opt_state.m, opt_state.v,
-                 block_mask, scalars, b1=cfg.b1, b2=cfg.b2,
-                 block_rows=block_rows)
-    return (AdamState(opt_state.step + 1, opt_state.m, opt_state.v),
-            loss.detach(), aux)
+    adam.step(t, packed.grad[None])
+    return loss.detach(), aux
 
 
 # ---------------------------------------------------------------------------

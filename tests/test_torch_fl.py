@@ -156,8 +156,7 @@ def test_unported_options_raise(setup):
         def dataset(self, client_id):
             return setup["tclients"][client_id]
 
-    for kw in (dict(engine="vmap"), dict(engine="shard_map"),
-               dict(plan="nested", capacity_tiers=(0.3, 1.0)),
+    for kw in (dict(engine="shard_map"),
                dict(state_store_entries=2), dict(state_store_spill="spill")):
         with pytest.raises(NotImplementedError):
             run(**kw)

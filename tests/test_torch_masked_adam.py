@@ -6,7 +6,8 @@
   blocks stay bit-exact;
 * ``ops.pack`` layout and the block masks are identical to the reference's
   on ResNet-8 (1,576 rows, 197 blocks);
-* the client-stacked launch equals per-client launches;
+* the client-stacked launch equals per-client launches (both are cohort
+  launches: one kernel stands for both TPU functions);
 * the three realisations of Eq. 1 (fused == masked == partitioned), and the
   unfused ``adam_update`` against the reference's;
 * the CUDA kernel against the plain version, on a card only (``gpu``).
@@ -39,8 +40,8 @@ from repro_torch.core.partition import build_partition as t_build_partition
 from repro_torch.fl import tasks as ttasks
 from repro_torch.kernels import build
 from repro_torch.kernels.masked_adam import kernel as madam_kernel
-from repro_torch.kernels.masked_adam import (masked_adam_, masked_adam_ref,
-                                             masked_adam_stacked_, ops)
+from repro_torch.kernels.masked_adam import (MaskedAdamCohort, masked_adam_,
+                                             masked_adam_ref, masked_adam_stacked_, ops)
 from repro_torch.optim import adam as tadam
 from repro_torch.optim import partial as tpartial
 from repro_torch.tree import tree_leaves, tree_map, tree_paths
@@ -197,15 +198,16 @@ def test_three_way_fused_masked_partitioned():
     cfg = tadam.AdamConfig(lr=1e-2, eps=1e-3)
     for group in range(part.num_groups):
         packed = tpartial.PackedTree.from_tree(params, 8)
-        fstate = tpartial.fused_adam_init(packed.flat.shape[0], "cpu")
-        bm = torch.as_tensor(ops.block_mask_for_group(params, part, group, 8))
+        gid = torch.as_tensor(ops.block_group_ids(params, part, 8))
+        row = torch.as_tensor((np.arange(part.num_groups) == group).astype(np.int32))
         table = ops.adam_scalars(torch.arange(1, 4), cfg.lr, cfg.b1, cfg.b2, cfg.eps)
+        adam = tpartial.fused_adam(packed, gid, row, table, cfg)
         mparams, mstate = params, tadam.adam_init(params)
         mask = masking.mask_tree(params, part, group)
         pparams, pstate = params, None
         for i in range(3):
-            fstate, floss, _ = tpartial.fused_masked_step(
-                lambda t: (_quad_loss(t), None), packed, fstate, bm, table[i], cfg)
+            floss, _ = tpartial.fused_masked_step(
+                lambda t: (_quad_loss(t), None), packed, adam, i)
             mparams, mstate, mloss = tpartial.masked_step(
                 _quad_loss, mparams, mstate, mask, cfg)
             pparams, pstate, ploss = tpartial.partitioned_step(
@@ -253,11 +255,11 @@ def test_cuda_kernel_matches_plain(rows):
     mask = torch.tensor(_mask("random", rows // 8, seed=2), device="cuda")
     sc = ops.adam_scalars(torch.tensor(1000, device="cuda"), 1e-3, 0.9, 0.999, 1e-8)
     ref = masked_adam_ref(p, g, m, v, mask, sc)
-    before = masked_adam_.launches
+    before = MaskedAdamCohort.launches
     out = (p.clone(), m.clone(), v.clone())
     masked_adam_(out[0], g, out[1], out[2], mask, sc)
     torch.cuda.synchronize()
-    assert masked_adam_.launches == before + 1
+    assert MaskedAdamCohort.launches == before + 1
     frozen = torch.repeat_interleave(mask == 0, 8)
     for k, r, x in zip(out, ref, (p, m, v)):
         torch.testing.assert_close(k, r, rtol=TOL, atol=TOL)
@@ -265,14 +267,13 @@ def test_cuda_kernel_matches_plain(rows):
 
 
 def test_launcher_declares_its_c_signature(monkeypatch):
-    """Every pointer and the stream go to the C launcher as ``c_void_p``
-    (ctypes would pass a bare Python int as a 32-bit int), and the floats
-    as ``c_float``; ctypes' default ``restype`` is already ``c_int``, so the
-    declaration must not hinge on it."""
+    """The argument struct's pointer and the stream go to the C launcher as
+    ``c_void_p`` (ctypes would pass a bare Python int as a 32-bit int);
+    ctypes' default ``restype`` is already ``c_int``, so the declaration
+    must not hinge on it."""
     launch = type("Launch", (), {"argtypes": None, "restype": ctypes.c_int})()
-    lib = type("Lib", (), {"masked_adam_launch": launch})()
+    lib = type("Lib", (), {"masked_adam_cohort_launch": launch})()
     monkeypatch.setattr(build, "load", lambda name: lib)
-    fn = madam_kernel._lib().masked_adam_launch
-    assert fn.argtypes == [ctypes.c_void_p] * 6 + [ctypes.c_float] * 4 + [
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+    fn = madam_kernel._cohort_launcher()
+    assert fn.argtypes == [ctypes.c_void_p, ctypes.c_void_p]
     assert fn.restype is ctypes.c_int
