@@ -25,6 +25,14 @@ Phases, in order; any failure raises and the script exits non-zero:
               host microseconds per wrapper call, the bound and
               ``torch.optim.Adam(fused=True)`` on the same buffers as a
               yardstick.
+   kernel_nlp — the same kernel at the nlp transformer's full-width layout
+              (85,312 rows): one client (FNU, embed, one block, head masks)
+              and a cohort of 8 clients plus a padded ninth (those groups
+              and a nested plan), steps 1 and 1000, bit-identical to the
+              plain version; times of the FNU, embed-group and block-group
+              cohorts of 8 and of one client FNU on cold buffers (the FNU
+              cohort moves 2.446 GB), against the bound and
+              ``torch.optim.Adam(fused=True)``.
 4. fedpart  — the main path: sync FedPart on ResNet-8 at the paper's width,
               8 iid clients x 500 samples, batch 64, one local epoch, FedAvg,
               ``fused_adam=True``: 12 FedPart rounds, then the matched FNU
@@ -38,6 +46,25 @@ Phases, in order; any failure raises and the script exits non-zero:
               vmap-vs-sequential cross-checks for FedAvg / FedProx / MOON
               and a nested plan at ``adam_eps=1e-3``, with deterministic
               cuDNN convolutions.
+   nlp      — the paper's second task at the reference's full width
+              (``nlp-transformer``: 4 blocks, d 256, 8 heads, d_ff 1,024,
+              vocab 30,000, 256 positions; 10,902,020 parameters, 6 groups,
+              85,312 packed rows) on synthetic AG-News-like text, 8 iid
+              clients x 500 samples of 256 tokens, batch 64, one local
+              epoch, FedAvg, ``fused_adam=True``: FedPart over the 6 groups
+              and its matched FNU baseline, on the sequential engine (one
+              one-client launch per local step) and then the vmap engine
+              (one cohort launch per bucket and step); seconds per round on
+              both; one FNU round of each under ``torch.profiler``; then
+              cross-checks at ``adam_eps=1e-3``: fused vs unfused, and vmap
+              vs sequential for FedAvg / FedProx / MOON and a nested plan.
+   compress — int8, onebit and topk (0.01) with error feedback on the nlp
+              task at full width (warm-up FNU, embed and first-block rounds,
+              vmap engine, fused): the compression epilogue's device time
+              per round; the booked bytes equal the encoded bytes of the
+              transmitted leaves; decode(encode) equals the
+              quantize-dequantize values bit for bit on the card; int8's
+              vmap run within 1e-4 of the sequential one.
 5. profile  — one FNU round under ``torch.profiler``: device time by kernel.
 6. flash    — ``flash_attention`` against its plain PyTorch version on the
               card: the reference's seven cases, four ragged ones and three
@@ -82,7 +109,10 @@ Phases, in order; any failure raises and the script exits non-zero:
               within 1e-3 and the same tokens.
 
 The line before the last carries ``nvidia-smi``'s name and power limit, the
-one before it the ``kernels`` JSON; the last line is the ``ok`` JSON.
+one before it the ``kernels`` JSON (the masked-Adam entries count their
+launches by path: ``fedpart`` and ``nlp`` for the one-client launches,
+``fedpart_vmap``, ``nlp`` and ``compress`` for the cohort launches); the
+last line is the ``ok`` JSON.
 """
 
 from __future__ import annotations
@@ -393,16 +423,19 @@ def _cohort_bound_ms(trained_elems: int, clients: int, blocks: int,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _cohort_cases(part, clients: int) -> dict:
-    """(clients, groups) bool group masks: FNU, each FedPart group, and a
-    nested plan (tiers 0.3 / 0.6 / 1.0) on a partial round of group 8."""
+def _cohort_cases(part, clients: int, nested_group: int = 8,
+                  groups=None) -> dict:
+    """(clients, groups) bool group masks: FNU, each FedPart group of
+    ``groups`` (default: every group), and a nested plan (tiers 0.3 / 0.6 /
+    1.0) on a partial round of ``nested_group``."""
     from repro_torch.core.schedule import PlanAssigner, RoundSpec
     g = part.num_groups
     cases = {"fnu": np.ones((clients, g), bool)}
-    for k in range(g):
+    for k in (range(g) if groups is None else groups):
         cases[f"group{k}"] = np.broadcast_to(np.arange(g) == k, (clients, g))
     plan = PlanAssigner(num_groups=g, kind="nested", capacity_tiers=(0.3, 0.6, 1.0),
-                        seed=0).assign(RoundSpec(1, "partial", 0, 8), list(range(clients)))
+                        seed=0).assign(RoundSpec(1, "partial", 0, nested_group),
+                                       list(range(clients)))
     if plan is None or len({tuple(r) for r in plan}) < 2:
         raise AssertionError(f"the nested plan case is not mixed: {plan}")
     cases["nested"] = plan
@@ -410,12 +443,14 @@ def _cohort_cases(part, clients: int) -> dict:
 
 
 def _check_cohort(params, part, gen, clients: int = COHORT_CLIENTS,
+                  padded_client: int = 5, cases: dict | None = None,
                   br: int = 8) -> float:
-    """Cohort launch vs its plain version at ResNet-8 x ``clients``: every
-    case of ``_cohort_cases``, every client valid and client 5 padded, steps
-    1 and 1000.  Bit-identical, untrained blocks and the padded client
-    bit-exact to their inputs; the nested case also equals one one-client
-    launch per client.  Returns the max abs error (0 when bit-identical)."""
+    """Cohort launch vs its plain version on ``params``' layout x
+    ``clients``: every case of ``cases`` (default ``_cohort_cases``), every
+    client valid and ``padded_client`` padded, steps 1 and 1000.
+    Bit-identical, untrained blocks and the padded client bit-exact to their
+    inputs; the nested case also equals one one-client launch per client.
+    Returns the max abs error (0 when bit-identical)."""
     from repro_torch.core.aggregation import is_local_stat
     from repro_torch.kernels.masked_adam import (MaskedAdamCohort, masked_adam_,
                                                  masked_adam_cohort_ref, ops)
@@ -428,13 +463,13 @@ def _check_cohort(params, part, gen, clients: int = COHORT_CLIENTS,
     m = torch.randn(clients, rows, 128, device=dev, generator=gen) * 0.1
     v = torch.rand(clients, rows, 128, device=dev, generator=gen) * 0.01
     padded = np.ones(clients, np.float32)
-    padded[5] = 0.0
+    padded[padded_client] = 0.0
     worst = 0.0
-    for cname, rows_mask in _cohort_cases(part, clients).items():
+    for cname, rows_mask in (cases or _cohort_cases(part, clients)).items():
         gmask = torch.as_tensor(np.ascontiguousarray(rows_mask), dtype=torch.int32,
                                 device=dev)
         for vname, valid in (("all valid", np.ones(clients, np.float32)),
-                             ("client 5 padded", padded)):
+                             (f"client {padded_client} padded", padded)):
             for step in (1, 1000):
                 table = ops.adam_scalars(torch.tensor([step], device=dev), 1e-3, 0.9,
                                          0.999, 1e-8)
@@ -455,7 +490,7 @@ def _check_cohort(params, part, gen, clients: int = COHORT_CLIENTS,
                                              f"version (max {float((k - r).abs().max()):.3g})")
                     if not torch.equal(k[~trained], x[~trained]):
                         raise AssertionError(f"{what}: an untrained {name} block changed")
-                if cname == "nested" and vname == "client 5 padded" and step == 1000:
+                if cname == "nested" and valid is padded and step == 1000:
                     bm = ops.plan_block_mask(gid, gmask, valid_t)
                     for c in range(clients):
                         single = (p[c].clone(), m[c].clone(), v[c].clone())
@@ -470,11 +505,16 @@ def _check_cohort(params, part, gen, clients: int = COHORT_CLIENTS,
 
 
 def _time_cohort(params, part, reps: int = 200, clients: int = COHORT_CLIENTS,
+                 groups=None, plain_reps: int = 20, host_calls: int = 2000,
                  br: int = 8) -> dict:
-    """The cohort launch at ResNet-8 x ``clients``, FNU, every client valid,
-    on cold buffers (``cold_sets``; ``l2_hot_ms`` is one set back to back):
-    CUDA-event ms, host microseconds per wrapper call, the plain version,
-    the bound and ``torch.optim.Adam(fused=True)`` on the same bytes."""
+    """The cohort launch on ``params``' layout x ``clients``, training
+    ``groups`` (default: every group, FNU), every client valid, on cold
+    buffers (``cold_sets``; ``l2_hot_ms`` is one set back to back):
+    CUDA-event ms, host microseconds per wrapper call over ``host_calls``
+    calls (few enough that the launch queue never fills, or the host waits
+    for the device), the plain version, the bound and
+    ``torch.optim.Adam(fused=True)`` on the same bytes (the whole buffers
+    for FNU, as many elements as the kernel trains for a group)."""
     from repro_torch.core.aggregation import is_local_stat
     from repro_torch.kernels.masked_adam import (MaskedAdamCohort,
                                                  masked_adam_cohort_ref, ops)
@@ -483,7 +523,9 @@ def _time_cohort(params, part, reps: int = 200, clients: int = COHORT_CLIENTS,
     rows = ops.packed_rows(params, br)
     gids = ops.block_group_ids(params, part, br, exclude=is_local_stat)
     gid = torch.as_tensor(gids, device=dev)
-    gmask = torch.ones(clients, part.num_groups, dtype=torch.int32, device=dev)
+    sel = np.ones(part.num_groups, bool) if groups is None else np.isin(
+        np.arange(part.num_groups), groups)
+    gmask = torch.as_tensor(np.tile(sel, (clients, 1)), dtype=torch.int32, device=dev)
     table = ops.adam_scalars(torch.tensor([1], device=dev), 1e-3, 0.9, 0.999, 1e-8)
     valid = torch.ones(clients, dtype=torch.int32, device=dev)
 
@@ -496,22 +538,26 @@ def _time_cohort(params, part, reps: int = 200, clients: int = COHORT_CLIENTS,
                                             block_rows=br)
 
     sets = cold_sets(make, 16 * clients * rows * 128)
-    trained = clients * int((gids >= 0).sum()) * br * 128
+    trained = clients * int(np.isin(gids, np.flatnonzero(sel)).sum()) * br * 128
     bound, bound_by = _cohort_bound_ms(trained, clients, len(gids), part.num_groups)
     first = sets[0]
     out = {"clients": clients, "rows": rows, "trained_elems": trained,
            "buffer_sets": len(sets),
            "ms": cuda_ms(cycling([lambda s=s: s[4].step(0, s[1]) for s in sets]), reps),
            "l2_hot_ms": cuda_ms(lambda: first[4].step(0, first[1]), reps),
-           "host_us": host_us(lambda: first[4].step(0, first[1])),
+           "host_us": host_us(lambda: first[4].step(0, first[1]), host_calls),
            "plain_ms": cuda_ms(cycling([lambda s=s: masked_adam_cohort_ref(
                s[0], s[1], s[2], s[3], gid, gmask, valid, table[0], block_rows=br)
-               for s in sets]), 20),
+               for s in sets]), plain_reps),
            "bound_ms": bound, "bound_by": bound_by}
     opts = []
     for p, g, *_ in sets:
-        param = torch.nn.Parameter(p.clone())
-        param.grad = g
+        if groups is None:
+            param = torch.nn.Parameter(p.clone())
+            param.grad = g
+        else:
+            param = torch.nn.Parameter(p.reshape(-1)[:trained].clone())
+            param.grad = g.reshape(-1)[:trained]
         opts.append(torch.optim.Adam([param], lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
                                      fused=True))
     out["library_ms"] = cuda_ms(cycling([o.step for o in opts]), reps)
@@ -606,6 +652,69 @@ def phase_kernel() -> tuple[dict, dict]:
               "clients": t["clients"], "host_us": t["host_us"],
               "l2_hot_ms": t["l2_hot_ms"]}
     return adam, cohort
+
+
+def _log_cohort_time(name: str, t: dict) -> None:
+    log(f"[kernel_nlp] masked_adam_cohort nlp x {t['clients']} {name}: rows "
+        f"{t['rows']} trained elements {t['trained_elems']} "
+        f"({7 * 4 * t['trained_elems'] / 1e9:.4f} GB moved) kernel {t['ms']:.6f} ms "
+        f"({t['buffer_sets']} buffer sets in turn; one set back to back: "
+        f"{t['l2_hot_ms']:.6f} ms) plain {t['plain_ms']:.6f} ms bound "
+        f"{t['bound_ms']:.6f} ms ({t['bound_by']}; {100 * t['bound_ms'] / t['ms']:.2f}% "
+        f"of it) torch.optim.Adam(fused=True) {t['library_ms']:.6f} ms; host "
+        f"{t['host_us']:.3f} us per step call")
+
+
+def phase_kernel_nlp(adam: dict, cohort: dict) -> None:
+    """The masked-Adam kernel at the nlp transformer's full-width layout
+    (10,902,020 parameters, 85,312 packed rows, 6 groups), where the main
+    path's launches move gigabytes.  One client against its plain version
+    (FNU, the embed group, one block group, the head group; steps 1 and
+    1000; frozen blocks bit-exact); the cohort at 8 clients plus a padded
+    ninth (the same groups and a nested plan): bit-identical.  Times on cold
+    buffers against the bound and ``torch.optim.Adam(fused=True)``: the FNU
+    cohort, the embed- and block-group cohorts, one client FNU.  Adds them
+    to the two kernels' entries under ``nlp_shape``."""
+    from repro_torch.core.aggregation import is_local_stat
+    from repro_torch.fl.tasks import nlp_task
+    from repro_torch.kernels.masked_adam import ops
+    dev, br = "cuda", 8
+    adapter = nlp_task(num_classes=4, smoke=NLP_SMOKE)
+    params = adapter.init(torch.Generator().manual_seed(0))
+    part = adapter.partition(params)
+    g = part.num_groups
+    rows = ops.packed_rows(params, br)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    named = {"fnu": tuple(range(g)), "embed": (0,), "block0": (1,), "head": (g - 1,)}
+    masks = {name: torch.as_tensor(ops.block_mask_for_group(
+        params, part, sel, br, exclude=is_local_stat).astype(np.int32), device=dev)
+        for name, sel in named.items()}
+    worst = _check_masked_adam(rows, masks, gen, br)
+    torch.cuda.empty_cache()
+    log(f"[kernel_nlp] masked_adam one client at the nlp layout ({rows} rows, {g} "
+        f"groups): {', '.join(named)} masks, steps 1 and 1000: max abs err "
+        f"{worst:.3g} on trained blocks (tolerance {KERNEL_TOL:g} x max(1,|ref|)); "
+        f"frozen blocks bit-exact")
+    clients = NLP_CLIENTS + 1
+    cases = _cohort_cases(part, clients, nested_group=g - 2, groups=(0, 1, g - 1))
+    cworst = _check_cohort(params, part, gen, clients=clients,
+                           padded_client=NLP_CLIENTS, cases=cases)
+    log(f"[kernel_nlp] masked_adam_cohort vs plain at the nlp layout x {clients} "
+        f"(client {NLP_CLIENTS} padded in one variant): {', '.join(cases)}, steps 1 "
+        f"and 1000: bit-identical (max abs err {cworst:.3g}); untrained blocks and "
+        f"the padded client bit-exact; equal to {clients} one-client launches")
+    kw = dict(plain_reps=5, host_calls=200)
+    times = {"fnu": _time_cohort(params, part, 50, NLP_CLIENTS, **kw),
+             "embed": _time_cohort(params, part, 50, NLP_CLIENTS, groups=(0,), **kw),
+             "block0": _time_cohort(params, part, 100, NLP_CLIENTS, groups=(1,), **kw),
+             "one client fnu": _time_cohort(params, part, 200, 1, **kw)}
+    for name, t in times.items():
+        _log_cohort_time(name, t)
+    one = times.pop("one client fnu")
+    adam["max_abs_err"] = max(adam["max_abs_err"], worst)
+    adam["nlp_shape"] = one
+    cohort["max_abs_err"] = max(cohort["max_abs_err"], cworst)
+    cohort["nlp_shape"] = times
 
 
 def _flash_qkv(b, h, hkv, sq, skv, d, dtype, gen):
@@ -931,11 +1040,8 @@ def _vision_setup(clients: int = 8, per_client: int = 500):
 
 def phase_fedpart() -> tuple[int, dict]:
     from repro_torch.core.schedule import FedPartSchedule, matched_fnu
-    from repro_torch.data.pipeline import batch_plan
     from repro_torch.fl import AlgoConfig, FLRunConfig, resnet_task, run_federated
-    from repro_torch.fl.population import client_round_seed
     from repro_torch.kernels.masked_adam import MaskedAdamCohort
-    from repro_torch.tree import tree_leaves
 
     clients, eval_set = _vision_setup()
     adapter = resnet_task("resnet8", num_classes=20)
@@ -944,11 +1050,7 @@ def phase_fedpart() -> tuple[int, dict]:
     runs = {"fedpart": sched.rounds(), "fnu": matched_fnu(sched).rounds()}
     cfg = FLRunConfig(local_epochs=1, batch_size=64, algo=AlgoConfig("fedavg"),
                       fused_adam=True, device="cuda")
-    expected = sum(len(batch_plan(len(clients[c]), cfg.batch_size,
-                                  cfg.local_epochs,
-                                  client_round_seed(cfg.seed, s.index, c)))
-                   for rounds in runs.values() for s in rounds
-                   for c in range(len(clients)))
+    expected = _expected_launches(clients, runs.values(), cfg)
 
     MaskedAdamCohort.launches = 0
     results = {name: run_federated(adapter, clients, eval_set, rounds, cfg)
@@ -965,23 +1067,11 @@ def phase_fedpart() -> tuple[int, dict]:
     # Cross-checks: fused == unfused on the card (warm-up FNU + one partial).
     short = FedPartSchedule(num_groups=10, warmup_rounds=1, rounds_per_layer=1,
                             cycles=1).rounds()[:2]
+    kw = dict(local_epochs=1, batch_size=64, adam_eps=1e-3, device="cuda")
     for algo in ("fedavg", "fedprox", "moon"):
-        out = {}
-        for fused in (True, False):
-            c = FLRunConfig(local_epochs=1, batch_size=64, adam_eps=1e-3,
-                            algo=AlgoConfig(algo), fused_adam=fused, device="cuda")
-            out[fused] = run_federated(adapter, clients, eval_set, short, c)
-        diff = max(float((a - b).abs().max()) for a, b in
-                   zip(tree_leaves(out[True].params), tree_leaves(out[False].params)))
-        ldiff = max(abs(a["loss"] - b["loss"]) for a, b in
-                    zip(out[True].history, out[False].history))
-        log(f"[fedpart] cross-check {algo}: fused vs unfused max param diff "
-            f"{diff:.3g}, max loss diff {ldiff:.3g} (tolerance {CROSS_TOL:g}), "
-            f"losses {[round(h['loss'], 6) for h in out[True].history]}")
-        if not (diff <= CROSS_TOL and ldiff <= CROSS_TOL):
-            raise AssertionError(f"{algo}: fused and unfused disagree")
-        if not all(math.isfinite(h["loss"]) for h in out[True].history):
-            raise AssertionError(f"{algo}: non-finite fused loss")
+        _cross_check("fedpart", algo, (adapter, clients, eval_set), short, {
+            "fused": FLRunConfig(algo=AlgoConfig(algo), fused_adam=True, **kw),
+            "unfused": FLRunConfig(algo=AlgoConfig(algo), fused_adam=False, **kw)})
     return launches, medians
 
 
@@ -1020,11 +1110,8 @@ def phase_fedpart_vmap(seq_medians: dict) -> int:
     sequential on the card for FedAvg / FedProx / MOON and a nested plan.
     Returns the counted run's cohort launches."""
     from repro_torch.core.schedule import FedPartSchedule, RoundSpec, matched_fnu
-    from repro_torch.data.pipeline import bucket_plans
     from repro_torch.fl import AlgoConfig, FLRunConfig, resnet_task, run_federated
-    from repro_torch.fl.population import client_round_seed
     from repro_torch.kernels.masked_adam import MaskedAdamCohort
-    from repro_torch.tree import tree_leaves
 
     clients, eval_set = _vision_setup()
     adapter = resnet_task("resnet8", num_classes=20)
@@ -1033,13 +1120,7 @@ def phase_fedpart_vmap(seq_medians: dict) -> int:
     runs = {"fedpart": sched.rounds(), "fnu": matched_fnu(sched).rounds()}
     cfg = FLRunConfig(local_epochs=1, batch_size=64, algo=AlgoConfig("fedavg"),
                       fused_adam=True, engine="vmap", device="cuda")
-    # every bucket's longest client, over rounds (all 8 clients each round)
-    expected = sum(
-        plans.shape[1]
-        for rounds in runs.values() for s in rounds
-        for _, plans, _ in bucket_plans(
-            clients, cfg.batch_size, cfg.local_epochs,
-            [client_round_seed(cfg.seed, s.index, c) for c in range(len(clients))]))
+    expected = _expected_launches(clients, runs.values(), cfg)
 
     MaskedAdamCohort.launches = 0
     results = {name: run_federated(adapter, clients, eval_set, rounds, cfg)
@@ -1070,30 +1151,13 @@ def phase_fedpart_vmap(seq_medians: dict) -> int:
     checks = [(a, short, {}) for a in ("fedavg", "fedprox", "moon")]
     checks.append(("fedavg", [short[0], RoundSpec(1, "partial", 0, 8)],
                    dict(plan="nested", capacity_tiers=(0.3, 0.6, 1.0))))
-    for algo, rounds, kw in checks:
-        out = {}
-        for engine in ("vmap", "sequential"):
-            c = FLRunConfig(local_epochs=1, batch_size=64, adam_eps=1e-3,
-                            algo=AlgoConfig(algo), fused_adam=True, engine=engine,
-                            device="cuda", **kw)
-            torch.backends.cudnn.deterministic = True
-            try:
-                out[engine] = run_federated(adapter, clients, eval_set, rounds, c)
-            finally:
-                torch.backends.cudnn.deterministic = False
-        diff = max(float((a - b).abs().max()) for a, b in
-                   zip(tree_leaves(out["vmap"].params), tree_leaves(out["sequential"].params)))
-        ldiff = max(abs(a["loss"] - b["loss"]) for a, b in
-                    zip(out["vmap"].history, out["sequential"].history))
-        what = algo + (f" {kw['plan']} plan" if "plan" in kw else "")
-        log(f"[fedpart_vmap] cross-check {what} (adam_eps 0.001): vmap vs "
-            f"sequential max param diff {diff:.3g}, max loss diff {ldiff:.3g} "
-            f"(tolerance {CROSS_TOL:g}), "
-            f"losses {[round(h['loss'], 6) for h in out['vmap'].history]}")
-        if not (diff <= CROSS_TOL and ldiff <= CROSS_TOL):
-            raise AssertionError(f"{what}: vmap and sequential disagree")
-        if not all(math.isfinite(h["loss"]) for h in out["vmap"].history):
-            raise AssertionError(f"{what}: non-finite vmap loss")
+    kw = dict(local_epochs=1, batch_size=64, adam_eps=1e-3, device="cuda")
+    for algo, rounds, extra in checks:
+        what = algo + (f" {extra['plan']} plan" if extra else "") + " (adam_eps 0.001)"
+        _cross_check("fedpart_vmap", what, (adapter, clients, eval_set), rounds, {
+            engine: FLRunConfig(algo=AlgoConfig(algo), fused_adam=True, engine=engine,
+                                **kw, **extra) for engine in ("vmap", "sequential")},
+            deterministic=True)
     return launches
 
 
@@ -1105,18 +1169,266 @@ def phase_profile() -> None:
                                   device="cuda"), "profile")
 
 
-def _profile_fl_round(cfg, tag: str) -> None:
-    """One warm FNU round of ``cfg`` under ``torch.profiler``: wall, device
-    busy share, launches, the top kernels and the masked-Adam kernels."""
+def _cross_check(tag: str, what: str, setup, rounds, cfgs: dict,
+                 deterministic: bool = False) -> float:
+    """Run ``rounds`` of ``setup`` (``(adapter, clients, eval_set)``) under
+    the two configs of ``cfgs`` (name -> ``FLRunConfig``) and hold them to
+    each other within ``CROSS_TOL`` on every param and per-round loss;
+    ``deterministic`` picks cuDNN's deterministic algorithms.  Returns the
+    max param diff."""
+    from repro_torch.fl import run_federated
+    from repro_torch.tree import tree_leaves
+    adapter, clients, eval_set = setup
+    out = {}
+    for name, c in cfgs.items():
+        torch.backends.cudnn.deterministic = deterministic
+        try:
+            out[name] = run_federated(adapter, clients, eval_set, rounds, c)
+        finally:
+            torch.backends.cudnn.deterministic = False
+    (na, a), (nb, b) = out.items()
+    diff = max(float((x - y).abs().max())
+               for x, y in zip(tree_leaves(a.params), tree_leaves(b.params)))
+    ldiff = max(abs(x["loss"] - y["loss"]) for x, y in zip(a.history, b.history))
+    log(f"[{tag}] cross-check {what}: {na} vs {nb} max param diff {diff:.3g}, max "
+        f"loss diff {ldiff:.3g} (tolerance {CROSS_TOL:g}), "
+        f"losses {[round(h['loss'], 6) for h in a.history]}")
+    if not (diff <= CROSS_TOL and ldiff <= CROSS_TOL):
+        raise AssertionError(f"{tag} {what}: {na} and {nb} disagree")
+    if not all(math.isfinite(h["loss"]) for h in a.history):
+        raise AssertionError(f"{tag} {what}: non-finite {na} loss")
+    return diff
+
+
+NLP_CLIENTS = 8         # the nlp phases' cohort: 8 iid clients in one bucket
+NLP_PER_CLIENT = 500    # samples per client: 7 steps of 64 a local epoch
+NLP_SMOKE = False       # full width (the reference's nlp-transformer)
+
+
+def _text_setup():
+    """``(adapter, clients, eval_set)`` for the nlp phases: ``nlp_task`` at
+    full width and synthetic AG-News-like text (``make_text_dataset``, 4
+    classes) at its vocabulary and 256 positions, 8 iid clients x 500
+    samples, a balanced eval set of 256."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import (TextDatasetSpec, balanced_eval_set, build_clients,
+                                  iid_partition, make_text_dataset)
+    from repro_torch.fl import nlp_task
+    cfg = get_config("nlp-transformer", smoke=NLP_SMOKE)
+    spec = TextDatasetSpec(num_classes=4, vocab_size=cfg.vocab_size,
+                           seq_len=cfg.max_position_embeddings)
+    x, y = make_text_dataset(spec, NLP_CLIENTS * NLP_PER_CLIENT, seed=0)
+    xe, ye = make_text_dataset(spec, 1000, seed=7)
+    return (nlp_task(num_classes=4, cfg=cfg),
+            build_clients(x, y, iid_partition(len(y), NLP_CLIENTS, seed=0)),
+            balanced_eval_set(xe, ye, per_class=64))
+
+
+def _expected_launches(clients, rounds_list, cfg) -> int:
+    """Masked-Adam launches one run of every schedule in ``rounds_list``
+    must make: one per client and local step on the sequential engine, one
+    per bucket and step (its longest client's steps) on the vmap engine."""
+    from repro_torch.data.pipeline import batch_plan, bucket_plans
+    from repro_torch.fl.population import client_round_seed
+    n = len(clients)
+    total = 0
+    for rounds in rounds_list:
+        for spec in rounds:
+            seeds = [client_round_seed(cfg.seed, spec.index, c) for c in range(n)]
+            if cfg.engine == "sequential":
+                total += sum(len(batch_plan(len(clients[c]), cfg.batch_size,
+                                            cfg.local_epochs, seeds[c]))
+                             for c in range(n))
+            else:
+                total += sum(plans.shape[1] for _, plans, _ in bucket_plans(
+                    clients, cfg.batch_size, cfg.local_epochs, seeds))
+    return total
+
+
+def phase_nlp() -> tuple[int, int]:
+    """The paper's second task at the reference's full width: FedPart over
+    the 6 groups and its matched FNU baseline, FedAvg, ``fused_adam=True``,
+    on the sequential engine and then the vmap engine; one FNU round of
+    each under the profiler; cross-checks at ``adam_eps=1e-3`` (fused vs
+    unfused on the sequential engine; vmap vs sequential for FedAvg,
+    FedProx, MOON and a nested plan).  Returns the counted runs'
+    masked-Adam launches (sequential, vmap)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.schedule import FedPartSchedule, RoundSpec, matched_fnu
+    from repro_torch.fl import AlgoConfig, FLRunConfig, run_federated
+    from repro_torch.kernels.masked_adam import MaskedAdamCohort, ops
+    from repro_torch.tree import tree_leaves
+
+    setup = _text_setup()
+    adapter, clients, eval_set = setup
+    init = adapter.init(torch.Generator().manual_seed(0))
+    part = adapter.partition(init)
+    cfg_m = get_config("nlp-transformer", smoke=NLP_SMOKE)
+    log(f"[nlp] {cfg_m.name} {'smoke' if NLP_SMOKE else 'full'}: {cfg_m.num_layers} "
+        f"blocks d_model {cfg_m.d_model} heads {cfg_m.num_heads} d_ff {cfg_m.d_ff} "
+        f"vocab {cfg_m.vocab_size} positions {cfg_m.max_position_embeddings}; "
+        f"{sum(int(x.numel()) for x in tree_leaves(init))} params in "
+        f"{len(tree_leaves(init))} leaves, {part.num_groups} groups, "
+        f"{ops.packed_rows(init, 8)} packed rows; {len(clients)} clients x "
+        f"{len(clients[0])} samples of {clients[0].inputs.shape[1]} tokens, batch 64")
+    sched = FedPartSchedule(num_groups=part.num_groups, warmup_rounds=1,
+                            rounds_per_layer=1, cycles=1)
+    runs = {"fedpart": sched.rounds(), "fnu": matched_fnu(sched).rounds()}
+    cfgs, medians, launches = {}, {}, {}
+    for engine in ("sequential", "vmap"):
+        cfg = cfgs[engine] = FLRunConfig(local_epochs=1, batch_size=64,
+                                         algo=AlgoConfig("fedavg"), fused_adam=True,
+                                         engine=engine, device="cuda")
+        expected = _expected_launches(clients, runs.values(), cfg)
+        MaskedAdamCohort.launches = 0
+        results = {name: run_federated(adapter, clients, eval_set, rounds, cfg)
+                   for name, rounds in runs.items()}
+        torch.cuda.synchronize()
+        launches[engine] = MaskedAdamCohort.launches
+        tag = f"nlp_{engine[:3]}"
+        medians[engine] = _report_fl_runs(tag, adapter, results, cfg)
+        what = ("one client each, = local steps" if engine == "sequential"
+                else "one per bucket and local step")
+        log(f"[{tag}] masked_adam_cohort launches {launches[engine]} ({what}: "
+            f"{expected})")
+        if launches[engine] != expected:
+            raise AssertionError(f"nlp {engine}: launches {launches[engine]} != "
+                                 f"{expected}")
+    for name in runs:
+        seq, vm = medians["sequential"][name], medians["vmap"][name]
+        log(f"[nlp] {name} median seconds per round: vmap {vm:.4f}, sequential "
+            f"{seq:.4f} ({seq / vm:.2f}x)")
+    for engine, cfg in cfgs.items():
+        _profile_fl_round(cfg, f"nlp_{engine[:3]}", setup)
+
+    short = sched.rounds()[:2]
+    kw = dict(local_epochs=1, batch_size=64, adam_eps=1e-3, device="cuda")
+    for algo in ("fedavg", "fedprox", "moon"):
+        _cross_check("nlp", f"{algo} (adam_eps 0.001)", setup, short, {
+            "fused": FLRunConfig(algo=AlgoConfig(algo), fused_adam=True, **kw),
+            "unfused": FLRunConfig(algo=AlgoConfig(algo), fused_adam=False, **kw)})
+    plan = dict(plan="nested", capacity_tiers=(0.3, 0.6, 1.0))
+    checks = [(a, short, {}) for a in ("fedavg", "fedprox", "moon")]
+    checks.append(("fedavg", [short[0], RoundSpec(1, "partial", 0, part.num_groups - 2)],
+                   plan))
+    for algo, rounds, extra in checks:
+        what = algo + (" nested plan" if extra else "") + " (adam_eps 0.001)"
+        _cross_check("nlp", what, setup, rounds, {
+            engine: FLRunConfig(algo=AlgoConfig(algo), fused_adam=True, engine=engine,
+                                **kw, **extra) for engine in ("vmap", "sequential")})
+    return launches["sequential"], launches["vmap"]
+
+
+def phase_compress() -> int:
+    """Compression on the nlp task at full width: FedPart's warm-up FNU
+    round, the embed round and the first block round on the vmap engine with
+    ``fused_adam=True``, for int8, onebit and topk (0.01), each with error
+    feedback.  Per round: loss, seconds and the compression epilogue's
+    device time (CUDA events around ``VmapEngine._transmit``).  Checks: the
+    run's ``comm_total_bytes`` equals the sum of ``encode_leaf(...).nbytes``
+    over each round's transmitted leaves; ``decode_leaf(encode_leaf(u))``
+    equals ``qdq_leaf(u)`` bit for bit on the card for every leaf of the
+    run's update; int8's vmap run within ``CROSS_TOL`` of the sequential
+    one at ``adam_eps=1e-3``.  Returns the counted runs' cohort launches."""
+    from repro_torch.core import compress
+    from repro_torch.core.aggregation import is_local_stat
+    from repro_torch.core.schedule import FedPartSchedule
+    from repro_torch.fl import FLRunConfig, run_federated
+    from repro_torch.fl.batched import VmapEngine
+    from repro_torch.kernels.masked_adam import MaskedAdamCohort
+    from repro_torch.tree import path_str, tree_paths
+
+    setup = _text_setup()
+    adapter, clients, eval_set = setup
+    init = adapter.init(torch.Generator().manual_seed(0))
+    part = adapter.partition(init)
+    rounds = FedPartSchedule(num_groups=part.num_groups, warmup_rounds=1,
+                             rounds_per_layer=1, cycles=1).rounds()[:3]
+    kinds = ("int8", "onebit", "topk")
+    cfgs = {k: FLRunConfig(local_epochs=1, batch_size=64, fused_adam=True,
+                           engine="vmap", compression=k, topk_fraction=0.01,
+                           device="cuda") for k in kinds}
+    expected = sum(_expected_launches(clients, [rounds], c) for c in cfgs.values())
+    MaskedAdamCohort.launches = 0
+    for kind, cfg in cfgs.items():
+        events = []
+
+        def timed(self, *args, _orig=VmapEngine._transmit, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = _orig(self, *args, **kwargs)
+            end.record()
+            events.append((start, end))
+            return out
+
+        VmapEngine._transmit = timed
+        try:
+            res = run_federated(adapter, clients, eval_set, rounds, cfg)
+        finally:
+            del VmapEngine._transmit
+        torch.cuda.synchronize()
+        tx_ms = [a.elapsed_time(b) for a, b in events]
+        for h, t in zip(res.history, tx_ms):
+            log(f"[compress] {kind} round {h['round']} [{h['phase']}:{h['group']:3d}] "
+                f"loss {h['loss']:.6f} acc {h['acc']:.4f} {h['seconds']:.4f} s; "
+                f"epilogue {t:.3f} ms ({100 * t / (1e3 * h['seconds']):.2f}% of the "
+                f"round)")
+        if len(tx_ms) != len(rounds) or not all(math.isfinite(h["loss"])
+                                                 for h in res.history):
+            raise AssertionError(f"compress {kind}: epilogues {len(tx_ms)} or "
+                                 f"non-finite losses {res.history}")
+        ccfg = cfg.compression_config()
+        update = {path_str(p): a - b.to(a.device) for (p, a), (_, b) in
+                  zip(tree_paths(res.params), tree_paths(init))}
+        nbytes = {}
+        for path, u in update.items():
+            enc = compress.encode_leaf(u, ccfg)
+            dec = compress.decode_leaf(enc, ccfg, device="cuda")
+            if not torch.equal(dec, compress.qdq_leaf(u, ccfg)):
+                raise AssertionError(f"compress {kind}: decode(encode) != qdq at {path}")
+            nbytes[path] = (enc.nbytes if not is_local_stat(path)
+                            else compress.leaf_encoded_bytes(u.numel(), None))
+        booked = sum(n for spec in rounds for path, n in nbytes.items()
+                     if spec.is_full or part.group_of(path) == spec.group)
+        log(f"[compress] {kind}: comm {res.comm_total_bytes} B against the dense FNU "
+            f"{res.comm_fnu_bytes} B ({res.comm_total_bytes / res.comm_fnu_bytes:.4f}); "
+            f"encoded bytes of the transmitted leaves {booked} B; decode(encode) == "
+            f"qdq bit for bit on all {len(update)} leaves; epilogue median "
+            f"{statistics.median(tx_ms):.3f} ms per round")
+        if booked != res.comm_total_bytes:
+            raise AssertionError(f"compress {kind}: booked {res.comm_total_bytes} != "
+                                 f"encoded {booked}")
+    launches = MaskedAdamCohort.launches
+    log(f"[compress] masked_adam_cohort launches {launches} (one per bucket and local "
+        f"step: {expected})")
+    if launches != expected:
+        raise AssertionError(f"compress: launches {launches} != {expected}")
+    kw = dict(local_epochs=1, batch_size=64, adam_eps=1e-3, fused_adam=True,
+              compression="int8", device="cuda")
+    _cross_check("compress", "int8 (adam_eps 0.001)", setup, rounds,
+                 {e: FLRunConfig(engine=e, **kw) for e in ("vmap", "sequential")})
+    return launches
+
+
+def _profile_fl_round(cfg, tag: str, setup=None) -> None:
+    """One warm FNU round of ``cfg`` under ``torch.profiler`` on ``setup``
+    (``(adapter, clients, eval_set)``; default ResNet-8 on ``_vision_setup``):
+    wall, device busy share, launches, the top kernels and the masked-Adam
+    kernels."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.schedule import FNUSchedule
     from repro_torch.fl import resnet_task, run_federated
 
-    clients, eval_set = _vision_setup()
-    adapter = resnet_task("resnet8", num_classes=20)
+    if setup is None:
+        setup = (resnet_task("resnet8", num_classes=20), *_vision_setup())
+    adapter, clients, eval_set = setup
     rounds = FNUSchedule(total=1).rounds()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     run_federated(adapter, clients, eval_set, rounds, cfg)
     torch.cuda.synchronize()
+    plain_us = (time.perf_counter() - t0) * 1e6
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run_federated(adapter, clients, eval_set, rounds, cfg)
@@ -1128,9 +1440,11 @@ def _profile_fl_round(cfg, tag: str) -> None:
     if dev_us <= 0:
         log(f"[{tag}] the profiler recorded no device time: not measured")
         return
-    log(f"[{tag}] one FNU round, 8 clients x 7 steps ({cfg.engine} engine): wall "
+    log(f"[{tag}] one FNU round, {len(clients)} clients ({cfg.engine} engine): wall "
         f"{wall_us / 1e3:.3f} ms (under the profiler), device busy {dev_us / 1e3:.3f} ms "
-        f"({100 * dev_us / wall_us:.1f}%), {sum(e.count for e in kernels)} kernel launches")
+        f"({100 * dev_us / wall_us:.1f}%; {100 * dev_us / plain_us:.1f}% of the same "
+        f"round's {plain_us / 1e3:.3f} ms without the profiler, its warm-up), "
+        f"{sum(e.count for e in kernels)} kernel launches")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"[{tag}]   {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x "
             f"{e.key[:100]}")
@@ -1343,8 +1657,16 @@ def main() -> int:
     smi = phase_env()
     phase_build()
     adam, cohort = phase_kernel()
-    adam["launches"], seq_medians = phase_fedpart()
-    cohort["launches"] = phase_fedpart_vmap(seq_medians)
+    phase_kernel_nlp(adam, cohort)
+    fedpart_n, seq_medians = phase_fedpart()
+    fedpart_vmap_n = phase_fedpart_vmap(seq_medians)
+    nlp_seq_n, nlp_vmap_n = phase_nlp()
+    compress_n = phase_compress()
+    adam["launches_by_path"] = {"fedpart": fedpart_n, "nlp": nlp_seq_n}
+    cohort["launches_by_path"] = {"fedpart_vmap": fedpart_vmap_n, "nlp": nlp_vmap_n,
+                                  "compress": compress_n}
+    for k in (adam, cohort):
+        k["launches"] = sum(k["launches_by_path"].values())
     phase_profile()
     flash = phase_flash()
     flash_serve = phase_serve()

@@ -2,8 +2,9 @@
 
 ``ModelConfig`` is the reference's dataclass field for field, so a config
 built on either side describes the same model.  The registry holds the
-architectures the port runs: ``tinyllama-1.1b`` (dense decoder) and
-``zamba2-7b`` (Mamba2 hybrid), full and smoke.  Every other architecture of
+architectures the port runs: ``tinyllama-1.1b`` (dense decoder),
+``zamba2-7b`` (Mamba2 hybrid) and ``nlp-transformer`` (the paper's text
+classifier, ``models/nlp_small.py``), full and smoke.  Every other architecture of
 the reference raises ``NotImplementedError`` naming the ROADMAP item that
 ports it.
 """
@@ -122,7 +123,6 @@ _UNPORTED = {
     "llava-next-34b": "Queue 1 item 15 (VLM frontends)",
     "whisper-small": "Queue 1 item 15 (encoder-decoder)",
     "xlstm-125m": "Queue 1 item 15 (xLSTM)",
-    "nlp-transformer": "Queue 1 item 4 (the nlp task)",
     "resnet8": "Queue 1 item 4 (the ResNet task uses fl.tasks, not a config)",
     "resnet18": "Queue 1 item 4 (the ResNet task uses fl.tasks, not a config)",
 }
@@ -156,6 +156,7 @@ def _ensure_loaded() -> None:
     global _LOADED
     if _LOADED:
         return
-    from repro_torch.configs import tinyllama_1_1b, zamba2_7b  # noqa: F401  (register)
+    from repro_torch.configs import (  # noqa: F401  (register)
+        nlp_transformer, tinyllama_1_1b, zamba2_7b)
 
     _LOADED = True

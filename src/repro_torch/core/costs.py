@@ -2,7 +2,8 @@
 ``repro.core.costs``: ``comm_cost`` and ``comp_cost``).
 
 Communication is exact: bytes of the parameters transmitted per round
-(upstream, per client — the paper's "Comm." metric).  Computation uses the
+(upstream, per client — the paper's "Comm." metric), dense f32 or, with a
+compression config, the encoded wire format.  Computation uses the
 standard fwd/bwd decomposition under two bookkeepings: ``"paper"`` (Eq. 6, a
 partial round training group *i* pays full forward plus ``(i+1)/M`` of a full
 backward) and ``"truncated"`` (the activation-gradient chain over the suffix
@@ -17,6 +18,7 @@ from typing import Sequence
 
 import numpy as np
 
+from repro_torch.core import compress
 from repro_torch.core.partition import Partition, group_param_bytes
 from repro_torch.core.schedule import RoundSpec
 
@@ -38,12 +40,17 @@ def comm_cost(
     rounds: Sequence[RoundSpec],
     compression=None,
 ) -> CommReport:
-    """Upstream bytes per client per round (dense f32 wire format)."""
-    if compression is not None:
-        raise NotImplementedError(
-            "compressed wire sizes need core/compress.py, not yet ported "
-            "(ROADMAP Queue 1 item 10)")
+    """Upstream bytes per client per round.
+
+    With ``compression`` (a ``core.compress.CompressionConfig``) the
+    per-group bytes are the encoded wire sizes (payload + per-block scales
+    + top-k indices, ``compress.group_encoded_bytes``); ``fnu_total_bytes``
+    stays the dense-f32 FNU baseline, so ``ratio_to_fnu`` reports the
+    combined partial-round x compression saving."""
     group_bytes = group_param_bytes(params, partition)
+    fnu_full = int(group_bytes.sum())
+    if compression is not None:
+        group_bytes = compress.group_encoded_bytes(params, partition, compression)
     full = int(group_bytes.sum())
     per_round = np.array(
         [full if r.is_full else int(group_bytes[r.group]) for r in rounds],
@@ -52,7 +59,7 @@ def comm_cost(
     return CommReport(
         per_round_bytes=per_round,
         total_bytes=int(per_round.sum()),
-        fnu_total_bytes=full * len(rounds),
+        fnu_total_bytes=fnu_full * len(rounds),
     )
 
 

@@ -15,12 +15,21 @@ oracle and the vmap engine.
   bucket.  The round ends in one stacked aggregation
   (``core.aggregation.*_stacked``).
 
+Transmission compression (``core.compress``): an engine built with
+``compression=`` (a ``CompressionConfig``; ``None`` = off, the uncompressed
+paths untouched) replaces each client's transmitted leaves by
+``global + Q(update + residual)`` right before aggregation — the sequential
+engine per client, the vmap engine once for the whole cohort's stacked
+trees.  Error-feedback residuals are kept per real client id (``run_round``
+then needs ``client_ids=``) in the engine's ``ClientStateStore`` under
+``"ef"`` (``run_federated`` passes the run's).  MOON keeps the uncompressed
+local models.
+
 The reference's ``jit`` buffer donation has no counterpart: the port
 updates its packed buffers in place and never writes the global params, so
 there is nothing to donate.  The shard_map engine (ROADMAP Queue 1 item
 13) and the async runtime's cohort entry points (item 12) are not ported
-and raise; transmission compression (item 10) is refused by
-``FLRunConfig``.
+and raise.
 """
 
 from __future__ import annotations
@@ -31,12 +40,13 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch.core import aggregation, masking
+from repro_torch.core import aggregation, compress, masking
 from repro_torch.core.partition import Partition
 from repro_torch.core.schedule import RoundSpec, round_base_mask
 from repro_torch.data.pipeline import ClientDataset, bucket_plans
 from repro_torch.fl.algorithms import AlgoConfig
 from repro_torch.fl.client import LocalTrainer
+from repro_torch.fl.population import ClientStateStore
 from repro_torch.optim.partial import guard_fused_config
 from repro_torch.tree import PyTree, tree_leaves, tree_map
 
@@ -60,6 +70,60 @@ def resolve_plan(plan, spec: RoundSpec, num_groups: int):
     return p
 
 
+class _CompressionState:
+    """Per-client error-feedback residuals and the compression epilogue
+    shared by the engines; inert when ``self.compression is None``.
+    Residuals are keyed by the real client id in ``self.state_store``
+    (kind ``"ef"``), so error feedback telescopes across rounds whatever
+    the cohort."""
+
+    def _require_client_ids(self, client_ids, num: int) -> list[int] | None:
+        if self.compression is None:
+            return None
+        if client_ids is None:
+            raise ValueError(
+                "compression needs client_ids= on run_round: error-feedback "
+                "residuals persist per real client across rounds")
+        ids = [int(c) for c in client_ids]
+        if len(ids) != num:
+            raise ValueError(f"{len(ids)} client_ids for {num} client datasets")
+        return ids
+
+    def _residual_for(self, cid: int, params: PyTree) -> PyTree:
+        res = self.state_store.get("ef", cid)
+        return res if res is not None else compress.init_residual(params)
+
+    def _transmit(self, params: PyTree, local: PyTree, ids: Sequence[int], *,
+                  groups=None, plan: np.ndarray | None = None,
+                  stacked: bool = False) -> PyTree:
+        """The compression epilogue: the tree aggregation consumes in place
+        of ``local`` (one client's, or with ``stacked`` the cohort's in
+        ``ids`` order), with every client's residual read and written back.
+        ``groups`` (``None`` = all) selects the transmitted groups
+        structurally; ``plan`` (stacked only) gives each client's
+        group bits."""
+        if stacked:
+            res = masking.stack_trees([self._residual_for(c, params) for c in ids])
+        else:
+            res = self._residual_for(ids[0], params)
+        if plan is None:
+            tx, new_res = compress.transmit_tree(
+                params, local, res, self.compression, partition=self.partition,
+                groups=groups, stacked=stacked)
+        else:
+            tx, new_res = compress.transmit_tree_plan(
+                params, local, res, plan, self.compression,
+                partition=self.partition, stacked=stacked)
+        if stacked:
+            # a copy each, so no client's residual holds the cohort's buffer
+            for i, c in enumerate(ids):
+                self.state_store.put("ef", c, tree_map(lambda x, i=i: x[i].clone(),
+                                                       new_res))
+        else:
+            self.state_store.put("ef", ids[0], new_res)
+        return tx
+
+
 def _refuse_async():
     raise NotImplementedError(
         "cohort training without aggregation is the async runtime's backend, "
@@ -67,13 +131,16 @@ def _refuse_async():
 
 
 @dataclasses.dataclass
-class SequentialEngine:
+class SequentialEngine(_CompressionState):
     """Reference oracle: one client at a time, aggregation after the loop."""
 
     trainer: LocalTrainer
     partition: Partition
     algo: AlgoConfig
     fused_adam: bool = False
+    compression: compress.CompressionConfig | None = None
+    state_store: ClientStateStore = dataclasses.field(
+        default_factory=ClientStateStore)       # EF residuals ("ef")
     name: str = "sequential"
 
     def __post_init__(self):
@@ -92,8 +159,10 @@ class SequentialEngine:
         batch_size: int,
         prev_params: Sequence[PyTree | None] | None = None,
         plan=None,
+        client_ids: Sequence[int] | None = None,
     ) -> tuple[PyTree, list[float], list[PyTree] | None]:
         plan = resolve_plan(plan, spec, self.partition.num_groups)
+        ids = self._require_client_ids(client_ids, len(datasets))
         keep_locals = self.algo.name == "moon"
         uploads, losses, new_locals = [], [], ([] if keep_locals else None)
         for i, (ds, seed) in enumerate(zip(datasets, seeds)):
@@ -107,12 +176,18 @@ class SequentialEngine:
             losses.append(loss)
             if keep_locals:
                 new_locals.append(local)     # MOON keeps the TRUE local model
+            send = local
+            if self.compression is not None:
+                send = self._transmit(
+                    params, local, [ids[i]],
+                    groups=(groups_i if plan is not None
+                            else None if spec.is_full else (spec.group,)))
             if plan is not None:
-                uploads.append(masking.select(local, self.partition, groups_i))
+                uploads.append(masking.select(send, self.partition, groups_i))
             elif spec.is_full:
-                uploads.append(local)
+                uploads.append(send)
             else:
-                uploads.append(masking.select(local, self.partition, spec.group))
+                uploads.append(masking.select(send, self.partition, spec.group))
         if plan is not None:
             new_params = aggregation.aggregate_plan(params, uploads, self.partition,
                                                     plan, weights)
@@ -124,7 +199,7 @@ class SequentialEngine:
 
 
 @dataclasses.dataclass
-class _BatchedEngineBase:
+class _BatchedEngineBase(_CompressionState):
     """The pad-and-mask local-round plumbing of the stacked engines: bucket
     the round's clients (``_buckets``), gather each bucket's batches on the
     device, stack MOON's previous local models, and put the per-bucket
@@ -134,6 +209,9 @@ class _BatchedEngineBase:
     partition: Partition
     algo: AlgoConfig
     fused_adam: bool = False
+    compression: compress.CompressionConfig | None = None
+    state_store: ClientStateStore = dataclasses.field(
+        default_factory=ClientStateStore)       # EF residuals ("ef")
 
     def __post_init__(self):
         if self.fused_adam:
@@ -219,9 +297,11 @@ class VmapEngine(_BatchedEngineBase):
         batch_size: int,
         prev_params: Sequence[PyTree | None] | None = None,
         plan=None,
+        client_ids: Sequence[int] | None = None,
     ) -> tuple[PyTree, list[float], list[PyTree] | None]:
         self._guard_round(weights)
         plan = resolve_plan(plan, spec, self.partition.num_groups)
+        ids = self._require_client_ids(client_ids, len(datasets))
         use_prev = self.algo.name == "moon"
         num = len(datasets)
         parts = []
@@ -234,14 +314,19 @@ class VmapEngine(_BatchedEngineBase):
                 prev_params=prev_arg, fused=self.fused_adam)
             parts.append((members, stacked, losses))
         stacked, losses_dev = self._gather_order(parts, num)
+        agg_in = stacked                 # MOON keeps the TRUE locals below
+        if self.compression is not None:
+            agg_in = self._transmit(
+                params, stacked, ids, plan=plan, stacked=True,
+                groups=None if plan is not None or spec.is_full else (spec.group,))
         if plan is not None:
             new_params = aggregation.aggregate_plan_stacked(
-                params, stacked, self.partition, plan, weights)
+                params, agg_in, self.partition, plan, weights)
         elif spec.is_full:
-            new_params = aggregation.aggregate_full_stacked(params, stacked, weights)
+            new_params = aggregation.aggregate_full_stacked(params, agg_in, weights)
         else:
             new_params = aggregation.aggregate_partial_stacked(
-                params, stacked, self.partition, spec.group, weights)
+                params, agg_in, self.partition, spec.group, weights)
         # MOON keeps each TRUE local model: a copy, so no client's entry holds
         # the whole bucket's buffer alive
         new_locals = ([tree_map(torch.clone, t) for t in masking.unstack_tree(stacked, num)]
@@ -250,15 +335,19 @@ class VmapEngine(_BatchedEngineBase):
 
 
 def make_engine(name: str, *, trainer: LocalTrainer, partition: Partition,
-                algo: AlgoConfig, fused_adam: bool = False):
+                algo: AlgoConfig, fused_adam: bool = False,
+                compression: compress.CompressionConfig | None = None,
+                state_store: ClientStateStore | None = None):
     """Build a client-simulation engine by name (``"sequential"`` or
-    ``"vmap"``)."""
+    ``"vmap"``); without ``state_store`` it keeps its residuals in an
+    unbounded store of its own."""
+    kw = dict(trainer=trainer, partition=partition, algo=algo,
+              fused_adam=fused_adam, compression=compression,
+              state_store=ClientStateStore() if state_store is None else state_store)
     if name == "sequential":
-        return SequentialEngine(trainer=trainer, partition=partition,
-                                algo=algo, fused_adam=fused_adam)
+        return SequentialEngine(**kw)
     if name == "vmap":
-        return VmapEngine(trainer=trainer, partition=partition, algo=algo,
-                          fused_adam=fused_adam)
+        return VmapEngine(**kw)
     if name == "shard_map":
         raise NotImplementedError(
             "engine='shard_map' is not ported yet (ROADMAP Queue 1 item 13); "

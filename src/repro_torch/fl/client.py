@@ -244,8 +244,11 @@ class LocalTrainer:
 
         def f(params, x, y, pv):
             """One client's (loss, BN stats): ``torch.func.grad_and_value(
-            has_aux=True)`` of it returns ``(grad, (loss, stats))``."""
-            return self._total_loss(params, x, y, global_params, pv)
+            has_aux=True)`` of it returns ``(grad, (loss, stats))``; a task
+            without BN gives ``{}`` (``torch.func``'s aux holds only
+            tensors)."""
+            loss, stats = self._total_loss(params, x, y, global_params, pv)
+            return loss, ({} if stats is None else stats)
 
         losses = []
         if fused:
@@ -319,7 +322,7 @@ class LocalTrainer:
             else:
                 g, (loss, stats) = grad_fn(params, x, y, prev)
                 new_params, new_opt = adam_update(g, opt, params, self.adam)
-            if stats is not None:
+            if stats:
                 new_params = masking.tree_update(new_params, stats)
 
             def pick(n, o, bit=None):

@@ -10,6 +10,14 @@ set, and book communication / computation costs.  The host-side draws
 seeds) are the reference's, in the same order, so a run given the
 reference's initial parameters replays the reference's batches exactly.
 
+``FLRunConfig(compression=...)`` compresses the transmitted subtree at the
+client-to-server boundary (int8 / 1-bit / top-k with per-client error
+feedback, ``core.compress``), and the communication book then prices the
+encoded wire format; ``"none"`` (the default) leaves every path as it was.
+Per-client state that outlives a round (MOON's previous local models, the
+error-feedback residuals) lives in one ``ClientStateStore``, bounded and
+spilled to disk with ``state_store_entries`` / ``state_store_spill``.
+
 Everything runs on ``FLRunConfig.device`` — ``"cuda"`` unless the caller
 asks for ``"cpu"`` — and a CUDA device without a card raises.  Options that
 need a module not yet ported raise ``NotImplementedError`` naming the
@@ -25,6 +33,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import compress
 from repro_torch.core.costs import comm_cost, comp_cost
 from repro_torch.core.partition import Partition, group_param_counts
 from repro_torch.core.schedule import PlanAssigner, RoundSpec
@@ -57,11 +66,15 @@ class FLRunConfig:
     eval_batch: int = 256
     engine: str = "sequential"
     fused_adam: bool = False        # masked-Adam CUDA kernel local steps
-    compression: str = "none"
+    # -- transmitted-subtree compression (core.compress)
+    compression: str = "none"       # "none" | "int8" | "onebit" | "topk"
+    topk_fraction: float = 0.01     # retained fraction per leaf (topk only)
+    error_feedback: bool = True     # per-client EF residuals (compressed kinds)
+    compression_block_rows: int = 0  # scale granularity: 0 = per leaf, B = B*128-elem blocks
     plan: str = "homogeneous"       # "homogeneous" | "nested" | "random"
     capacity_tiers: tuple[float, ...] = ()
-    state_store_entries: int = 0    # 0 = unbounded (the only ported form)
-    state_store_spill: str = ""
+    state_store_entries: int = 0    # LRU cap on MOON prevs + EF residuals (0 = unbounded)
+    state_store_spill: str = ""     # spill dir for evicted entries ("" = drop on evict)
     runtime: str = "sync"
     device: str = "cuda"            # "cuda" | "cuda:N" | "cpu"; no fallback
 
@@ -78,11 +91,14 @@ class FLRunConfig:
         if self.runtime not in RUNTIMES:
             raise ValueError(
                 f"unknown runtime {self.runtime!r}; expected one of {RUNTIMES}")
-        if self.compression != "none":
-            raise NotImplementedError(
-                f"compression={self.compression!r} needs core/compress.py, "
-                "not ported yet (ROADMAP Queue 1 item 10)")
+        self.compression_config()       # validates the compression fields
         resolve_device(self.device)
+
+    def compression_config(self) -> compress.CompressionConfig | None:
+        return compress.make_config(
+            self.compression, topk_fraction=self.topk_fraction,
+            error_feedback=self.error_feedback,
+            block_rows=self.compression_block_rows)
 
     def make_state_store(self) -> ClientStateStore:
         return ClientStateStore(max_entries=self.state_store_entries,
@@ -136,9 +152,11 @@ def run_federated(
     trainer = LocalTrainer(adapter=adapter, partition=partition,
                            algo=run_cfg.algo,
                            adam=AdamConfig(lr=run_cfg.lr, eps=run_cfg.adam_eps))
+    ccfg = run_cfg.compression_config()
     state_store = run_cfg.make_state_store()
     engine = make_engine(run_cfg.engine, trainer=trainer, partition=partition,
-                         algo=run_cfg.algo, fused_adam=run_cfg.fused_adam)
+                         algo=run_cfg.algo, fused_adam=run_cfg.fused_adam,
+                         compression=ccfg, state_store=state_store)
     assigner = PlanAssigner(
         num_groups=partition.num_groups, kind=run_cfg.plan,
         capacity_tiers=tuple(run_cfg.capacity_tiers), seed=run_cfg.seed)
@@ -170,7 +188,8 @@ def run_federated(
             params, spec, datasets, seeds=seeds, weights=weights,
             epochs=run_cfg.local_epochs, batch_size=run_cfg.batch_size,
             prev_params=prevs,
-            plan=assigner.assign(spec, [int(ci) for ci in picked]))
+            plan=assigner.assign(spec, [int(ci) for ci in picked]),
+            client_ids=[int(ci) for ci in picked])
         if new_locals is not None:
             for ci, local in zip(picked, new_locals):
                 state_store.put("moon", int(ci), local)
@@ -187,7 +206,7 @@ def run_federated(
 
     # Cost bookkeeping (per client, per the paper's Comm./Comp. metrics).
     group_weights = group_param_counts(params, partition).astype(np.float64)
-    comm = comm_cost(params, partition, rounds)
+    comm = comm_cost(params, partition, rounds, compression=ccfg)
     comp = comp_cost(partition, rounds, group_fwd_flops=group_weights)
     return FLResult(
         history=history,

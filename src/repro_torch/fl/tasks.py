@@ -1,5 +1,6 @@
 """Task adapters: bind a model family to the interface the FL engine
-consumes (port of ``repro.fl.tasks``, the ResNet vision task).
+consumes (port of ``repro.fl.tasks``: the ResNet vision task and the nlp
+transformer text classifier, the paper's two tasks).
 
     adapter.init(gen)                              -> params (CPU tensors)
     adapter.loss_and_stats(params, inputs, labels) -> (task loss, BN stats or None)
@@ -9,8 +10,8 @@ consumes (port of ``repro.fl.tasks``, the ResNet vision task).
 
 The reference has separate ``loss`` and ``stats`` functions and lets XLA
 merge their two forward passes; eager PyTorch would run both, so the port
-returns the loss and the BN-stat updates from one forward.  The nlp task
-waits for ``models/nlp_small.py`` (ROADMAP Queue 1 item 4).
+returns the loss and the BN-stat updates from one forward (the nlp model
+has no BN: ``None``).
 """
 
 from __future__ import annotations
@@ -20,8 +21,10 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.configs import ModelConfig, get_config
 from repro_torch.core.partition import Partition, build_partition
-from repro_torch.models import resnet
+from repro_torch.models import nlp_small, resnet
+from repro_torch.models.layers import mlp_flops
 from repro_torch.tree import PyTree
 
 
@@ -85,4 +88,41 @@ def resnet_task(depth: str = "resnet8", num_classes: int = 20) -> TaskAdapter:
         evaluate=evaluate,
         partition=make_partition,
         flops_per_sample=_conv_flops(spec),
+    )
+
+
+def nlp_task(num_classes: int = 4, cfg: ModelConfig | None = None,
+             smoke: bool = False) -> TaskAdapter:
+    """The paper's text task: ``nlp-transformer`` (full, or its smoke size)
+    on ``(B, S)`` integer tokens."""
+    cfg = cfg or get_config("nlp-transformer", smoke=smoke)
+
+    def init(gen):
+        return nlp_small.nlp_init(gen, cfg, num_classes)
+
+    def loss_and_stats(params, tokens, labels):
+        return resnet.cls_loss(nlp_small.nlp_apply(params, cfg, tokens), labels), None
+
+    def features(params, tokens):
+        return nlp_small.nlp_pooled(params, cfg, tokens)
+
+    def evaluate(params, tokens, labels):
+        with torch.no_grad():
+            return resnet.accuracy(nlp_small.nlp_apply(params, cfg, tokens), labels)
+
+    def make_partition(params):
+        return build_partition(params, nlp_small.nlp_group_key)
+
+    flops = cfg.num_layers * (
+        2 * 4 * cfg.d_model * cfg.d_model + mlp_flops(cfg.mlp_kind, cfg.d_model, cfg.d_ff)
+    ) * cfg.max_position_embeddings
+
+    return TaskAdapter(
+        name="nlp-transformer",
+        init=init,
+        loss_and_stats=loss_and_stats,
+        features=features,
+        evaluate=evaluate,
+        partition=make_partition,
+        flops_per_sample=float(flops),
     )

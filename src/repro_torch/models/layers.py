@@ -143,6 +143,12 @@ def mlp_apply(params: PyTree, kind: str, x: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"unknown mlp kind {kind!r}")
 
 
+def mlp_flops(kind: str, d_model: int, d_ff: int) -> int:
+    """Matmul FLOPs per token (multiply-adds x2)."""
+    mats = 3 if kind in ("swiglu", "geglu") else 2
+    return 2 * mats * d_model * d_ff
+
+
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from repro.core import aggregation as jagg
+from repro.core import compress as jcompress
 from repro.core import costs as jcosts
 from repro.core import masking as jmask
 from repro.core import schedule as jsched
@@ -25,6 +26,7 @@ from repro.fl.population import sampling as jsamp
 from repro.fl.tasks import resnet_task
 from repro_torch import bridge
 from repro_torch.core import aggregation as tagg
+from repro_torch.core import compress as tcompress
 from repro_torch.core import costs as tcosts
 from repro_torch.core import masking as tmask
 from repro_torch.core import schedule as tsched
@@ -207,15 +209,37 @@ def test_cost_books_identical(resnet8):
             tc = tcosts.comp_cost(tp, rounds, group_fwd_flops=gw, bookkeeping=book)
             assert np.array_equal(jc.per_round_flops, tc.per_round_flops)
             assert (jc.total_flops, jc.fnu_total_flops) == (tc.total_flops, tc.fnu_total_flops)
-    with pytest.raises(NotImplementedError):
-        tcosts.comm_cost(tparams, tp, sched.rounds(), compression=object())
+    # compression=... prices the encoded wire format (payload, scales, indices)
+    for kind in ("int8", "onebit", "topk"):
+        jcfg = jcompress.make_config(kind, block_rows=8)
+        tcfg = tcompress.make_config(kind, block_rows=8)
+        ja = jcosts.comm_cost(params, jp, sched.rounds(), compression=jcfg)
+        tb = tcosts.comm_cost(tparams, tp, sched.rounds(), compression=tcfg)
+        assert np.array_equal(ja.per_round_bytes, tb.per_round_bytes)
+        assert (ja.total_bytes, ja.fnu_total_bytes) == (tb.total_bytes, tb.fnu_total_bytes)
+        assert tb.total_bytes < tcosts.comm_cost(tparams, tp, sched.rounds()).total_bytes
 
 
-def test_state_store_unbounded_only():
+def test_state_store_unbounded_only(tmp_path):
+    """Unbounded by default (``max_entries=0``); bounded, an evicted entry
+    is spilled to ``spill_dir`` and reloads value-exact, or is dropped
+    without one."""
     store = tstore.ClientStateStore()
     assert store.get("moon", 3) is None
     store.put("moon", 3, {"w": torch.ones(2)})
     assert ("moon", 3) in store and len(store) == 1
-    for kw in (dict(max_entries=4), dict(spill_dir="/nonexistent")):
-        with pytest.raises(NotImplementedError):
-            tstore.ClientStateStore(**kw)
+    for c in range(5):
+        store.put("ef", c, {"w": torch.full((2,), float(c))})
+    assert len(store) == 6 and store.stats()["evictions"] == 0
+    spill = tstore.ClientStateStore(max_entries=2, spill_dir=str(tmp_path / "spill"))
+    drop = tstore.ClientStateStore(max_entries=2)
+    big = torch.arange(12.0).reshape(3, 4)
+    for s in (spill, drop):
+        for c in range(3):
+            s.put("moon", c, {"w": big[c]})        # views of one buffer
+    assert len(spill) == len(drop) == 2 and ("moon", 0) in spill and ("moon", 0) not in drop
+    assert drop.get("moon", 0) is None
+    got = spill.get("moon", 0)
+    assert torch.equal(got["w"], big[0]) and got["w"].untyped_storage().nbytes() == 16
+    assert spill.stats() == {"in_memory": 2, "on_disk": 2, "evictions": 2, "spills": 2,
+                             "loads": 1, "max_entries": 2}
