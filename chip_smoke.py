@@ -65,6 +65,26 @@ Phases, in order; any failure raises and the script exits non-zero:
               transmitted leaves; decode(encode) equals the
               quantize-dequantize values bit for bit on the card; int8's
               vmap run within 1e-4 of the sequential one.
+   async    — the event-driven async runtime: ResNet-8 at the paper's width
+              on the vmap engine, ``fused_adam=True``, over a streamed
+              population of a million clients (200-500 samples each,
+              Dirichlet 0.5 labels), 12 FedPart versions of FedBuff (K 4,
+              staleness exponent 0.5), cohorts of 8 drawn by availability
+              under a diurnal trace with speed spread, jitter and dropout,
+              two cohorts in flight (one slot on one card: the second
+              queues), the adaptive controller.  Per merge host seconds,
+              loss and accuracy; the timeline's counts, virtual time,
+              occupancy and control decisions; the shard cache; host
+              seconds split into dispatch / launch / resolve / merge /
+              eval.  Checks:
+              cohort launches equal the bucket-steps of every launched
+              cohort, recomputed from the timeline's dispatch events; the
+              degenerate configuration (8 clients, full participation,
+              perfect fleet, K 0, exponent 0) within 1e-4 of the sync run
+              with equal books; an int8 FedBuff run on the nlp transformer
+              at full width whose delivered updates booked the encoded
+              bytes of their groups' leaves.  A profiled 2-merge run gives
+              the device busy share.
 5. profile  — one FNU round under ``torch.profiler``: device time by kernel.
 6. flash    — ``flash_attention`` against its plain PyTorch version on the
               card: the reference's seven cases, four ragged ones and three
@@ -111,7 +131,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 The line before the last carries ``nvidia-smi``'s name and power limit, the
 one before it the ``kernels`` JSON (the masked-Adam entries count their
 launches by path: ``fedpart`` and ``nlp`` for the one-client launches,
-``fedpart_vmap``, ``nlp`` and ``compress`` for the cohort launches); the
+``fedpart_vmap``, ``nlp``, ``compress`` and ``async`` for the cohort
+launches); the
 last line is the ``ok`` JSON.
 """
 
@@ -1411,6 +1432,224 @@ def phase_compress() -> int:
     return launches
 
 
+ASYNC_POPULATION = 1_000_000   # the async phase's streamed fleet
+
+
+def _async_expected_launches(timeline, population, rounds, cfg) -> int:
+    """Masked-Adam launches the async run behind ``timeline`` made: for
+    every launched cohort (a dispatch event with a slot; a cohort booked but
+    still queued when the run ended never trained), one per bucket and local
+    step of its clients, dropped members included, each with its version's
+    per-(round, client) seeds."""
+    from repro_torch.data.pipeline import batch_plan, bucket_plans
+    from repro_torch.fl.population import client_round_seed
+    total = 0
+    for e in timeline.of_kind("dispatch"):
+        if "submesh" not in e:
+            continue
+        index = rounds[min(e["version"], len(rounds) - 1)].index
+        datasets = [population.dataset(c) for c in e["clients"]]
+        seeds = [client_round_seed(cfg.seed, index, c) for c in e["clients"]]
+        if cfg.engine == "sequential":
+            total += sum(len(batch_plan(len(d), cfg.batch_size, cfg.local_epochs, s))
+                         for d, s in zip(datasets, seeds))
+        else:
+            total += sum(plans.shape[1] for _, plans, _ in bucket_plans(
+                datasets, cfg.batch_size, cfg.local_epochs, seeds))
+    return total
+
+
+def _log_async_run(tag: str, res, population=None) -> None:
+    """Per merge: host seconds, loss, accuracy; the timeline's counts by
+    kind, virtual time and occupancy; the host-seconds split."""
+    import collections
+    for h in res.history:
+        log(f"[{tag}] merge {h['round']:2d} [{h['phase']}:{h['group']:3d}] t "
+            f"{h['t']:.4f} (virtual) merged {h['merged']} staleness mean "
+            f"{h['staleness_mean']:.2f} max {h['staleness_max']} loss {h['loss']:.6f} "
+            f"acc {h['acc']:.4f} {h['seconds']:.4f} s")
+    tl = res.timeline
+    counts = collections.Counter(e["kind"] for e in tl.events)
+    log(f"[{tag}] timeline {dict(sorted(counts.items()))}; virtual time "
+        f"{tl.total_seconds:.4f} s; delivered {tl.delivered_comm_bytes} B; spent "
+        f"{tl.spent_comp_flops:.0f} flops")
+    for e in tl.of_kind("occupancy"):
+        log(f"[{tag}] occupancy {({k: v for k, v in e.items() if k not in ('t', 'kind')})}")
+    for e in tl.of_kind("control"):
+        log(f"[{tag}] control at v{e['version']}: {e['note']}")
+    hs = res.host_seconds
+    log(f"[{tag}] host seconds: dispatch {hs['dispatch']:.4f} (sampling, shards, "
+        f"booking), launch {hs['launch']:.4f} (run_local_async returning), resolve "
+        f"{hs['resolve']:.4f}, merge {hs['merge']:.4f}, eval {hs['eval']:.4f}; sum of "
+        f"merge windows {sum(h['seconds'] for h in res.history):.4f}")
+    if population is not None:
+        log(f"[{tag}] data cache {population.cache_stats()}")
+
+
+def phase_async() -> int:
+    """The async runtime on the card: ResNet-8 at the paper's width on the
+    vmap engine, ``fused_adam=True``, over a streamed population of a
+    million clients (Dirichlet 0.5 label skew, 200-500 samples each): 12
+    FedPart versions of FedBuff (K 4, staleness exponent 0.5), cohorts of 8
+    drawn by availability (biased, debiased merges) under a diurnal trace
+    with speed spread, jitter and dropout, two cohorts in flight, the
+    adaptive controller.  Checks: cohort launches == one per bucket and
+    local step of every launched cohort (from the timeline's dispatch
+    events); the degenerate configuration within ``CROSS_TOL`` of the sync
+    run with equal books; an int8 FedBuff run on the nlp transformer at full
+    width whose delivered updates booked exactly the encoded bytes of their
+    groups' leaves.  One profiled async run gives the device busy share.
+    Returns the main run's cohort launches."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import compress
+    from repro_torch.core.aggregation import is_local_stat
+    from repro_torch.core.schedule import FedPartSchedule
+    from repro_torch.data import VisionDatasetSpec
+    from repro_torch.fl import (AlgoConfig, AvailabilityConfig, FLRunConfig,
+                                SyntheticPopulation, as_population, resnet_task,
+                                run_federated)
+    from repro_torch.kernels.masked_adam import MaskedAdamCohort
+    from repro_torch.tree import path_str, tree_leaves, tree_paths
+
+    t_phase = time.perf_counter()
+    adapter = resnet_task("resnet8", num_classes=20)
+    _, eval_set = _vision_setup(clients=1, per_client=64)
+    population = SyntheticPopulation(VisionDatasetSpec(), population=ASYNC_POPULATION,
+                                      samples_per_client=(200, 500), alpha=0.5)
+    rounds = FedPartSchedule(num_groups=10, warmup_rounds=2, rounds_per_layer=1,
+                             cycles=1).rounds()
+    cfg = FLRunConfig(
+        local_epochs=1, batch_size=64, algo=AlgoConfig("fedavg"), fused_adam=True,
+        engine="vmap", device="cuda", runtime="async", cohort_size=8,
+        async_policy="fedbuff", buffer_k=4, staleness_exponent=0.5,
+        availability=AvailabilityConfig(speed_spread=3.0, latency_jitter=0.2,
+                                        dropout_prob=0.1, trace="diurnal",
+                                        duty_cycle=(0.3, 0.9)),
+        participation_sampling="biased", max_inflight_cohorts=2,
+        controller="adaptive")
+    log(f"[async] ResNet-8 x {len(rounds)} FedPart versions, population "
+        f"{population.num_clients}, cohorts of {cfg.cohort_size}, FedBuff K "
+        f"{cfg.buffer_k}, exponent {cfg.staleness_exponent}, {cfg.availability}, "
+        f"biased cohorts, {cfg.max_inflight_cohorts} in flight, adaptive control")
+    # warm-up: one short run (cuDNN / vmap first-call costs), not counted
+    run_federated(adapter, population, eval_set, rounds[:2], cfg)
+    torch.cuda.synchronize()
+    MaskedAdamCohort.launches = 0
+    t0 = time.perf_counter()
+    res = run_federated(adapter, population, eval_set, rounds, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = MaskedAdamCohort.launches
+    _log_async_run("async", res, population)
+    expected = _async_expected_launches(res.timeline, population, rounds, cfg)
+    dispatched = res.timeline.of_kind("dispatch")
+    log(f"[async] wall {wall:.4f} s for {len(res.history)} merges; "
+        f"{len(dispatched)} cohorts dispatched, "
+        f"{sum('submesh' in e for e in dispatched)} launched, "
+        f"{len(res.timeline.of_kind('drop'))} members dropped before the last merge "
+        f"(dispatched members {sum(len(e['clients']) for e in dispatched)}); "
+        f"masked_adam_cohort "
+        f"launches {launches} (one per bucket and local step of every launched "
+        f"cohort, dropped members included: {expected})")
+    if launches != expected:
+        raise AssertionError(f"async: cohort launches {launches} != {expected}")
+    if len(res.history) != len(rounds) or not all(
+            math.isfinite(h["loss"]) and math.isfinite(h["acc"]) for h in res.history):
+        raise AssertionError(f"async: bad history {res.history}")
+    if not all(bool(torch.isfinite(x).all()) for x in tree_leaves(res.params)):
+        raise AssertionError("async: non-finite params")
+    if not res.timeline.of_kind("control"):
+        raise AssertionError("async: the adaptive controller recorded no decision")
+
+    # device busy share of a profiled async run (warm, 2 merges)
+    short = rounds[:2]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_federated(adapter, population, eval_set, short, cfg)
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev = sum(getattr(e, "self_device_time_total", 0.0) for e in kernels) / 1e6
+    if dev <= 0:
+        log("[async] profiled run: the profiler recorded no device time: not measured")
+    else:
+        log(f"[async] profiled async run of {len(short)} merges: wall {pwall:.4f} s "
+            f"(under the profiler), device busy {dev:.4f} s ({100 * dev / pwall:.1f}%)")
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+            log(f"[async]   {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x "
+                f"{e.key[:90]}")
+
+    # the degenerate configuration equals the sync run on the card
+    small = SyntheticPopulation(VisionDatasetSpec(), population=8,
+                                samples_per_client=(200, 500), alpha=0.5).materialize()
+    kw = dict(local_epochs=1, batch_size=64, adam_eps=1e-3, fused_adam=True,
+              engine="vmap", device="cuda")
+    deg = {rt: run_federated(adapter, small, eval_set, rounds[:3],
+                             FLRunConfig(runtime=rt, **kw)) for rt in ("sync", "async")}
+    diff = max(float((a - b).abs().max()) for a, b in
+               zip(tree_leaves(deg["sync"].params), tree_leaves(deg["async"].params)))
+    ldiff = max(abs(a["loss"] - b["loss"]) for a, b in
+                zip(deg["sync"].history, deg["async"].history))
+    books = [(getattr(deg["sync"], k), getattr(deg["async"], k)) for k in
+             ("comm_total_bytes", "comm_fnu_bytes", "comp_total_flops", "comp_fnu_flops")]
+    log(f"[async] degenerate (8 clients, full participation, perfect fleet, K 0, "
+        f"exponent 0) vs sync: max param diff {diff:.3g}, max loss diff {ldiff:.3g} "
+        f"(tolerance {CROSS_TOL:g}); books {books}")
+    if not (diff <= CROSS_TOL and ldiff <= CROSS_TOL and all(a == b for a, b in books)):
+        raise AssertionError("async: the degenerate run disagrees with the sync run")
+
+    # int8 FedBuff on the nlp transformer at full width: booked == encoded
+    setup = _text_setup()
+    nadapter, nclients, neval = setup
+    init = nadapter.init(torch.Generator().manual_seed(0))
+    part = nadapter.partition(init)
+    nrounds = FedPartSchedule(num_groups=part.num_groups, warmup_rounds=1,
+                              rounds_per_layer=1, cycles=1).rounds()[:3]
+    ncfg = FLRunConfig(local_epochs=1, batch_size=64, fused_adam=True, engine="vmap",
+                       compression="int8", device="cuda", runtime="async",
+                       cohort_size=4, buffer_k=2, staleness_exponent=0.5,
+                       availability=AvailabilityConfig(speed_spread=2.0, seed=1))
+    MaskedAdamCohort.launches = 0
+    nres = run_federated(nadapter, nclients, neval, nrounds, ncfg)
+    torch.cuda.synchronize()
+    nlaunch = MaskedAdamCohort.launches
+    _log_async_run("async_nlp", nres)
+    nexp = _async_expected_launches(nres.timeline, as_population(nclients), nrounds,
+                                    ncfg)
+    ccfg = ncfg.compression_config()
+    nbytes = {}
+    for (p, a), (_, b) in zip(tree_paths(nres.params), tree_paths(init)):
+        path, u = path_str(p), a - b.to(a.device)
+        nbytes[path] = (compress.encode_leaf(u, ccfg).nbytes if not is_local_stat(path)
+                        else compress.leaf_encoded_bytes(u.numel(), None))
+
+    def encoded(group: int) -> int:
+        return sum(n for path, n in nbytes.items()
+                   if group < 0 or part.group_of(path) == group)
+
+    group_of_client, delivered, want = {}, 0, 0
+    for e in nres.timeline.events:
+        if e["kind"] == "dispatch":
+            group_of_client.update({c: e["group"] for c in e["clients"]})
+        elif e["kind"] == "complete":
+            delivered += e["comm_bytes"]
+            want += encoded(group_of_client[e["client"]])
+    per_version = sum(encoded(-1 if s.is_full else s.group) for s in nrounds)
+    log(f"[async_nlp] int8: delivered updates booked {delivered} B, encoded bytes of "
+        f"their groups' leaves {want} B; comm_total_bytes {nres.comm_total_bytes} B, "
+        f"encoded bytes per version summed {per_version} B; masked_adam_cohort "
+        f"launches {nlaunch} (expected {nexp})")
+    if delivered != want or nres.comm_total_bytes != per_version:
+        raise AssertionError("async_nlp: booked bytes != encoded bytes")
+    if nlaunch != nexp:
+        raise AssertionError(f"async_nlp: launches {nlaunch} != {nexp}")
+    if not all(math.isfinite(h["loss"]) for h in nres.history):
+        raise AssertionError(f"async_nlp: non-finite loss {nres.history}")
+    log(f"[async] phase {time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
 def _profile_fl_round(cfg, tag: str, setup=None) -> None:
     """One warm FNU round of ``cfg`` under ``torch.profiler`` on ``setup``
     (``(adapter, clients, eval_set)``; default ResNet-8 on ``_vision_setup``):
@@ -1662,9 +1901,10 @@ def main() -> int:
     fedpart_vmap_n = phase_fedpart_vmap(seq_medians)
     nlp_seq_n, nlp_vmap_n = phase_nlp()
     compress_n = phase_compress()
+    async_n = phase_async()
     adam["launches_by_path"] = {"fedpart": fedpart_n, "nlp": nlp_seq_n}
     cohort["launches_by_path"] = {"fedpart_vmap": fedpart_vmap_n, "nlp": nlp_vmap_n,
-                                  "compress": compress_n}
+                                  "compress": compress_n, "async": async_n}
     for k in (adam, cohort):
         k["launches"] = sum(k["launches_by_path"].values())
     phase_profile()

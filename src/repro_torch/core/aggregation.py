@@ -45,6 +45,24 @@ def _normalized_weights(num: int, weights: Sequence[float] | None) -> list[float
     return [float(x) / total for x in weights]
 
 
+def debias_weights(weights: np.ndarray, inclusion_probs: np.ndarray) -> np.ndarray:
+    """Horvitz–Thompson debiasing: each client's aggregation weight divided
+    by its inclusion probability (in float64, cast back to the weights'
+    dtype), so availability-biased cohorts leave the expected objective
+    unbiased.  With every probability exactly 1.0 the input array itself
+    comes back."""
+    probs = np.asarray(inclusion_probs, dtype=np.float64)
+    if probs.shape != np.shape(weights):
+        raise ValueError(f"{probs.shape} inclusion probs for "
+                         f"{np.shape(weights)} weights")
+    if ((probs <= 0.0) | (probs > 1.0)).any():
+        raise ValueError("inclusion probabilities must lie in (0, 1]")
+    if (probs == 1.0).all():
+        return weights
+    return (np.asarray(weights, dtype=np.float64) / probs).astype(
+        np.asarray(weights).dtype)
+
+
 def tree_mean(trees: Sequence[PyTree], weights: Sequence[float] | None = None) -> PyTree:
     """Weighted elementwise mean of same-structure trees, accumulated in f32
     in client order (the reference's order, so results agree to rounding)."""

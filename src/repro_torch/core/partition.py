@@ -113,3 +113,7 @@ def group_param_bytes(params: PyTree, partition: Partition) -> np.ndarray:
     for path, leaf in tree_paths(params):
         out[partition.group_of(path)] += leaf.numel() * leaf.element_size()
     return out
+
+
+def total_param_bytes(params: PyTree) -> int:
+    return int(sum(leaf.numel() * leaf.element_size() for _, leaf in tree_paths(params)))

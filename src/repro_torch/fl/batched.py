@@ -25,15 +25,28 @@ then needs ``client_ids=``) in the engine's ``ClientStateStore`` under
 ``"ef"`` (``run_federated`` passes the run's).  MOON keeps the uncompressed
 local models.
 
+Beside ``run_round`` (train and aggregate), both engines expose the async
+runtime's backend (``fl.runtime``): ``run_local_async`` trains one cohort
+against the global params it is given and returns its stacked local models
+and its ``(K,)`` losses without aggregating and without syncing the host
+(the vmap engine leaves the losses on the device; the runtime reads them
+when the cohort resolves); ``run_local`` is its blocking form.
+``cohort_pool`` gives the vmap engine's slots for concurrent cohorts
+(``launch.mesh.SubmeshPool``, one per visible device), and
+``run_local_async(submesh=...)`` places a cohort on its slot's device.
+``VmapEngine.run_round`` is ``run_local_async`` plus the aggregation.  No
+CUDA streams are used: a cohort's launches go to the current stream of its
+slot's device, where ``MaskedAdamCohort`` binds its kernel.
+
 The reference's ``jit`` buffer donation has no counterpart: the port
 updates its packed buffers in place and never writes the global params, so
 there is nothing to donate.  The shard_map engine (ROADMAP Queue 1 item
-13) and the async runtime's cohort entry points (item 12) are not ported
-and raise.
+13) is not ported and raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Sequence
 
@@ -47,6 +60,7 @@ from repro_torch.data.pipeline import ClientDataset, bucket_plans
 from repro_torch.fl.algorithms import AlgoConfig
 from repro_torch.fl.client import LocalTrainer
 from repro_torch.fl.population import ClientStateStore
+from repro_torch.launch.mesh import SubmeshPool, visible_devices
 from repro_torch.optim.partial import guard_fused_config
 from repro_torch.tree import PyTree, tree_leaves, tree_map
 
@@ -124,12 +138,6 @@ class _CompressionState:
         return tx
 
 
-def _refuse_async():
-    raise NotImplementedError(
-        "cohort training without aggregation is the async runtime's backend, "
-        "not ported yet (ROADMAP Queue 1 item 12)")
-
-
 @dataclasses.dataclass
 class SequentialEngine(_CompressionState):
     """Reference oracle: one client at a time, aggregation after the loop."""
@@ -158,9 +166,13 @@ class SequentialEngine(_CompressionState):
         epochs: int,
         batch_size: int,
         prev_params: Sequence[PyTree | None] | None = None,
+        tracker=None,
         plan=None,
         client_ids: Sequence[int] | None = None,
     ) -> tuple[PyTree, list[float], list[PyTree] | None]:
+        """Train the round's clients one at a time and aggregate;
+        ``tracker`` (a ``core.telemetry.StepSizeTracker``) records the
+        first client's step sizes."""
         plan = resolve_plan(plan, spec, self.partition.num_groups)
         ids = self._require_client_ids(client_ids, len(datasets))
         keep_locals = self.algo.name == "moon"
@@ -172,6 +184,7 @@ class SequentialEngine(_CompressionState):
                 params, spec.group, ds, epochs=epochs, batch_size=batch_size,
                 seed=seed,
                 prev_params=prev_params[i] if prev_params is not None else None,
+                step_tracker=tracker if i == 0 else None,
                 groups=groups_i, fused=self.fused_adam)
             losses.append(loss)
             if keep_locals:
@@ -197,6 +210,62 @@ class SequentialEngine(_CompressionState):
             new_params = aggregation.aggregate_partial(params, uploads, weights)
         return new_params, losses, new_locals
 
+    def run_local(
+        self,
+        params: PyTree,
+        spec: RoundSpec,
+        datasets: Sequence[ClientDataset],
+        *,
+        seeds: Sequence[int],
+        epochs: int,
+        batch_size: int,
+        prev_params: Sequence[PyTree | None] | None = None,
+        plan=None,
+    ) -> tuple[PyTree, list[float]]:
+        """Cohort training without aggregation: the one-client loop, the
+        locals stacked along a leading client axis."""
+        plan = resolve_plan(plan, spec, self.partition.num_groups)
+        locals_, losses = [], []
+        for i, (ds, seed) in enumerate(zip(datasets, seeds)):
+            local, loss = self.trainer.run_local_round(
+                params, spec.group, ds, epochs=epochs, batch_size=batch_size,
+                seed=seed,
+                prev_params=prev_params[i] if prev_params is not None else None,
+                groups=(tuple(int(g) for g in np.flatnonzero(plan[i]))
+                        if plan is not None else None),
+                fused=self.fused_adam)
+            locals_.append(local)
+            losses.append(loss)
+        return masking.stack_trees(locals_), losses
+
+    def cohort_pool(self, max_inflight: int, device_type: str = "cuda"):
+        """No slots: the one-client loop trains on the params' device (the
+        runtime's concurrency stays virtual)."""
+        return None
+
+    def run_local_async(
+        self,
+        params: PyTree,
+        spec: RoundSpec,
+        datasets: Sequence[ClientDataset],
+        *,
+        seeds: Sequence[int],
+        epochs: int,
+        batch_size: int,
+        prev_params: Sequence[PyTree | None] | None = None,
+        submesh=None,
+        plan=None,
+    ) -> tuple[PyTree, torch.Tensor]:
+        """``run_local`` under the runtime's cohort contract: the losses as a
+        ``(K,)`` f32 tensor (on the host: each client's loss is already a
+        float here)."""
+        if submesh is not None:
+            raise ValueError("the sequential engine has no submesh binding")
+        stacked, losses = self.run_local(
+            params, spec, datasets, seeds=seeds, epochs=epochs,
+            batch_size=batch_size, prev_params=prev_params, plan=plan)
+        return stacked, torch.tensor(losses, dtype=torch.float32)
+
 
 @dataclasses.dataclass
 class _BatchedEngineBase(_CompressionState):
@@ -217,8 +286,11 @@ class _BatchedEngineBase(_CompressionState):
         if self.fused_adam:
             guard_fused_config(self.trainer.adam)
 
-    @staticmethod
-    def _guard_round(weights: Sequence[float]) -> None:
+    def _guard_round(self, weights: Sequence[float], tracker) -> None:
+        if tracker is not None:
+            raise ValueError(
+                "per-step step-size tracking needs engine='sequential' (the "
+                f"{self.name} engine never materialises per-step params)")
         # the stacked aggregation does not value-check device weights (that
         # would sync); check the host's here, as tree_mean does for the oracle
         if float(sum(weights)) <= 0.0:
@@ -267,14 +339,82 @@ class _BatchedEngineBase(_CompressionState):
                            *[t for _, t, _ in parts])
         return stacked, torch.cat([lo for _, _, lo in parts])[inv]
 
-    def run_local(self, *args, **kwargs):
-        _refuse_async()
+    # -- cohort execution (the async runtime's backend) ----------------------
 
-    def run_local_async(self, *args, **kwargs):
-        _refuse_async()
+    def cohort_pool(self, max_inflight: int, device_type: str = "cuda"):
+        """Width-1 slots for concurrent cohorts, one per visible device of
+        ``device_type`` up to ``max_inflight``; ``None`` for one cohort at a
+        time (cohorts then stay on the params' device)."""
+        if max_inflight <= 1:
+            return None
+        num = min(max_inflight, len(visible_devices(device_type)))
+        return SubmeshPool(num, devices=num, width=1, device_type=device_type)
 
-    def cohort_pool(self, max_inflight: int):
-        _refuse_async()
+    @staticmethod
+    def _place_cohort_args(params: PyTree, prev_params, submesh):
+        """The cohort's global params and MOON previous models on the slot's
+        device (no copy where they already are)."""
+        if submesh is None:
+            return params, prev_params
+        dev = submesh.device
+        params = tree_map(lambda a: a.to(dev), params)
+        if prev_params is not None:
+            prev_params = [None if p is None else tree_map(lambda a: a.to(dev), p)
+                           for p in prev_params]
+        return params, prev_params
+
+    def run_local_async(
+        self,
+        params: PyTree,
+        spec: RoundSpec,
+        datasets: Sequence[ClientDataset],
+        *,
+        seeds: Sequence[int],
+        epochs: int,
+        batch_size: int,
+        prev_params: Sequence[PyTree | None] | None = None,
+        submesh=None,
+        plan=None,
+    ) -> tuple[PyTree, torch.Tensor]:
+        """Train one cohort against ``params`` without aggregating: returns
+        ``(stacked locals, (K,) losses)`` in ``datasets`` order, both on the
+        device and nothing read back, so the host may launch further
+        cohorts first.  ``submesh`` (from ``cohort_pool``) runs the cohort
+        on its slot's device."""
+        plan = resolve_plan(plan, spec, self.partition.num_groups)
+        use_prev = self.algo.name == "moon"
+        params, prev_params = self._place_cohort_args(params, prev_params, submesh)
+        dev = tree_leaves(params)[0].device
+        ctx = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+        parts = []
+        with ctx:
+            for members, xs, ys, valid, prev_arg in self._buckets(
+                    params, datasets, batch_size=batch_size, epochs=epochs,
+                    seeds=seeds, prev_params=prev_params, use_prev=use_prev):
+                stacked, losses = self.trainer.run_cohort_round(
+                    params, xs, ys, valid, group=spec.group,
+                    plan_rows=None if plan is None else self._bucket_gmask(plan, members),
+                    prev_params=prev_arg, fused=self.fused_adam)
+                parts.append((members, stacked, losses))
+        return self._gather_order(parts, len(datasets))
+
+    def run_local(
+        self,
+        params: PyTree,
+        spec: RoundSpec,
+        datasets: Sequence[ClientDataset],
+        *,
+        seeds: Sequence[int],
+        epochs: int,
+        batch_size: int,
+        prev_params: Sequence[PyTree | None] | None = None,
+        plan=None,
+    ) -> tuple[PyTree, list[float]]:
+        """Blocking ``run_local_async``: the losses read back as floats."""
+        stacked, losses_dev = self.run_local_async(
+            params, spec, datasets, seeds=seeds, epochs=epochs,
+            batch_size=batch_size, prev_params=prev_params, plan=plan)
+        return stacked, losses_dev.tolist()
 
 
 @dataclasses.dataclass
@@ -296,24 +436,20 @@ class VmapEngine(_BatchedEngineBase):
         epochs: int,
         batch_size: int,
         prev_params: Sequence[PyTree | None] | None = None,
+        tracker=None,
         plan=None,
         client_ids: Sequence[int] | None = None,
     ) -> tuple[PyTree, list[float], list[PyTree] | None]:
-        self._guard_round(weights)
+        """``run_local_async`` plus one stacked aggregation on the device;
+        the losses are read back here, once per round."""
+        self._guard_round(weights, tracker)
         plan = resolve_plan(plan, spec, self.partition.num_groups)
         ids = self._require_client_ids(client_ids, len(datasets))
         use_prev = self.algo.name == "moon"
         num = len(datasets)
-        parts = []
-        for members, xs, ys, valid, prev_arg in self._buckets(
-                params, datasets, batch_size=batch_size, epochs=epochs, seeds=seeds,
-                prev_params=prev_params, use_prev=use_prev):
-            stacked, losses = self.trainer.run_cohort_round(
-                params, xs, ys, valid, group=spec.group,
-                plan_rows=None if plan is None else self._bucket_gmask(plan, members),
-                prev_params=prev_arg, fused=self.fused_adam)
-            parts.append((members, stacked, losses))
-        stacked, losses_dev = self._gather_order(parts, num)
+        stacked, losses_dev = self.run_local_async(
+            params, spec, datasets, seeds=seeds, epochs=epochs,
+            batch_size=batch_size, prev_params=prev_params, plan=plan)
         agg_in = stacked                 # MOON keeps the TRUE locals below
         if self.compression is not None:
             agg_in = self._transmit(

@@ -151,6 +151,7 @@ class LocalTrainer:
         batch_size: int,
         seed: int,
         prev_params: PyTree | None = None,
+        step_tracker=None,
         groups=None,
         fused: bool = False,
     ) -> tuple[PyTree, float]:
@@ -158,7 +159,9 @@ class LocalTrainer:
 
         ``groups`` (a per-client layer plan) overrides ``group`` with a set
         of trainable groups; a set covering every group is the FNU step.
-        ``fused`` routes every step through the masked-Adam kernel."""
+        ``fused`` routes every step through the masked-Adam kernel.
+        ``step_tracker`` (a ``core.telemetry.StepSizeTracker``) records every
+        step's update norm, which syncs the host once per step."""
         prev = prev_params if prev_params is not None else global_params
         sel = group                       # an int (-1: every group) or a set
         if groups is not None:
@@ -182,11 +185,16 @@ class LocalTrainer:
             params = packed.detached()
             for i, idx in enumerate(plan):
                 x, y = inputs[idx], labels[idx]
+                # the step writes the views in place: keep a copy to measure
+                before = (tree_map(torch.clone, params) if step_tracker is not None
+                          else None)
                 loss, stats = fused_masked_step(
                     lambda p: self._total_loss(p, x, y, global_params, prev),
                     packed, adam, i)
                 masking.tree_update_(params, stats)
                 losses.append(loss)
+                if step_tracker is not None:
+                    step_tracker.record(before, params)
         else:
             if sel == -1:
                 opt_state = adam_init(global_params)
@@ -197,10 +205,13 @@ class LocalTrainer:
                 step = partial(self.partial_step, sel)
             params = global_params
             for idx in plan:
+                before = params
                 params, opt_state, loss = step(
                     params, opt_state, inputs[idx], labels[idx], global_params,
                     prev)
                 losses.append(loss)
+                if step_tracker is not None:
+                    step_tracker.record(before, params)
         return params, float(torch.stack(losses).mean()) if losses else 0.0
 
     # -- cohort local round (the vmap engine's) ------------------------------

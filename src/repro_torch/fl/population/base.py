@@ -3,12 +3,13 @@
 
 * ``num_clients``            — the population size N;
 * ``dataset(client_id)``     — that client's shard;
-* ``num_samples(client_id)`` — the shard size.
+* ``num_samples(client_id)`` — the shard size;
+* ``capacity_tier(client_id, num_tiers)`` — the client's capacity tier for
+  per-client layer plans (round-robin by id, never an O(N) table).
 
 ``MaterializedPopulation`` wraps a host-side ``Sequence[ClientDataset]``;
-``as_population`` is the one seam the server loop goes through.  Streaming
-populations (``SyntheticPopulation``) are not ported yet: the server refuses
-them (ROADMAP Queue 1 item 11).
+``as_population`` is the one seam both runtimes go through.  Streaming
+populations build shards on demand (``fl.population.synthetic``).
 """
 
 from __future__ import annotations
@@ -34,6 +35,10 @@ class ClientPopulation(abc.ABC):
     def num_samples(self, client_id: int) -> int:
         return len(self.dataset(client_id))
 
+    def capacity_tier(self, client_id: int, num_tiers: int) -> int:
+        """Round-robin by id, as ``core.schedule.PlanAssigner.tier_of``."""
+        return int(client_id) % max(1, num_tiers)
+
     def _check_id(self, client_id: int) -> int:
         cid = int(client_id)
         if not 0 <= cid < self.num_clients:
@@ -41,6 +46,15 @@ class ClientPopulation(abc.ABC):
                 f"client_id {cid} out of range for population of "
                 f"{self.num_clients}")
         return cid
+
+    def materialize(self) -> list[ClientDataset]:
+        """Every shard, built eagerly (tests and tiny populations only)."""
+        n = self.num_clients
+        if n > 100_000:
+            raise ValueError(
+                f"refusing to materialize {n} clients host-side; sample a "
+                "cohort instead")
+        return [self.dataset(i) for i in range(n)]
 
 
 class MaterializedPopulation(ClientPopulation):

@@ -2,13 +2,16 @@
 (port of ``repro.fl.population.store``).
 
 Per-client state that persists across rounds — MOON's previous local model
-(``"moon"``) and compression error-feedback residuals (``"ef"``) — lives
-here under ``(kind, client_id)``.  ``max_entries=0`` (the default) is
+(``"moon"``), compression error-feedback residuals (``"ef"``) and a
+streamed population's cached dataset shards (``"data"``) — lives here
+under ``(kind, client_id)``.  ``max_entries=0`` (the default) is
 unbounded: a plain map.  With ``max_entries > 0`` the least recently used
 entry is evicted when the store grows past the bound, and then either
 
 * **spilled** — written to ``spill_dir`` with ``torch.save`` and reloaded
-  by the next ``get``, value-exact, on the device it was stored from; or
+  by the next ``get``, value-exact: a tensor leaf on the device it was
+  stored from, a numpy leaf (the shards) as numpy with its dtype, bit for
+  bit; or
 * **dropped** (no ``spill_dir``) — the next ``get`` returns ``None``, which
   consumers treat as first contact (MOON falls back to the global model,
   error feedback restarts from zero).
@@ -24,15 +27,41 @@ import os
 from collections import OrderedDict
 from typing import Hashable
 
+import numpy as np
 import torch
 
-from repro_torch.tree import PyTree, tree_map
+from repro_torch.tree import PyTree, tree_map, tree_paths
 
 
 def _own_storage(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a copy when it is a view into a larger buffer (which
     ``torch.save`` would write whole)."""
     return t if t.untyped_storage().nbytes() == t.nbytes else t.clone()
+
+
+def _to_saved(tree: PyTree) -> dict:
+    """What a spill file holds: the tree with every numpy leaf carried as a
+    CPU tensor over the same bytes, and the paths of those leaves, so the
+    file loads under ``weights_only=True`` and ``_from_saved`` gives the
+    numpy leaves back."""
+    numpy_paths = [list(path) for path, leaf in tree_paths(tree)
+                   if isinstance(leaf, np.ndarray)]
+    tensors = tree_map(lambda x: _own_storage(
+        torch.from_numpy(np.ascontiguousarray(x)) if isinstance(x, np.ndarray) else x),
+        tree)
+    return {"tree": tensors, "numpy": numpy_paths}
+
+
+def _from_saved(saved: dict) -> PyTree:
+    tree = saved["tree"]
+    for path in saved["numpy"]:
+        if not path:
+            return tree.numpy()
+        node = tree
+        for k in path[:-1]:
+            node = node[k]
+        node[path[-1]] = node[path[-1]].numpy()
+    return tree
 
 
 class ClientStateStore:
@@ -73,7 +102,7 @@ class ClientStateStore:
             self._mem.move_to_end(key)
             return self._mem[key]
         if key in self._spilled:
-            tree = torch.load(self._path(key), weights_only=True)
+            tree = _from_saved(torch.load(self._path(key), weights_only=True))
             self.loads += 1
             self._insert(key, tree)
             return tree
@@ -101,7 +130,7 @@ class ClientStateStore:
                 old_key, old_tree = self._mem.popitem(last=False)
                 self.evictions += 1
                 if self.spill_dir is not None:
-                    torch.save(tree_map(_own_storage, old_tree), self._path(old_key))
+                    torch.save(_to_saved(old_tree), self._path(old_key))
                     self._spilled.add(old_key)
                     self.spills += 1
                 else:

@@ -1,2 +1,3 @@
-"""Entry points of the port: the serving driver (``launch.serve``) and the
-step builders it uses (``launch.steps``)."""
+"""Entry points of the port: the serving driver (``launch.serve``), the
+step builders it uses (``launch.steps``), and the async runtime's device
+slots (``launch.mesh``)."""

@@ -7,8 +7,9 @@
   ``load_npz`` reads a ``checkpoint.io.save_pytree`` file without JAX;
 * the port flattens trees in ``jax.tree.flatten``'s (sorted-key) order,
   which the masked-Adam pack layout and every block mask depend on;
-* importing every module of ``repro_torch`` and ``chip_smoke.py`` pulls in
-  neither ``jax`` nor ``repro``.
+* importing every module of ``repro_torch`` (the serving and async-runtime
+  modules named) and ``chip_smoke.py`` pulls in neither ``jax`` nor
+  ``repro``.
 
 Tolerance: exact everywhere — the bridge only copies bytes.
 """
@@ -137,12 +138,16 @@ def test_port_and_chip_smoke_import_no_jax():
                    "repro_torch.kernels.ssd_chunk.kernel",
                    "repro_torch.kernels.ssd_chunk.ops",
                    "repro_torch.launch.steps", "repro_torch.launch.serve"]
-        missing = sorted(set(serving) - set(names))
+        runtime = ["repro_torch.fl.population.synthetic",
+                   "repro_torch.fl.runtime.clients", "repro_torch.fl.runtime.policy",
+                   "repro_torch.fl.runtime.control", "repro_torch.fl.runtime.engine",
+                   "repro_torch.core.telemetry", "repro_torch.launch.mesh"]
+        missing = sorted(set(serving + runtime) - set(names))
         import chip_smoke
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         print(len(names), bad, missing)
-        sys.exit(1 if bad or missing or len(names) < 30 else 0)
+        sys.exit(1 if bad or missing or len(names) < 67 else 0)
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=ROOT,

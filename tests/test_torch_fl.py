@@ -139,12 +139,12 @@ def test_local_round_matches_reference(setup, fused, group):
 
 
 def test_unported_options_raise(setup, tmp_path):
-    """What is not ported yet raises, naming its ROADMAP item: the async
-    runtime (12), the shard_map engine (13), a streamed population (11).
-    Compression and a bounded, spilling state store are ported and run."""
+    """What is not ported yet raises, naming its ROADMAP item: the shard_map
+    engine (13).  The async runtime and a streamed population (items 12 and
+    11) are ported and run; so do compression and a bounded, spilling state
+    store."""
     base = dict(device="cpu", local_epochs=1, batch_size=BATCH)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tfl.FLRunConfig(**base, runtime="async")
+    assert tfl.FLRunConfig(**base, runtime="async").runtime == "async"
     rounds = tsched.FedPartSchedule(num_groups=6, warmup_rounds=1).rounds()[:2]
     init = bridge.from_numpy_tree(setup["init"])
 
@@ -160,12 +160,13 @@ def test_unported_options_raise(setup, tmp_path):
 
     with pytest.raises(NotImplementedError, match="item 13"):
         run(engine="shard_map")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        run(clients=Streamed())
+    streamed, listed = run(clients=Streamed()), run()
+    assert [h["loss"] for h in streamed.history] == [h["loss"] for h in listed.history]
     for kw in (dict(compression="int8"), dict(state_store_entries=2),
                dict(state_store_entries=1, state_store_spill=str(tmp_path)),
                dict(algo=tfl.AlgoConfig(name="moon"), compression="topk",
-                    state_store_entries=1, state_store_spill=str(tmp_path))):
+                    state_store_entries=1, state_store_spill=str(tmp_path)),
+               dict(runtime="async")):
         res = run(**kw)
         assert all(np.isfinite(h["loss"]) for h in res.history)
     # a plan kind that collapses to the homogeneous one is the default path

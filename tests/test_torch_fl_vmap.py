@@ -31,6 +31,7 @@ from repro.fl import AlgoConfig, FLRunConfig, resnet_task, run_federated
 from repro_torch import bridge
 from repro_torch import fl as tfl
 from repro_torch.core import schedule as tsched
+from repro_torch.core.telemetry import StepSizeTracker
 from repro_torch.data import pipeline as tpipe
 from repro_torch.fl.batched import make_engine
 from repro_torch.optim.adam import AdamConfig as TAdamConfig
@@ -140,12 +141,17 @@ def test_vmap_engine_guards(setup):
     with pytest.raises(ValueError, match="positive"):
         engine.run_round(params, spec, setup["tclients"], seeds=[1, 2, 3],
                          weights=[0, 0, 0], epochs=1, batch_size=BATCH)
-    for call in (engine.run_local, engine.run_local_async):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            call(params, spec, setup["tclients"], seeds=[1, 2, 3], epochs=1,
-                 batch_size=BATCH)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        engine.cohort_pool(2)
+    with pytest.raises(ValueError, match="sequential"):
+        engine.run_round(params, spec, setup["tclients"], seeds=[1, 2, 3],
+                         weights=[1, 1, 1], epochs=1, batch_size=BATCH,
+                         tracker=StepSizeTracker())
+    # the async runtime's backend: cohort training without aggregation, one
+    # slot per visible device (the one CPU device here)
+    stacked, losses = engine.run_local(params, spec, setup["tclients"],
+                                       seeds=[1, 2, 3], epochs=1, batch_size=BATCH)
+    assert len(losses) == 3 and tree_leaves(stacked)[0].shape[0] == 3
+    assert engine.cohort_pool(1, "cpu") is None
+    assert engine.cohort_pool(2, "cpu").num_submeshes == 1
     with pytest.raises(ValueError, match="weight_decay"):
         _engine(setup, "vmap", weight_decay=0.1)
     with pytest.raises(NotImplementedError, match="item 13"):
