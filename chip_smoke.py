@@ -127,12 +127,42 @@ Phases, in order; any failure raises and the script exits non-zero:
               f32 cross-check at full width (B 4 x 512, 4 tokens, TF32
               off): kernel path against plain PyTorch, every step's logits
               within 1e-3 and the same tokens.
+10. fedtrain_llm — ``launch.fedtrain``'s default, mesh-trainer path on
+              tinyllama-1.1b at full width (bf16; 24 groups: embed, 22
+              blocks, final_norm|head): ``--full-size --batch 4 --seq 512
+              --steps-per-round 4 --warmup 1 --rounds 8`` (one FNU round,
+              then embed and blocks 0-5), then ``FedPartMeshTrainer.run_round``
+              for blocks/21, final_norm|head and a warm FNU round; seconds
+              and peak memory per round, ``tx`` against the group's elements
+              counted from the tree; one profiled partial round.  Then in
+              f32 (TF32 off, ``adam_eps=1e-3``) from one set of params and one
+              batch: an FNU step and a partial step on blocks/7 give the same
+              loss, the group's leaves within 1e-6, every other leaf of the
+              partial step bit for bit its start, and the partial step's
+              backward pruned: the profiler's GEMM count is the head's input
+              gradient, 14 blocks without weight GEMMs, one full block and
+              nothing for blocks 0-6.
+11. fedtrain_sim — ``fedtrain --sim-clients 8 --rounds 12 --batch 32
+              --fused-adam`` on the vmap engine (cohort launches == bucket-steps
+              recomputed from the data) and the sequential engine (one-client
+              launches == client-steps); equal books; the same setup's
+              first two rounds at ``adam_eps=1e-3`` (deterministic cuDNN)
+              within 1e-4 across the engines.
+12. train_cli — ``launch.train --task resnet8 --strategy fedpart --clients 8
+              --warmup 1 --rl 1 --bridge 0`` with ``--out`` and
+              ``--checkpoint-dir``: the JSON has every key, the checkpoint
+              loads back onto the card bit for bit equal to
+              ``result.params``, a bf16 tree round-trips word for word.
+13. dlg      — ``benchmarks/table9_privacy.py``'s quick setting through the
+              port's ``fl.privacy``: ResNet-8 at 16 x 16, 250 iterations,
+              the full observation and group 0's; PSNR and ms per iteration;
+              fails on NaN.
 
 The line before the last carries ``nvidia-smi``'s name and power limit, the
 one before it the ``kernels`` JSON (the masked-Adam entries count their
-launches by path: ``fedpart`` and ``nlp`` for the one-client launches,
-``fedpart_vmap``, ``nlp``, ``compress`` and ``async`` for the cohort
-launches); the
+launches by path: ``fedpart``, ``nlp`` and ``fedtrain_sim`` for the
+one-client launches, ``fedpart_vmap``, ``nlp``, ``compress``, ``async`` and
+``fedtrain_sim`` for the cohort launches); the
 last line is the ``ok`` JSON.
 """
 
@@ -1888,6 +1918,383 @@ def phase_serve_hybrid() -> tuple[int, int, dict]:
     return ssd_n, flash_n, by_body
 
 
+# ---------------------------------------------------------------------------
+# The launchers: FedPart training of a served architecture, the simulation's
+# command line, the paper's driver with its checkpoint, the DLG attack
+# ---------------------------------------------------------------------------
+
+FEDTRAIN_LLM = ["--arch", "tinyllama-1.1b", "--full-size", "--batch", "4", "--seq",
+                "512", "--steps-per-round", "4", "--warmup", "1", "--rounds", "8"]
+FEDTRAIN_SIM = ["--sim-clients", "8", "--rounds", "12", "--batch", "32",
+                "--fused-adam"]
+TRAIN_CLI = ["--task", "resnet8", "--strategy", "fedpart", "--clients", "8",
+             "--warmup", "1", "--rl", "1", "--bridge", "0", "--quiet"]
+LLM_SMOKE = False       # full width (the repo's tinyllama-1.1b config)
+LLM_F32_SHAPE = (2, 256)   # batch, seq of the f32 FNU-vs-partial check
+LLM_F32_GROUP = 7          # blocks/7
+GROUP_TOL = 1e-6           # FNU vs partial step: the group's leaves, f32
+GEMM_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm")
+DLG_ITERS = 250            # benchmarks/table9_privacy.py's quick setting
+
+
+def _group_numel(params, group) -> int:
+    """Elements of ``group`` counted from the tree itself (``transmitted_params``'
+    yardstick): a stacked layer's slice of every leaf, or the named subtrees."""
+    from repro_torch.tree import tree_leaves
+    if group.index is not None:
+        return sum(int(x[group.index].numel()) for x in tree_leaves(params[group.key]))
+    return sum(int(x.numel()) for k in group.key.split("|")
+               for x in tree_leaves(params[k]))
+
+
+def _gemm_counts(fn) -> tuple[int, int]:
+    """``fn()`` under the profiler: (GEMM ops issued, device GEMM kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    ops = sum(e.count for e in events if e.key in GEMM_OPS)
+    dev = sum(e.count for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and ("gemm" in e.key.lower() or "xmma" in e.key.lower()))
+    return ops, dev
+
+
+def phase_fedtrain_llm() -> None:
+    """``fedtrain``'s default, mesh-trainer path on tinyllama-1.1b at full
+    width (bf16): one FNU round, then the embed and blocks 0-5 rounds, 4
+    steps of B 4 x 512 each; then ``FedPartMeshTrainer.run_round`` for
+    blocks/21 and final_norm|head, and one profiled partial round.  Then
+    the f32 check from one set of params and one batch: an FNU step and a
+    partial step on blocks/7 give the same loss, the group's leaves agree
+    within ``GROUP_TOL``, every other leaf of the partial step is its
+    start bit for bit, and the partial step's backward is pruned (GEMMs
+    counted by the profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.core.schedule import FULL_NETWORK, RoundSpec
+    from repro_torch.launch import fedtrain, steps
+    from repro_torch.models import api
+    from repro_torch.models.api import InputShape
+    from repro_torch.optim.adam import AdamConfig
+    from repro_torch.tree import tree_leaves, tree_paths
+
+    argv = FEDTRAIN_LLM + ["--device", "cuda"]
+    if LLM_SMOKE:
+        argv.remove("--full-size")
+    args = fedtrain.parse_args(argv)
+    cfg = get_config(args.arch, smoke=LLM_SMOKE)
+    log(f"[fedtrain_llm] fedtrain {' '.join(argv)}: {cfg.name} "
+        f"{'smoke' if LLM_SMOKE else 'full'} {cfg.num_layers} layers d_model "
+        f"{cfg.d_model} heads {cfg.num_heads}/{cfg.num_kv_heads} d_ff {cfg.d_ff} vocab "
+        f"{cfg.vocab_size} {cfg.param_dtype}")
+    t0 = time.perf_counter()
+    params, records = fedtrain.run_mesh(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    trainer = fedtrain.FedPartMeshTrainer(cfg, AdamConfig(lr=args.lr))
+    groups = trainer.groups(params)
+    total = sum(int(x.numel()) for x in tree_leaves(params))
+    log(f"[fedtrain_llm] {total} params, {len(groups)} groups; {len(records)} rounds "
+        f"in {wall:.3f} s (init and batches included)")
+
+    def check_round(rec, tree):
+        spec_full = rec["group"] < 0
+        want = total if spec_full else _group_numel(tree, groups[rec["group"]])
+        name = "FNU" if spec_full else \
+            f"{groups[rec['group']].key}/{groups[rec['group']].index}"
+        log(f"[fedtrain_llm] round {rec['round']} {name}: loss {rec['loss']:.6f} "
+            f"{rec['seconds']:.4f} s peak {rec['peak_bytes'] / 2**30:.3f} GiB tx "
+            f"{rec['tx']} (counted from the tree: {want})")
+        if rec["tx"] != want or not math.isfinite(rec["loss"]):
+            raise AssertionError(f"round {rec['round']}: tx {rec['tx']} != {want} or "
+                                 f"loss {rec['loss']}")
+
+    for rec in records:
+        check_round(rec, params)
+
+    # the deepest groups straight through the trainer, then a warm FNU round
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    shape = InputShape("t", args.seq, args.batch, "train")
+    for gidx in (len(groups) - 2, len(groups) - 1, FULL_NETWORK):
+        spec = RoundSpec(len(records), "partial" if gidx >= 0 else "bridge", 0, gidx)
+        batches = [api.synth_batch(gen, cfg, shape, "cuda")
+                   for _ in range(args.steps_per_round)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        new, loss = trainer.run_round(params, spec, batches)
+        secs = time.perf_counter() - t0
+        rec = {"round": spec.index, "group": gidx, "loss": loss, "seconds": secs,
+               "tx": trainer.transmitted_params(new, spec),
+               "peak_bytes": torch.cuda.max_memory_allocated()}
+        check_round(rec, params)
+        records.append(rec)
+        names = groups[gidx].key.split("|") if gidx >= 0 else list(params)
+        for (path, a), (_, b) in zip(tree_paths(new), tree_paths(params)):
+            stacked = (gidx >= 0 and groups[gidx].index is not None
+                       and path[0] == groups[gidx].key)
+            if stacked:
+                keep = [i for i in range(a.shape[0]) if i != groups[gidx].index]
+                if not torch.equal(a[keep], b[keep]):
+                    raise AssertionError(f"{'/'.join(path)}: frozen layers changed")
+            elif path[0] not in names and not torch.equal(a, b):
+                raise AssertionError(f"{'/'.join(path)} changed outside the group")
+        params = new
+        del new
+
+    fnu = [r for r in records if r["group"] < 0]
+    part = [r for r in records if r["group"] >= 0]
+    warm = part[1:]
+    log(f"[fedtrain_llm] seconds per round: FNU {[round(r['seconds'], 4) for r in fnu]} "
+        f"(the first is the process's first round); partial median "
+        f"{statistics.median(r['seconds'] for r in warm):.4f} s (min "
+        f"{min(r['seconds'] for r in warm):.4f}, max "
+        f"{max(r['seconds'] for r in warm):.4f}, first {part[0]['seconds']:.4f}); "
+        f"peak memory FNU {max(r['peak_bytes'] for r in fnu) / 2**30:.3f} GiB, partial "
+        f"{max(r['peak_bytes'] for r in part) / 2**30:.3f} GiB (max over rounds), "
+        f"block rounds {max(r['peak_bytes'] for r in part if 0 < r['group'] < len(groups) - 1) / 2**30:.3f} GiB")
+    if sum(_group_numel(params, g) for g in groups) != total:
+        raise AssertionError("the groups do not tile the model")
+
+    # one profiled partial round (a middle block, warm)
+    spec = RoundSpec(len(records), "partial", 0, len(groups) // 2)
+    batches = [api.synth_batch(gen, cfg, shape, "cuda")
+               for _ in range(args.steps_per_round)]
+    trainer.run_round(params, spec, batches[:1])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.run_round(params, spec, batches)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(getattr(e, "self_device_time_total", 0.0) for e in kernels)
+    if dev_us <= 0:
+        log("[fedtrain_llm] the profiler recorded no device time: not measured")
+    else:
+        log(f"[fedtrain_llm] profiled partial round (blocks/{len(groups) // 2 - 1}, "
+            f"{len(batches)} steps): wall {wall_us / 1e3:.3f} ms (under the profiler), "
+            f"device busy {dev_us / 1e3:.3f} ms ({100 * dev_us / wall_us:.1f}%), "
+            f"{sum(e.count for e in kernels)} kernel launches")
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+            log(f"[fedtrain_llm]   {e.self_device_time_total / 1e3:9.3f} ms "
+                f"({100 * e.self_device_time_total / dev_us:5.1f}%) {e.count:5d}x "
+                f"{e.key[:90]}")
+    del params, batches, trainer, prof
+    torch.cuda.empty_cache()
+
+    # f32 at full width: FNU step vs the partial step on blocks/7
+    cfg32 = cfg.with_(param_dtype="float32", activation_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    p32 = api.init(gen, cfg32, "cuda")
+    b, s = LLM_F32_SHAPE
+    batch = api.synth_batch(gen, cfg32, InputShape("t", s, b, "train"), "cuda")
+    adam = AdamConfig(lr=1e-3, eps=1e-3)
+    group = steps.StackedGroup("blocks", LLM_F32_GROUP)
+    full_step = steps.make_train_step(cfg32, adam, remat=False)
+    part_step = steps.make_fedpart_train_step(cfg32, group, adam, remat=False)
+    with torch.no_grad():
+        fwd = _gemm_counts(lambda: api.loss(p32, cfg32, batch))
+    out = {}
+
+    def run_full():
+        new, _, loss = full_step(p32, steps.init_opt_state(p32), batch)
+        out["full"] = (float(loss), [x[LLM_F32_GROUP].clone()
+                                      for x in tree_leaves(new["blocks"])])
+
+    def run_part():
+        new, _, loss = part_step(p32, steps.init_partial_opt_state(p32, group), batch)
+        out["part"] = (float(loss), new)
+
+    full_n = _gemm_counts(run_full)
+    torch.cuda.empty_cache()
+    part_n = _gemm_counts(run_part)
+    (l_full, g_full), (l_part, new) = out["full"], out["part"]
+    g_part = [x[LLM_F32_GROUP] for x in tree_leaves(new["blocks"])]
+    gdiff = max(float((a - c).abs().max()) for a, c in zip(g_full, g_part))
+    moved = max(float((a - c[LLM_F32_GROUP]).abs().max())
+                for a, c in zip(g_part, tree_leaves(p32["blocks"])))
+    g = LLM_F32_GROUP
+    frozen_same = all(
+        torch.equal(a, c) if path[0] != "blocks" else
+        torch.equal(a[:g], c[:g]) and torch.equal(a[g + 1:], c[g + 1:])
+        for (path, a), (_, c) in zip(tree_paths(new), tree_paths(p32)))
+    n = cfg32.num_layers
+    weights = sum(1 for x in tree_leaves(p32["blocks"]) if x.dim() == 3)
+    fnu_bwd, part_bwd = full_n[0] - fwd[0], part_n[0] - fwd[0]
+    per_block, rest = divmod(fnu_bwd - 2, n)   # the untied head: dW, dX
+    want = 1 + (n - LLM_F32_GROUP - 1) * (per_block - weights) + per_block
+    log(f"[fedtrain_llm] f32 full width, B {b} x {s}, adam_eps 1e-3, TF32 off: loss "
+        f"FNU {l_full!r} partial {l_part!r}; blocks/{LLM_F32_GROUP} after one step: "
+        f"FNU vs partial max diff {gdiff:.3g} (tolerance {GROUP_TOL:g}; the step "
+        f"moved it up to {moved:.3g}); every leaf outside the group bit-identical: "
+        f"{frozen_same}")
+    log(f"[fedtrain_llm] GEMMs (profiler; ops issued / device GEMM kernels): forward "
+        f"{fwd[0]} / {fwd[1]}, FNU step {full_n[0]} / {full_n[1]}, partial step "
+        f"{part_n[0]} / {part_n[1]}; backward FNU {fnu_bwd} = 2 + {n} x {per_block}, "
+        f"partial {part_bwd} (want {want}: the head's dX, {n - LLM_F32_GROUP - 1} "
+        f"blocks x {per_block - weights} with no weight GEMM, one full block of "
+        f"{per_block}, none for blocks 0-{LLM_F32_GROUP - 1})")
+    if l_full != l_part:
+        raise AssertionError(f"f32 losses differ: {l_full} vs {l_part}")
+    if not gdiff <= GROUP_TOL or not moved > 0:
+        raise AssertionError(f"blocks/{LLM_F32_GROUP}: FNU vs partial {gdiff}")
+    if not frozen_same:
+        raise AssertionError("the partial step changed a leaf outside its group")
+    if rest or part_bwd != want or not part_n[0] < full_n[0]:
+        raise AssertionError(f"partial backward GEMMs {part_bwd} != {want} "
+                             f"(FNU {fnu_bwd})")
+    del p32, batch, out, new, g_full, g_part
+    torch.cuda.empty_cache()
+
+
+def phase_fedtrain_sim() -> tuple[int, int]:
+    """``fedtrain --sim-clients 8 --rounds 12 --batch 32 --fused-adam`` on the
+    vmap engine, then the sequential one: cohort launches equal the
+    bucket-steps recomputed from the data, one-client launches the
+    client-steps; the two runs' books equal.  Their params are held within
+    ``CROSS_TOL`` on the same setup at ``adam_eps=1e-3`` with deterministic
+    cuDNN over the warm-up FNU round and the first partial round, the
+    repo's cross-form regime (the command line has no eps flag; the grouped
+    and per-client convs sum in different orders, and Adam compounds that
+    over rounds: the 12-round difference is printed, not held).
+    Returns (one-client launches, cohort launches)."""
+    import dataclasses
+    from repro_torch.kernels.masked_adam import MaskedAdamCohort
+    from repro_torch.launch import fedtrain
+    from repro_torch.tree import tree_leaves
+
+    res, launches = {}, {}
+    for engine in ("vmap", "sequential"):
+        args = fedtrain.parse_args(FEDTRAIN_SIM + ["--engine", engine,
+                                                   "--device", "cuda"])
+        adapter, clients, eval_set, rounds, cfg = fedtrain.build_simulation(args)
+        expected = _expected_launches(clients, [rounds], cfg)
+        MaskedAdamCohort.launches = 0
+        res[engine] = fedtrain.run_simulation(args)
+        torch.cuda.synchronize()
+        launches[engine] = MaskedAdamCohort.launches
+        secs = [h["seconds"] for h in res[engine].history]
+        log(f"[fedtrain_sim] {engine}: masked_adam_cohort launches {launches[engine]} "
+            f"(recomputed from the data: {expected}); seconds per round median "
+            f"{statistics.median(secs):.4f} (first {secs[0]:.4f}); books comm "
+            f"{res[engine].comm_total_bytes} B (FNU {res[engine].comm_fnu_bytes}) comp "
+            f"{res[engine].comp_total_flops:.0f}; final acc {res[engine].final_acc:.4f}")
+        if launches[engine] != expected:
+            raise AssertionError(f"fedtrain_sim {engine}: launches "
+                                 f"{launches[engine]} != {expected}")
+        if not all(math.isfinite(h["loss"]) for h in res[engine].history):
+            raise AssertionError(f"fedtrain_sim {engine}: non-finite loss")
+    v, s = res["vmap"], res["sequential"]
+    books = ("comm_total_bytes", "comm_fnu_bytes", "comp_total_flops", "comp_fnu_flops")
+    if any(getattr(v, k) != getattr(s, k) for k in books):
+        raise AssertionError("fedtrain_sim: the engines' books differ")
+    diff = max(float((a - b).abs().max())
+               for a, b in zip(tree_leaves(v.params), tree_leaves(s.params)))
+    log(f"[fedtrain_sim] books equal; the command line's runs (adam_eps 1e-8): max "
+        f"param diff vmap vs sequential {diff:.3g}")
+    cfgs = {e: dataclasses.replace(cfg, engine=e, adam_eps=1e-3)
+            for e in ("vmap", "sequential")}
+    _cross_check("fedtrain_sim", "the command line's setup, 2 rounds (adam_eps 0.001)",
+                 (adapter, clients, eval_set), rounds[:2], cfgs, deterministic=True)
+    return launches["sequential"], launches["vmap"]
+
+
+def phase_train_cli() -> None:
+    """``train --task resnet8 --strategy fedpart --clients 8 --warmup 1 --rl 1
+    --bridge 0`` with ``--checkpoint-dir`` and ``--out``: the JSON has every
+    key, the checkpoint loads back (onto the card) bit for bit equal to
+    ``result.params``, and a bf16 tree round-trips through ``save_pytree`` /
+    ``load_pytree`` on the card word for word."""
+    import tempfile
+    from repro_torch.checkpoint import load_checkpoint, load_pytree, save_pytree
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_map, tree_paths
+
+    keys = {"task", "strategy", "algo", "best_acc", "final_acc", "rounds", "comm_bytes",
+            "comm_ratio_to_fnu", "comp_flops", "comp_ratio_to_fnu", "elapsed_s",
+            "history"}
+    with tempfile.TemporaryDirectory() as tmp:
+        out, ckpt = os.path.join(tmp, "train.json"), os.path.join(tmp, "ckpt")
+        argv = TRAIN_CLI + ["--out", out, "--checkpoint-dir", ckpt, "--device", "cuda"]
+        t0 = time.perf_counter()
+        summary, result = train.run(train.parse_args(argv))
+        secs = time.perf_counter() - t0
+        with open(out) as f:
+            written = json.load(f)
+        log(f"[train_cli] train {' '.join(TRAIN_CLI)}: {summary['rounds']} rounds in "
+            f"{secs:.3f} s ({statistics.median(h['seconds'] for h in result.history):.4f}"
+            f" s per round, median); best acc {summary['best_acc']:.4f}, comm "
+            f"{summary['comm_ratio_to_fnu']:.4%} of FNU ({summary['comm_bytes']} B), "
+            f"comp {summary['comp_ratio_to_fnu']:.4%} of FNU; JSON keys "
+            f"{sorted(written)}")
+        if set(written) != keys or written["rounds"] != len(written["history"]):
+            raise AssertionError(f"train JSON keys {sorted(written)}")
+        params, state = load_checkpoint(ckpt, device="cuda")
+        same = [p for p, _ in tree_paths(params)] == \
+            [p for p, _ in tree_paths(result.params)] and all(
+                a.dtype == b.dtype and torch.equal(a, b)
+                for (_, a), (_, b) in zip(tree_paths(params), tree_paths(result.params)))
+        bf16 = tree_map(lambda x: x.to(torch.bfloat16) if x.is_floating_point() else x,
+                        result.params)
+        bf16["special"] = torch.tensor([0x7FC1, 0x7F80, -128, 1, -32768, 0x3F80],
+                                       dtype=torch.int16,
+                                       device="cuda").view(torch.bfloat16)
+        save_pytree(os.path.join(tmp, "bf16.npz"), bf16)
+        back = load_pytree(os.path.join(tmp, "bf16.npz"), device="cuda")
+        words = all(a.dtype == b.dtype and a.device == b.device and torch.equal(
+            a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+            b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
+            for (_, a), (_, b) in zip(tree_paths(bf16), tree_paths(back)))
+        log(f"[train_cli] checkpoint: state {state}; params bit-identical to "
+            f"result.params: {same}; bf16 tree round-trips word for word on the "
+            f"card: {words}")
+        if not same or not words or state["rounds"] != summary["rounds"]:
+            raise AssertionError("train_cli: the checkpoint does not round-trip")
+
+
+def phase_dlg() -> None:
+    """``benchmarks/table9_privacy.py``'s quick setting through the port's
+    ``fl.privacy`` (not the driver): ResNet-8 with 8 classes, one 16 x 16
+    target, label 1, 250 DLG iterations at lr 0.05, the full observation
+    and group 0's; PSNR (data range 2) and seconds per iteration."""
+    from repro_torch.core.partition import build_partition
+    from repro_torch.fl.privacy import DLGConfig, dlg_attack, psnr
+    from repro_torch.models import resnet
+    from repro_torch.tree import tree_map
+
+    gen = torch.Generator().manual_seed(0)
+    params = tree_map(lambda x: x.to("cuda"), resnet.resnet_init(gen, resnet.RESNET8, 8))
+    part = build_partition(params, resnet.resnet_group_key, resnet.resnet_order_key)
+    target = (torch.randn((1, 16, 16, 3), generator=gen) * 0.5).to("cuda")
+    label = torch.tensor([1], device="cuda")
+
+    def loss_fn(p, x):
+        logits, _ = resnet.resnet_apply(p, x, train=False)
+        return resnet.cls_loss(logits, label)
+
+    cfg = DLGConfig(iterations=DLG_ITERS, lr=0.05)
+    psnrs = {}
+    for name, group in (("all", None), ("#1_conv", 0)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x_hat, match = dlg_attack(loss_fn, params, target, cfg,
+                                  partition=part if group is not None else None,
+                                  group=group)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        psnrs[name] = float(psnr(target, x_hat, data_range=2.0))
+        log(f"[dlg] {name}: PSNR {psnrs[name]:.4f} dB, final match loss "
+            f"{float(match):.6g}, {secs / DLG_ITERS * 1e3:.3f} ms per iteration "
+            f"({DLG_ITERS} iterations, {secs:.3f} s)")
+        if not (math.isfinite(psnrs[name]) and math.isfinite(float(match))):
+            raise AssertionError(f"dlg {name}: NaN")
+    log(f"[dlg] partial observation PSNR below full: {psnrs['#1_conv'] < psnrs['all']}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script needs one "
@@ -1902,11 +2309,6 @@ def main() -> int:
     nlp_seq_n, nlp_vmap_n = phase_nlp()
     compress_n = phase_compress()
     async_n = phase_async()
-    adam["launches_by_path"] = {"fedpart": fedpart_n, "nlp": nlp_seq_n}
-    cohort["launches_by_path"] = {"fedpart_vmap": fedpart_vmap_n, "nlp": nlp_vmap_n,
-                                  "compress": compress_n, "async": async_n}
-    for k in (adam, cohort):
-        k["launches"] = sum(k["launches_by_path"].values())
     phase_profile()
     flash = phase_flash()
     flash_serve = phase_serve()
@@ -1914,6 +2316,17 @@ def main() -> int:
     ssd["launches"], flash_hybrid, ssd["launches_by_body"] = phase_serve_hybrid()
     flash["launches"] = flash_serve + flash_hybrid
     flash["launches_by_path"] = {"serve": flash_serve, "serve_hybrid": flash_hybrid}
+    phase_fedtrain_llm()
+    sim_seq_n, sim_vmap_n = phase_fedtrain_sim()
+    phase_train_cli()
+    phase_dlg()
+    adam["launches_by_path"] = {"fedpart": fedpart_n, "nlp": nlp_seq_n,
+                                "fedtrain_sim": sim_seq_n}
+    cohort["launches_by_path"] = {"fedpart_vmap": fedpart_vmap_n, "nlp": nlp_vmap_n,
+                                  "compress": compress_n, "async": async_n,
+                                  "fedtrain_sim": sim_vmap_n}
+    for k in (adam, cohort):
+        k["launches"] = sum(k["launches_by_path"].values())
     print(json.dumps({"kernels": [adam, cohort, flash, ssd]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -8,12 +8,14 @@ reference's keys and shapes (HWIO convs, ``(in, out)`` heads), flattened in
 sorted-key order (``repro_torch.tree``), so partitions, pack layouts and
 block masks are identical across the two packages.
 
-Two slices run on the card so far: the sync FedPart loop (``fl``), whose
-fused local Adam step is a hand-written CUDA kernel (``kernels/masked_adam``,
-``csrc/masked_adam.cu``), and serving of dense GQA decoders
-(``launch/serve.py`` on ``models/``, ``configs/``), whose prefill attention
-is a second one (``kernels/flash_attention``, ``csrc/flash_attention.cu``).
-Both are built with nvcc at first use.  Entry points (``fl``, ``launch``)
+On the card run the FedPart loop (``fl``: both engines, both paper
+tasks, compression, the async runtime), whose fused local Adam step is a
+hand-written CUDA kernel (``kernels/masked_adam``); serving of TinyLlama
+and Zamba2 (``launch/serve.py``), whose prefill attention and Mamba2 scans
+are two more (``kernels/flash_attention``, ``kernels/ssd_chunk``); and the
+launchers (``launch/fedtrain.py``: FedPart training of a served model and
+the simulation's command line; ``launch/train.py``; ``checkpoint``).  The
+kernels are built with nvcc at first use.  Entry points (``fl``, ``launch``)
 run on the card unless the caller asks for the CPU (``device="cpu"``, as the
 tests do); the model builders under them (``models.api.init``,
 ``cache_init``, ``synth_batch``) take the device as a required argument.

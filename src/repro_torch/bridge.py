@@ -11,7 +11,10 @@
 bfloat16 has no numpy dtype of its own: JAX hands out ``ml_dtypes.bfloat16``
 arrays, which ``torch.tensor`` refuses and ``Tensor.numpy()`` cannot make.
 Such leaves cross as their raw 16-bit words (``int16`` views on both
-sides), so no value is rounded on the way.  The port itself does not need
+sides), so no value is rounded on the way.  A ``.npz`` keeps such an array
+as 2-byte void words (``|V2``, ``BF16_WORDS``): ``from_numpy_tree`` reads
+those as bf16 too, so ``load_npz`` + ``from_numpy_tree`` restore a bf16
+checkpoint bit for bit (``checkpoint.io``).  The port itself does not need
 ``ml_dtypes``: only ``to_numpy_tree`` imports it, and only for a bf16 leaf.
 """
 
@@ -23,11 +26,12 @@ import torch
 from repro_torch.tree import PyTree, tree_from_paths, tree_map
 
 _SEP = "##"
+BF16_WORDS = np.dtype("V2")   # how np.savez keeps a bfloat16 array
 
 
 def _to_tensor(a, device) -> torch.Tensor:
     a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
+    if a.dtype.name == "bfloat16" or a.dtype == BF16_WORDS:
         bits = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
         return bits.view(torch.bfloat16).to(device)
     return torch.tensor(a, device=device)

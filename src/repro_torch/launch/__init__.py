@@ -1,3 +1,6 @@
 """Entry points of the port: the serving driver (``launch.serve``), the
-step builders it uses (``launch.steps``), and the async runtime's device
+FedPart trainer for the served architectures and the simulation's command
+line (``launch.fedtrain``), the paper's end-to-end driver
+(``launch.train``), the step builders they use (``launch.steps``: FNU and
+partial train steps, prefill and decode), and the async runtime's device
 slots (``launch.mesh``)."""

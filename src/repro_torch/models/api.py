@@ -3,6 +3,7 @@
 
     init(gen, cfg, device)                          -> params
     forward(params, cfg, batch, ...)                -> (logits, cache|None, aux)
+    loss(params, cfg, batch, ...)                   -> scalar training loss
     decode_step(params, cfg, token, cache, pos)     -> (logits, cache)
     cache_init(cfg, batch, cache_len, dtype, device) -> cache
     synth_batch(gen, cfg, shape, device)            -> batch
@@ -12,6 +13,12 @@ ported; ``xlstm`` and ``encdec`` raise ``NotImplementedError`` naming their
 ROADMAP item.  Randomness comes from an explicit ``torch.Generator`` (the
 reference's distributions, not its numbers: tests bridge the reference's
 params and batches instead).
+
+``loss`` is what the train steps differentiate (``launch.steps``), through
+``impl="plain"`` as the reference differentiates ``impl="xla"``: the
+kernel wrappers have no backward and refuse an input that requires grad.
+``remat=True`` recomputes each layer's activations in the backward
+(``torch.utils.checkpoint``; the reference's ``jax.checkpoint``).
 
 Input shapes (the reference's four):
 
@@ -91,15 +98,25 @@ def forward(
     window: int = 0,
     impl: str = "kernel",
     collect_cache: bool = False,
+    remat: bool = False,
 ) -> tuple[torch.Tensor, PyTree | None, torch.Tensor]:
     _ported_kind(cfg)
+    kw = dict(window=window, impl=impl, collect_cache=collect_cache, remat=remat)
     if cfg.kind == "hybrid":
-        return transformer.hybrid_forward(params, cfg, batch["tokens"], window=window,
-                                          impl=impl, collect_cache=collect_cache)
+        return transformer.hybrid_forward(params, cfg, batch["tokens"], **kw)
     return transformer.decoder_forward(
         params, cfg, batch["tokens"], media_embeds=batch.get("media"),
-        labels=batch.get("labels"), window=window, impl=impl,
-        collect_cache=collect_cache)
+        labels=batch.get("labels"), **kw)
+
+
+def loss(params: PyTree, cfg: ModelConfig, batch: dict, *, impl: str = "plain",
+         remat: bool = False) -> torch.Tensor:
+    """Next-token cross entropy of ``batch["labels"]`` plus the forward's
+    auxiliary loss; a VLM's media positions carry no labels."""
+    logits, _, aux = forward(params, cfg, batch, impl=impl, remat=remat)
+    if cfg.num_media_tokens > 0:
+        logits = logits[:, cfg.num_media_tokens:, :]
+    return transformer.lm_loss(logits, batch["labels"]) + aux
 
 
 def decode_step(

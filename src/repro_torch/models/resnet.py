@@ -112,11 +112,13 @@ def _conv(p: PyTree, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
 
 
 def _bn(p: PyTree, x: torch.Tensor, train: bool) -> tuple[torch.Tensor, PyTree | None]:
-    """Returns (y, stats_update); the update is detached, train mode only."""
+    """Returns (y, stats_update); the update is detached, train mode only.
+    In running-stat mode the moments stay in the graph, as in the
+    reference (its DLG attacker observes their gradients too)."""
     if not train:
-        y = F.batch_norm(x, p["mean_ema"].detach(), p["var_ema"].detach(),
-                         p["scale"], p["bias"], training=False, eps=BN_EPS)
-        return y, None
+        c = (1, -1, 1, 1)
+        y = (x - p["mean_ema"].view(c)) * torch.rsqrt(p["var_ema"].view(c) + BN_EPS)
+        return y * p["scale"].view(c) + p["bias"].view(c), None
     y = F.batch_norm(x, None, None, p["scale"], p["bias"], training=True,
                      eps=BN_EPS)
     with torch.no_grad():

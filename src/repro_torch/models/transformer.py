@@ -7,7 +7,12 @@ holds every block's leaves with a leading ``num_layers`` axis; the hybrid's
 axes and ``params["tail"]`` the leftover ones on one axis.  So the
 reference's ``api.init`` params bridge across unchanged.  The reference's
 ``jax.lax.scan`` over those axes is a Python loop here (PyTorch runs
-eagerly; there is nothing to trace).
+eagerly; there is nothing to trace), and its ``remat`` (``jax.checkpoint``
+around the scan body) is ``torch.utils.checkpoint`` around each iteration
+of that loop: a decoder block, a hybrid chunk (shared block + its Mamba2
+blocks), a tail Mamba2 block.  A forward may also be handed a stack as a
+list of per-layer trees (``_layer``): the partial train step does, so that
+only the trained layer's tensors require grad.
 
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP item:
 MoE blocks, MLA, the multi-token-prediction head, the xLSTM assembly.
@@ -16,6 +21,7 @@ MoE blocks, MLA, the multi-token-prediction head, the xLSTM assembly.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -98,8 +104,22 @@ def block_decode(
     return x + mlp_apply(p["mlp"], cfg.mlp_kind, h), {"k": ck, "v": cv}
 
 
-def _layer(stack: PyTree, i: int) -> PyTree:
+def _layer(stack: PyTree | list[PyTree], i: int) -> PyTree:
+    """Layer ``i`` of a stack: the ``[i]`` slices of a stacked tree, or item
+    ``i`` of a list of per-layer trees."""
+    if isinstance(stack, list):
+        return stack[i]
     return tree_map(lambda a: a[i], stack)
+
+
+def _call(fn, remat: bool, *args):
+    """``fn(*args)``; with ``remat`` its activations are recomputed in the
+    backward instead of kept (non-reentrant ``torch.utils.checkpoint``; the
+    recomputation repeats the same ops, so values and gradients are
+    unchanged)."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def _stack(trees: list[PyTree], lead: tuple[int, ...]) -> PyTree:
@@ -156,12 +176,14 @@ def decoder_forward(
     window: int = 0,
     impl: str = "kernel",
     collect_cache: bool = False,
+    remat: bool = False,
 ) -> tuple[torch.Tensor, PyTree | None, torch.Tensor]:
-    """Full-sequence forward (prefill).
+    """Full-sequence forward (prefill, or the training loss's forward).
 
     Returns (logits, caches | None, aux_loss); the caches are stacked
     ``(L, B, S, Hkv, D)``.  ``window`` > 0 applies sliding-window attention.
     ``labels`` only feed the reference's MTP head, which is not ported.
+    ``remat`` recomputes each block's activations in the backward.
     """
     _ported(cfg)
     _check_params(params)
@@ -169,10 +191,13 @@ def decoder_forward(
     x = _embed_inputs(params, cfg, tokens, media_embeds)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
+
+    def body(p, x):
+        return block_forward(p, cfg, x, positions, window=window, impl=impl)
+
     kvs = []
     for i in range(cfg.num_layers):
-        x, kv = block_forward(_layer(params["blocks"], i), cfg, x, positions,
-                              window=window, impl=impl)
+        x, kv = _call(body, remat, _layer(params["blocks"], i), x)
         if collect_cache:
             kvs.append(kv)
     x = norm_apply(cfg.norm_kind, params["final_norm"], x)
@@ -260,9 +285,12 @@ def hybrid_forward(
     window: int = 0,
     impl: str = "kernel",
     collect_cache: bool = False,
+    remat: bool = False,
 ) -> tuple[torch.Tensor, PyTree | None, torch.Tensor]:
-    """Full-sequence forward (prefill); ``impl`` picks the shared block's
-    attention and every Mamba2 scan: the CUDA kernels or plain PyTorch.
+    """Full-sequence forward (prefill, or the training loss's forward);
+    ``impl`` picks the shared block's attention and every Mamba2 scan: the
+    CUDA kernels or plain PyTorch.  ``remat`` recomputes each chunk's and
+    each tail block's activations in the backward, the reference's units.
 
     Returns (logits, caches | None, aux_loss).  The caches keep the
     reference's stacked layout: ``chunks/attn_kv/{k,v}`` (n_chunks, B, S,
@@ -284,20 +312,24 @@ def hybrid_forward(
                                   impl=impl)
         return x + y, c
 
-    for c in range(n_chunks):
+    def chunk_body(chunk, x):
         h = linear(shared["in_proj"], torch.cat([x, x0], dim=-1))
         y, kv = block_forward(shared["block"], cfg, h, positions, window=window,
                               impl=impl)
         x = x + y
-        chunk = _layer(params["chunks"], c)
+        mcs = []
         for j in range(per):
             x, mc = mamba(_layer(chunk, j), x)
-            if collect_cache:
-                chunk_mc.append(mc)
+            mcs.append(mc)
+        return x, kv, mcs
+
+    for c in range(n_chunks):
+        x, kv, mcs = _call(chunk_body, remat, _layer(params["chunks"], c), x)
         if collect_cache:
+            chunk_mc.extend(mcs)
             kvs.append(kv)
     for j in range(tail):
-        x, mc = mamba(_layer(params["tail"], j), x)
+        x, mc = _call(mamba, remat, _layer(params["tail"], j), x)
         if collect_cache:
             tail_mc.append(mc)
     x = norm_apply(cfg.norm_kind, params["final_norm"], x)
