@@ -87,15 +87,18 @@ Phases, in order; any failure raises and the script exits non-zero:
               the device busy share.
 5. profile  — one FNU round under ``torch.profiler``: device time by kernel.
 6. flash    — ``flash_attention`` against its plain PyTorch version on the
-              card: the reference's seven cases, four ragged ones and three
-              ragged ones at the bf16 body's two widths (DP 64, DP 128 with
-              D 112), f32 and bf16, and TinyLlama's prefill layer (B 4, H 32,
-              Hkv 4, S 4,096, D 64, bf16) causal and with a 1,024 window, and
-              Zamba2's shared-attention layer (B 4, H 32, Hkv 32, S 4,096,
-              D 112, bf16, causal), each element and each output row held
-              to its limit.  The bf16 body's ``HGMMA`` / ``UTMALDG`` / ``HMMA``
-              instruction counts from ``cuobjdump -sass``.  Times (CUDA
-              events) at both layers, achieved TFLOP/s, their bounds, and
+              card: the reference's seven cases, four ragged ones and six
+              ragged ones at the bf16 body's three widths (DP 64, DP 128 with
+              D 112, DP 256 with D 256 and D 192), f32 and bf16, and
+              TinyLlama's prefill layer (B 4, H 32, Hkv 4, S 4,096, D 64,
+              bf16) causal and with a 1,024 window, Zamba2's
+              shared-attention layer (B 4, H 32, Hkv 32, S 4,096, D 112,
+              bf16, causal) and Gemma's (B 4, H 8, Hkv 1, S 4,096, D 256,
+              bf16, causal), each element and each output row held to its
+              limit.  The bf16 bodies' ``HGMMA`` / ``UTMALDG`` / ``HMMA``
+              instruction counts from ``cuobjdump -sass``, registers and
+              spills from nvcc.  Times (CUDA events) at the three layers,
+              achieved TFLOP/s, their bounds, and
               ``F.scaled_dot_product_attention`` as a yardstick.
 7. serve    — the serving path: ``serve_session`` on tinyllama-1.1b at full
               width, bf16, random weights from a seed, B 4 x 4,096 prompt,
@@ -104,6 +107,11 @@ Phases, in order; any failure raises and the script exits non-zero:
               the f32 cross-check: kernel vs plain prefill attention at full
               width (B 4 x 512, 4 tokens, TF32 off), every step's logits
               within 1e-3 and the same tokens.
+   serve_dense — the same for gemma-2b (18 flash launches per prefill, all
+              at D 256; GeGLU, MQA, tied 256,000-row embedding),
+              llama3.2-1b (16 at D 64) and glm4-9b (40 at D 128); each f32
+              cross-check at full width, glm4-9b's cut to 4 of its 40
+              layers (its f32 weights are 37.6 GB).
 8. ssd      — ``ssd_chunk`` against its plain PyTorch version (``ssd_ref``)
               on the card, f32 and bf16: the reference's four cases,
               Zamba2's smoke shape, a ragged chunk, head-broadcast
@@ -172,6 +180,7 @@ import itertools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -220,12 +229,17 @@ FLASH_EXTRA = [
     (1, 2, 2, 70, 200, 128, True, 0),
     (1, 2, 1, 200, 70, 64, True, 0),
 ]
-# ragged shapes at the bf16 body's two widths: DP 64 (D 32), DP 128 (D 112,
-# D 128 with a window); every row keeps a key (test_torch_flash_attention HOPPER)
+# ragged shapes at the bf16 body's three widths: DP 64 (D 32), DP 128 (D 112,
+# D 128 with a window), DP 256 with its 64-key tiles (D 256 MQA, D 192 with a
+# window: a column block wholly past D); every row keeps a key
+# (test_torch_flash_attention HOPPER)
 FLASH_HOPPER = [
     (2, 2, 2, 129, 257, 32, False, 0),
     (1, 2, 1, 200, 333, 112, True, 0),
     (1, 3, 1, 130, 255, 128, True, 40),
+    (1, 2, 1, 129, 257, 256, False, 0),
+    (2, 8, 1, 130, 255, 256, True, 0),
+    (1, 3, 1, 200, 333, 192, True, 40),
 ]
 # tinyllama-1.1b's prefill attention at the serve phase's prompt: B 4, H 32,
 # Hkv 4, S 4,096, D 64, bf16
@@ -234,6 +248,13 @@ TINYLLAMA_ATTN = (SERVE_BATCH, 32, 4, SERVE_PROMPT, SERVE_PROMPT, 64)
 SERVE_CROSS_TOL = 1e-3         # f32 full width, kernel vs plain attention, TF32 off
 # zamba2-7b's shared attention at the serve prompt: B 4, H 32, Hkv 32, S 4,096, D 112
 ZAMBA2_ATTN = (SERVE_BATCH, 32, 32, SERVE_PROMPT, SERVE_PROMPT, 112)
+# gemma-2b's prefill attention at the serve prompt: B 4, H 8, Hkv 1 (MQA), S 4,096,
+# D 256 (the bf16 body's DP 256)
+GEMMA_ATTN = (SERVE_BATCH, 8, 1, SERVE_PROMPT, SERVE_PROMPT, 256)
+# the dense decoders served beside tinyllama-1.1b (phase serve_dense): arch and
+# the layers its f32 cross-check keeps (0: all; glm4-9b's 40 f32 layers with
+# its f32 embedding and head are 37.6 GB, so it keeps 4 at full width)
+SERVE_DENSE = [("gemma-2b", 0), ("llama3.2-1b", 0), ("glm4-9b", 4)]
 # ssd_chunk kernel vs ssd_ref, per element: |k - p| <= tol·(1 + |p|); f32 is the
 # reference's own kernel-vs-oracle tolerance (tests/test_kernels_ssd.py)
 SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
@@ -858,10 +879,12 @@ def _flash_layer(name: str, shape, gen) -> dict:
 
 def phase_flash() -> dict:
     """The flash kernel against its plain version: the reference's seven
-    cases and four ragged ones in f32 and bf16, TinyLlama's prefill layer
-    causal and with a 1,024 window, Zamba2's shared-attention layer (D 112);
-    then times at both layers (kernel, plain version,
+    cases and four ragged ones in f32 and bf16, ragged cases at each width
+    of the bf16 body (D 32 to 256), TinyLlama's prefill layer causal and
+    with a 1,024 window, Zamba2's shared-attention layer (D 112), Gemma's
+    (D 256); then times at the three layers (kernel, plain version,
     ``F.scaled_dot_product_attention`` as the library yardstick)."""
+    from repro_torch.kernels import build
     gen = torch.Generator(device="cuda").manual_seed(11)
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
@@ -874,15 +897,22 @@ def phase_flash() -> dict:
         errs = [_flash_check(c, dtype, gen) for c in FLASH_HOPPER]
         err, row = max(e for e, _ in errs), max(r for _, r in errs)
         worst = max(worst, err)
-        log(f"[flash] {len(FLASH_HOPPER)} ragged at D 32 / 112 / 128 {str(dtype)[6:]}: "
+        log(f"[flash] {len(FLASH_HOPPER)} ragged at D "
+            f"{' / '.join(str(c[5]) for c in FLASH_HOPPER)} {str(dtype)[6:]}: "
             f"max abs err {err:.3g}, max row err {row:.3g} (same limits)")
     sass = _sass("flash_attention", "flash_fwd_bf16")
     if sass is None:
         log("[flash] SASS of the bf16 body: not available (no cuobjdump)")
     for fn, counts in (sass or {}).items():
         log(f"[flash] SASS of {fn}: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
+        if counts["STL"] or counts["LDL"]:
+            raise AssertionError(f"flash bf16 body {fn} spills: {counts}")
+    nvcc = build.library_path("flash_attention").with_suffix(".log").read_text()
+    for line in nvcc.splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            log(f"[flash] nvcc: {line.strip()}")
     layers = [("tinyllama", TINYLLAMA_ATTN, 0), ("tinyllama", TINYLLAMA_ATTN, 1024),
-              ("zamba2", ZAMBA2_ATTN, 0)]
+              ("zamba2", ZAMBA2_ATTN, 0), ("gemma", GEMMA_ATTN, 0)]
     for name, (b, h, hkv, s, _, d), window in layers:
         err, row = _flash_check((b, h, hkv, s, s, d, True, window), torch.bfloat16, gen)
         worst = max(worst, err)
@@ -894,11 +924,12 @@ def phase_flash() -> dict:
 
     main = _flash_layer("tinyllama", TINYLLAMA_ATTN, gen)
     zamba2 = _flash_layer("zamba2", ZAMBA2_ATTN, gen)
+    gemma = _flash_layer("gemma", GEMMA_ATTN, gen)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:99",
             "launches": None, "max_abs_err": worst, **main,
-            "zamba2_layer": zamba2}
+            "zamba2_layer": zamba2, "gemma_layer": gemma}
 
 
 # ---------------------------------------------------------------------------
@@ -991,7 +1022,10 @@ def _ssd_wgmma_flops(case) -> int:
 
 def _sass(lib: str, fn_filter: str) -> dict | None:
     """Counts of Hopper's ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load)
-    instructions, and of ``HMMA`` (mma.sync), in each function of the built
+    instructions, of ``HMMA`` (mma.sync) and of the local-memory stores and
+    loads ``STL`` / ``LDL`` (spills), and the highest register the code
+    names (``maxR``: ptxas's ``-v`` reports the launch's 168 even where a
+    ``setmaxnreg.inc`` region uses more), in each function of the built
     library ``lib`` whose name holds ``fn_filter``, from its SASS; None when
     ``cuobjdump`` is absent."""
     from repro_torch.kernels import build
@@ -1006,12 +1040,16 @@ def _sass(lib: str, fn_filter: str) -> dict | None:
             name = line.split("Function :")[1].strip()
             fn = name if fn_filter in name else None
             if fn:
-                counts[fn] = {"HGMMA": 0, "UTMALDG": 0, "HMMA": 0}
+                counts[fn] = {"HGMMA": 0, "UTMALDG": 0, "HMMA": 0, "STL": 0, "LDL": 0,
+                              "maxR": 0}
         elif fn and "*/" in line:   # "/*0050*/  @P0 UTMALDG.4D [UR8], [UR4] ;"
-            toks = [t for t in line.split("*/", 1)[1].split() if not t.startswith("@")]
+            code = line.split("*/", 1)[1].split(";")[0]
+            toks = [t for t in code.split() if not t.startswith("@")]
             op = toks[0].split(".")[0] if toks else ""
-            if op in counts[fn]:
+            if op in counts[fn] and op != "maxR":
                 counts[fn][op] += 1
+            regs = [int(r) for r in re.findall(r"\bR(\d+)\b", code)]
+            counts[fn]["maxR"] = max([counts[fn]["maxR"], *regs])
     return counts
 
 
@@ -1750,13 +1788,15 @@ def _serve_profile(cfg, params, prompt, tag: str = "serve") -> None:
             f"({100 * e.self_device_time_total / dev_us:5.1f}%) {e.count:5d}x {e.key[:90]}")
 
 
-def phase_serve() -> int:
-    """The serving path: ``serve_session`` on tinyllama-1.1b at full width,
-    bf16, random weights from a seed, B 4 × 4,096 prompt, 32 tokens, every
-    prefill attention through the flash kernel (22 launches, one per layer).
-    Then the same config in f32 (TF32 off), prompt 512, 4 tokens: the kernel
-    path against plain attention, every step's logits within
-    ``SERVE_CROSS_TOL``."""
+def _serve_dense(arch: str, tag: str, f32_layers: int = 0) -> int:
+    """``serve_session`` on the dense decoder ``arch`` at full width, bf16,
+    random weights from a seed, B 4 × 4,096 prompt, 32 tokens, every prefill
+    attention through the flash kernel (one launch per layer, all at the
+    config's head dim).  One prefill under ``torch.profiler``.  Then the same
+    config in f32 (TF32 off), prompt 512, 4 tokens (``f32_layers`` > 0 keeps
+    that many layers, at full width): the kernel path against plain
+    attention, every step's logits within ``SERVE_CROSS_TOL`` and the same
+    tokens.  Returns the counted run's flash launches."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention_kernel
     from repro_torch.launch.serve import serve_session
@@ -1764,48 +1804,60 @@ def phase_serve() -> int:
     from repro_torch.models.api import InputShape
     from repro_torch.tree import tree_leaves
 
-    cfg = get_config("tinyllama-1.1b")
+    cfg = get_config(arch)
+    hd = cfg.resolved_head_dim
     b, s, g = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = api.init(gen, cfg, "cuda")
     prompt = api.synth_batch(gen, cfg, InputShape("serve", s, b, "prefill"), "cuda")
     n_params = sum(int(x.numel()) for x in tree_leaves(params))
-    log(f"[serve] {cfg.name} full: {cfg.num_layers} layers d_model {cfg.d_model} "
-        f"heads {cfg.num_heads}/{cfg.num_kv_heads} d_ff {cfg.d_ff} vocab "
-        f"{cfg.vocab_size} {cfg.param_dtype}, {n_params} params")
+    log(f"[{tag}] {cfg.name} full: {cfg.num_layers} layers d_model {cfg.d_model} "
+        f"heads {cfg.num_heads}/{cfg.num_kv_heads} head dim {hd} d_ff {cfg.d_ff} "
+        f"({cfg.mlp_kind}) vocab {cfg.vocab_size} tied {cfg.tie_embeddings} "
+        f"{cfg.param_dtype}, {n_params} params")
     # warm-up at full width (cuBLAS handles, kernel loads), then the counted run
     serve_session(cfg, b, 256, 2, device="cuda", params=params, verbose=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     flash_attention_kernel.launches = 0
+    flash_attention_kernel.launches_by_head_dim = {}
     res = serve_session(cfg, b, s, g, device="cuda", params=params, prompt=prompt,
                         verbose=False)
     torch.cuda.synchronize()
     launches = flash_attention_kernel.launches
+    by_d = dict(flash_attention_kernel.launches_by_head_dim)
 
     toks = res.tokens
     decoded = b * (g - 1)
-    log(f"[serve] prefill {b}x{s}: {res.prefill_seconds:.6f} s "
+    log(f"[{tag}] prefill {b}x{s}: {res.prefill_seconds:.6f} s "
         f"({b * s / res.prefill_seconds:.1f} prompt tokens/s); decode {g - 1} "
         f"steps x batch {b} = {decoded} tokens in {res.decode_seconds:.6f} s: "
         f"{decoded / res.decode_seconds:.3f} tokens/s, "
         f"{1e3 * res.decode_seconds / (g - 1):.3f} ms per step; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    log(f"[serve] tokens[0] {toks[0].tolist()}")
-    log(f"[serve] flash_attention launches {launches} (one per layer: {cfg.num_layers})")
-    if launches != cfg.num_layers:
-        raise AssertionError(f"flash launches {launches} != layers {cfg.num_layers}")
+    log(f"[{tag}] tokens[0] {toks[0].tolist()}")
+    log(f"[{tag}] flash_attention launches {launches} (one per layer: "
+        f"{cfg.num_layers}), by head dim {by_d}")
+    if launches != cfg.num_layers or by_d != {hd: cfg.num_layers}:
+        raise AssertionError(f"flash launches {launches} (by head dim {by_d}) != "
+                             f"layers {cfg.num_layers} at D {hd}")
     if toks.shape != (b, g) or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
         raise AssertionError(f"bad tokens {tuple(toks.shape)}")
     for i, x in enumerate(res.logits):
         if x.shape != (b, 1, cfg.vocab_size) or not bool(torch.isfinite(x).all()):
             raise AssertionError(f"step {i}: logits {tuple(x.shape)} not finite")
-    _serve_profile(cfg, params, prompt)
+    _serve_profile(cfg, params, prompt, tag=tag)
     del params, prompt, res
     torch.cuda.empty_cache()
 
     cfg32 = cfg.with_(param_dtype="float32", activation_dtype="float32")
+    depth = "full depth"
+    if f32_layers:
+        f32_bytes = 4 * n_params
+        cfg32 = cfg32.with_(num_layers=f32_layers)
+        depth = (f"{f32_layers} of {cfg.num_layers} layers (the f32 weights of all "
+                 f"{cfg.num_layers} are {f32_bytes / 1e9:.1f} GB)")
     gen = torch.Generator(device="cuda").manual_seed(1)
     params = api.init(gen, cfg32, "cuda")
     prompt = api.synth_batch(gen, cfg32, InputShape("serve", 512, b, "prefill"), "cuda")
@@ -1814,15 +1866,29 @@ def phase_serve() -> int:
            for impl in ("kernel", "plain")}
     diffs = [float((k - p).abs().max())
              for k, p in zip(out["kernel"].logits, out["plain"].logits)]
+    scale = max(float(x.abs().max()) for x in out["plain"].logits)
     same = torch.equal(out["kernel"].tokens, out["plain"].tokens)
-    log(f"[serve] f32 cross-check B{b} prompt 512 gen 4, kernel vs plain attention: "
-        f"max abs logit diff per step {[f'{d:.3g}' for d in diffs]} (tolerance "
-        f"{SERVE_CROSS_TOL:g}); tokens equal: {same}")
+    log(f"[{tag}] f32 cross-check B{b} prompt 512 gen 4, full width, {depth}, kernel "
+        f"vs plain attention: max abs logit diff per step {[f'{d:.3g}' for d in diffs]} "
+        f"(tolerance {SERVE_CROSS_TOL:g}; max |logit| {scale:.3g}); tokens equal: {same}")
     if max(diffs) > SERVE_CROSS_TOL or not same:
-        raise AssertionError("f32 serve: kernel and plain attention disagree")
+        raise AssertionError(f"f32 serve {arch}: kernel and plain attention disagree")
     del params, prompt, out
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_serve() -> int:
+    """The serving path on tinyllama-1.1b (22 flash launches per prefill)."""
+    return _serve_dense("tinyllama-1.1b", "serve")
+
+
+def phase_serve_dense() -> dict:
+    """The serving path on the other dense decoders (``SERVE_DENSE``):
+    gemma-2b (18 launches per prefill, all at D 256), llama3.2-1b (16 at D
+    64), glm4-9b (40 at D 128).  Returns each one's flash launches."""
+    return {f"serve_{arch}": _serve_dense(arch, f"serve_dense {arch}", layers)
+            for arch, layers in SERVE_DENSE}
 
 
 def phase_serve_hybrid() -> tuple[int, int, dict]:
@@ -2312,10 +2378,12 @@ def main() -> int:
     phase_profile()
     flash = phase_flash()
     flash_serve = phase_serve()
+    flash_dense = phase_serve_dense()
     ssd = phase_ssd()
     ssd["launches"], flash_hybrid, ssd["launches_by_body"] = phase_serve_hybrid()
-    flash["launches"] = flash_serve + flash_hybrid
-    flash["launches_by_path"] = {"serve": flash_serve, "serve_hybrid": flash_hybrid}
+    flash["launches_by_path"] = {"serve": flash_serve, **flash_dense,
+                                 "serve_hybrid": flash_hybrid}
+    flash["launches"] = sum(flash["launches_by_path"].values())
     phase_fedtrain_llm()
     sim_seq_n, sim_vmap_n = phase_fedtrain_sim()
     phase_train_cli()

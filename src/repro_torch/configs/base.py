@@ -2,9 +2,10 @@
 
 ``ModelConfig`` is the reference's dataclass field for field, so a config
 built on either side describes the same model.  The registry holds the
-architectures the port runs: ``tinyllama-1.1b`` (dense decoder),
-``zamba2-7b`` (Mamba2 hybrid) and ``nlp-transformer`` (the paper's text
-classifier, ``models/nlp_small.py``), full and smoke.  Every other architecture of
+architectures the port runs: the dense decoders ``tinyllama-1.1b``,
+``llama3.2-1b``, ``gemma-2b`` and ``glm4-9b``, ``zamba2-7b`` (Mamba2 hybrid)
+and ``nlp-transformer`` (the paper's text classifier,
+``models/nlp_small.py``), full and smoke.  Every other architecture of
 the reference raises ``NotImplementedError`` naming the ROADMAP item that
 ports it.
 """
@@ -117,9 +118,6 @@ _SMOKE: dict[str, Callable[[], ModelConfig]] = {}
 _UNPORTED = {
     "deepseek-v3-671b": "Queue 1 item 15 (MLA + MoE decoders)",
     "llama4-maverick-400b-a17b": "Queue 1 item 15 (MoE decoders)",
-    "gemma-2b": "Queue 1 item 15 (other dense decoders)",
-    "glm4-9b": "Queue 1 item 15 (other dense decoders)",
-    "llama3.2-1b": "Queue 1 item 15 (other dense decoders)",
     "llava-next-34b": "Queue 1 item 15 (VLM frontends)",
     "whisper-small": "Queue 1 item 15 (encoder-decoder)",
     "xlstm-125m": "Queue 1 item 15 (xLSTM)",
@@ -157,6 +155,6 @@ def _ensure_loaded() -> None:
     if _LOADED:
         return
     from repro_torch.configs import (  # noqa: F401  (register)
-        nlp_transformer, tinyllama_1_1b, zamba2_7b)
+        gemma_2b, glm4_9b, llama3_2_1b, nlp_transformer, tinyllama_1_1b, zamba2_7b)
 
     _LOADED = True

@@ -18,21 +18,23 @@
 // S 4,096, D 64, causal) is 2.75e11 FLOPs against 151 MB of q, k, v and o:
 // 0.278 ms at the card's 989 TFLOP/s bf16 tensor-core peak, 0.045 ms of
 // bytes at 3.35 TB/s; Zamba2's shared attention (H 32 = Hkv 32, D 112) is
-// 0.487 ms.  Only Hopper's `wgmma` reaches that peak, and only when its
-// operands arrive in shared memory without costing the tensor cores' issue
-// slots, so the input dtype picks one of two bodies:
+// 0.487 ms; Gemma-2b's (H 8, Hkv 1, D 256) is the same 2.75e11 FLOPs as
+// TinyLlama's, 0.278 ms.  Only Hopper's `wgmma` reaches that peak, and only
+// when its operands arrive in shared memory without costing the tensor
+// cores' issue slots, so the input dtype picks one of two bodies:
 //
 // - bfloat16 (the serving path): the Hopper design.  One CTA of three
 //   warpgroups (384 threads) per (query tile of 128 rows, head, batch):
 //   * a producer warpgroup (registers lowered to 40 with `setmaxnreg`), one
 //     thread of which issues TMA loads: the Q tile once, then K and V tiles
-//     of 128 keys into a two-stage ring.  Each stage has a "full" mbarrier
-//     for K and one for V (arrive.expect_tx with the box bytes; the TMA
-//     completes the transaction) and an "empty" mbarrier that both
+//     of BK keys (128, or 64 at DP 256) into a two-stage ring.  Each stage
+//     has a "full" mbarrier for K and one for V (arrive.expect_tx with the
+//     K or V tile's bytes; the TMA completes the transaction) and an
+//     "empty" mbarrier that both
 //     consumers arrive on once the P·V product that read the stage has
 //     retired.
 //   * two consumer warpgroups (registers raised to 232), each owning 64
-//     query rows: S = Q Kᵀ as `wgmma.mma_async m64n128k16` with Q and K
+//     query rows: S = Q Kᵀ as `wgmma.mma_async m64n{BK}k16` with Q and K
 //     read from shared memory through descriptors (128-byte swizzle,
 //     K-major), DP/16 k-steps; the online softmax in registers (the
 //     accumulator gives each thread two rows, reduced over the quad with
@@ -44,15 +46,23 @@
 //   * tensor maps (built per launch with cuTensorMapEncodeTiled, found
 //     through the runtime's entry-point query, so no -lcuda) describe q, k
 //     and v as 4-d (D, S, heads, B) arrays with the caller's byte strides,
-//     boxes of {64, 128}, 128-byte swizzle and zero fill out of bounds:
-//     ragged S and D < DP arrive as zeros, and no thread computes an
-//     address.
-//   * DP is 64 (D <= 64) or 128 (D <= 128; D 96 and 112 run here).  A tile
-//     is DP/64 column blocks of 128 rows x 128 bytes.  Shared memory: Q
-//     16 KB + 2 stages x (K 16 KB + V 16 KB) = 80 KB at DP 64, Q 32 KB + 2 x
-//     (32 + 32 KB) = 160 KB at DP 128 (128 keys fit at DP 128, so both take
-//     128-key tiles), plus 1 KB of alignment slack and the barriers.  One
-//     CTA per SM (the consumers' registers).
+//     boxes of {64, 128} for q and {64, BK} for k and v, 128-byte swizzle
+//     and zero fill out of bounds: ragged S and D < DP arrive as zeros
+//     (a column block wholly past D as a box of zeros), and no thread
+//     computes an address.
+//   * DP is 64 (D <= 64), 128 (D <= 128; D 96 and 112 run here) or 256
+//     (D <= 256; Gemma's 256, and 136 .. 248).  A tile is DP/64 column
+//     blocks of its rows x 128 bytes.  Shared memory: Q 16 KB + 2 stages x
+//     (K 16 KB + V 16 KB) = 80 KB at DP 64, Q 32 KB + 2 x (32 + 32 KB) =
+//     160 KB at DP 128, both with 128-key tiles.  At DP 256 a 128-key ring
+//     would need Q 64 KB + 2 x (64 + 64 KB) = 320 KB, past the 227 KB a
+//     block may opt in to, so K and V tiles hold 64 keys: Q 64 KB + 2 x
+//     (32 + 32 KB) = 192 KB (S = Q Kᵀ is m64n64k16 over 16 k-steps, P·V
+//     m64n256k16 over 4; a causal 128-row query tile meets two 64-key
+//     diagonal tiles).  Plus 1 KB of alignment slack and the barriers.
+//     Registers of a consumer thread at DP 256: O 128 f32, S 32, P 16
+//     (packed bf16), under the 232 `setmaxnreg` gives it.  One CTA per SM
+//     (the consumers' registers).
 //   * Left for later: one warpgroup's softmax overlapping the other's
 //     GEMMs (FA3's ping-pong), S and P·V of consecutive tiles in flight
 //     together, persistent CTAs, packing GQA query heads into one CTA.
@@ -66,6 +76,7 @@
 //   (rg, cg) = (tid / 8, tid % 8) owns score rows rg + 16i (i < 4) and
 //   columns cg + 8j (j < 8); rows in shared memory are padded by 4 floats
 //   so the float4 reads of the 8 column groups fall in distinct banks.
+//   DP is 32, 64, 96, 128 or 256; at DP 256 Q, K, V and P take 212 KB.
 //   Only the f32 cross-checks run it.
 // Both:
 // - GQA: the kv head is read in place (no repeated K/V in memory).
@@ -114,6 +125,8 @@ template <int DP>
 constexpr int f32_smem_bytes() {
   return (3 * kBQ * (DP + 4) + kBQ * (kBK + 4)) * static_cast<int>(sizeof(float));
 }
+
+static_assert(f32_smem_bytes<256>() <= 232448, "DP 256 exceeds the opt-in shared memory");
 
 template <int DP>
 __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(const FlashParams p) {
@@ -281,7 +294,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(const FlashPara
 
 // ---- bfloat16: Hopper version (TMA, wgmma, warp specialisation) ----
 
-constexpr int kTile = 128;                 // query rows per CTA, keys per K/V tile
+constexpr int kQTile = 128;                // query rows per CTA (two warpgroups of 64)
 constexpr int kWG = 128;                   // threads per warpgroup
 constexpr int kBf16Threads = 3 * kWG;      // consumers 0 and 1, producer 2
 constexpr int kStages = 2;                 // depth of the K/V ring
@@ -293,27 +306,36 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared memory of the bf16 body, in bytes from a 1024-aligned base (the
 // 128-byte swizzle repeats every 8 rows = 1024 bytes, and both the TMA and
-// the wgmma descriptors assume tiles start on that boundary).
+// the wgmma descriptors assume tiles start on that boundary).  A tile is
+// DP/64 column blocks of its rows x 128 bytes: the Q tile 128 rows, a K or V
+// tile kKeys rows (128 keys up to DP 128, 64 at DP 256, where 128-key tiles
+// would need 320 KB).
 template <int DP>
 struct Bf16Smem {
-  static constexpr int kTileBytes = (DP / kBox) * kTile * kRowBytes;   // 128 rows of DP
+  static constexpr int kKeys = DP <= 128 ? 128 : 64;                  // keys per K/V tile
+  static constexpr int kQCol = kQTile * kRowBytes;                    // one Q column block
+  static constexpr int kKVCol = kKeys * kRowBytes;                    // one K/V column block
+  static constexpr int kQBytes = (DP / kBox) * kQCol;
+  static constexpr int kKVBytes = (DP / kBox) * kKVCol;
   static constexpr int kQ = 0;
-  static constexpr int kK = kQ + kTileBytes;                 // [kStages] tiles
-  static constexpr int kV = kK + kStages * kTileBytes;       // [kStages] tiles
-  static constexpr int kBar = kV + kStages * kTileBytes;     // q_full, k_full[], v_full[], empty[]
+  static constexpr int kK = kQ + kQBytes;                    // [kStages] tiles
+  static constexpr int kV = kK + kStages * kKVBytes;         // [kStages] tiles
+  static constexpr int kBar = kV + kStages * kKVBytes;       // q_full, k_full[], v_full[], empty[]
   static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages) + 1024;   // + alignment slack
 };
+static_assert(Bf16Smem<256>::kBytes <= 232448, "DP 256 exceeds the opt-in shared memory");
 
-// Online-softmax update of one thread's two rows of a 64 x 128 score tile,
-// in place: raw scores become probabilities, the running max / denominator
-// move, and the output accumulator is rescaled.  s[4j + 2·half + e] is row
-// r_lo + 8·half, key k0 + 8j + 2·(lane % 4) + e (the wgmma accumulator
-// layout).  The max is kept in raw-score units and `c` = scale·log2(e), so
-// exp(scale·(x - m)) = exp2f(x·c - m·c), one FMA per score.  kMasked: apply
+// Online-softmax update of one thread's two rows of a 64 x (2·NS) score
+// tile, in place: raw scores become probabilities, the running max /
+// denominator move, and the output accumulator is rescaled.
+// s[4j + 2·half + e] is row r_lo + 8·half, key k0 + 8j + 2·(lane % 4) + e
+// (the wgmma accumulator layout).  The max is kept in raw-score units and
+// `c` = scale·log2(e), so exp(scale·(x - m)) = exp2f(x·c - m·c), one FMA per
+// score.  kMasked: apply
 // the kv_len / causal / window masks (edge tiles only; an interior tile
 // keeps every key).
-template <bool kMasked, int NO>
-__device__ __forceinline__ void softmax_tile(float (&s)[kTile / 2], float (&m_i)[2],
+template <bool kMasked, int NS, int NO>
+__device__ __forceinline__ void softmax_tile(float (&s)[NS], float (&m_i)[2],
                                              float (&l_i)[2], float (&o)[NO],
                                              const FlashParams& p, float c, int r_lo,
                                              int k0, int lane) {
@@ -323,7 +345,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[kTile / 2], float (&m_i)
     unsigned kept = 0xffffffffu;   // bit 2j + e: key kept
     float mx = kNegInf;
 #pragma unroll
-    for (int j = 0; j < kTile / 8; ++j)
+    for (int j = 0; j < NS / 4; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         float& x = s[4 * j + 2 * half + e];
@@ -345,7 +367,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[kTile / 2], float (&m_i)
     const float mc = m_new * c;
     float sum = 0.f;
 #pragma unroll
-    for (int j = 0; j < kTile / 8; ++j)
+    for (int j = 0; j < NS / 4; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         float& x = s[4 * j + 2 * half + e];
@@ -370,10 +392,11 @@ flash_fwd_bf16_kernel(const FlashParams p, const __grid_constant__ CUtensorMap t
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v) {
   using L = Bf16Smem<DP>;
+  constexpr int BK = L::kKeys;                   // keys per K/V tile
   constexpr int CB = DP / kBox;                  // 64-wide column blocks per tile
-  constexpr int CB_BYTES = kTile * kRowBytes;    // one column block of 128 rows
+  constexpr int NS = BK / 2;                     // score floats per thread (m64nBK)
   constexpr int NO = DP / 2;                     // output floats per thread (m64nDP)
-  constexpr uint32_t TX = L::kTileBytes;         // bytes one tile's TMA boxes deliver
+  constexpr uint32_t TX = L::kKVBytes;           // bytes one K or V tile's TMA boxes deliver
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base + L::kQ, sK = base + L::kK, sV = base + L::kV;
@@ -382,17 +405,17 @@ flash_fwd_bf16_kernel(const FlashParams p, const __grid_constant__ CUtensorMap t
   auto v_full = [&](int st) { return bar_q + 8u * (1 + kStages + st); };
   auto empty = [&](int st) { return bar_q + 8u * (1 + 2 * kStages + st); };
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;   // heaviest tiles first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kQTile;   // heaviest tiles first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (p.heads / p.kv_heads);
 
   // Key tiles that can hold a kept key for some row of this query tile.
   int k_lo = 0, k_hi = p.kv_len;
-  if (p.causal) k_hi = min(k_hi, q0 + kTile);
+  if (p.causal) k_hi = min(k_hi, q0 + kQTile);
   if (p.window > 0) k_lo = max(0, q0 - p.window + 1);
-  const int t_lo = k_lo / kTile;
-  const int n_tiles = max(0, (k_hi + kTile - 1) / kTile - t_lo);
+  const int t_lo = k_lo / BK;
+  const int n_tiles = max(0, (k_hi + BK - 1) / BK - t_lo);
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
@@ -405,27 +428,29 @@ flash_fwd_bf16_kernel(const FlashParams p, const __grid_constant__ CUtensorMap t
   }
   __syncthreads();
 
-  const int wg = threadIdx.x / kWG;
+  // warp-uniform to ptxas (as CUTLASS's canonical_warp_group_idx), so the
+  // setmaxnreg regions below are too
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / kWG, 0);
   if (wg == 2) {
     // ---- producer: one thread keeps the ring full ----
     setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == 2 * kWG && n_tiles > 0) {
-      mbar_arrive_expect_tx(bar_q, TX);
+      mbar_arrive_expect_tx(bar_q, L::kQBytes);
 #pragma unroll
       for (int cb = 0; cb < CB; ++cb)
-        tma_load_4d(sQ + cb * CB_BYTES, &tm_q, bar_q, cb * kBox, q0, h, b);
+        tma_load_4d(sQ + cb * L::kQCol, &tm_q, bar_q, cb * kBox, q0, h, b);
       for (int i = 0; i < n_tiles; ++i) {
         const int st = i % kStages;
-        const int k0 = (t_lo + i) * kTile;
+        const int k0 = (t_lo + i) * BK;
         mbar_wait(empty(st), ((i / kStages) & 1) ^ 1);   // the first round passes
         mbar_arrive_expect_tx(k_full(st), TX);
 #pragma unroll
         for (int cb = 0; cb < CB; ++cb)
-          tma_load_4d(sK + st * TX + cb * CB_BYTES, &tm_k, k_full(st), cb * kBox, k0, hk, b);
+          tma_load_4d(sK + st * TX + cb * L::kKVCol, &tm_k, k_full(st), cb * kBox, k0, hk, b);
         mbar_arrive_expect_tx(v_full(st), TX);
 #pragma unroll
         for (int cb = 0; cb < CB; ++cb)
-          tma_load_4d(sV + st * TX + cb * CB_BYTES, &tm_v, v_full(st), cb * kBox, k0, hk, b);
+          tma_load_4d(sV + st * TX + cb * L::kKVCol, &tm_v, v_full(st), cb * kBox, k0, hk, b);
       }
     }
   } else {
@@ -439,46 +464,54 @@ flash_fwd_bf16_kernel(const FlashParams p, const __grid_constant__ CUtensorMap t
     float o[NO];
 #pragma unroll
     for (int i = 0; i < NO; ++i) o[i] = 0.f;
-    float s[kTile / 2];
+    float s[NS];
 
     if (n_tiles > 0) mbar_wait(bar_q, 0);
     for (int i = 0; i < n_tiles; ++i) {
       const int st = i % kStages;
       const uint32_t phase = (i / kStages) & 1;
-      const int k0 = (t_lo + i) * kTile;
+      const int k0 = (t_lo + i) * BK;
 
       // S = Q Kᵀ: A = this warpgroup's 64 rows of Q, B = the K tile, both
-      // K-major; k-step kk is 32 bytes into column block kk / 4.
+      // K-major; k-step kk is 32 bytes into column block kk / 4 (Q's column
+      // blocks are 128 rows apart, K's BK rows).
 #pragma unroll
-      for (int j = 0; j < kTile / 2; ++j) s[j] = 0.f;
+      for (int j = 0; j < NS; ++j) s[j] = 0.f;
       mbar_wait(k_full(st), phase);
       fence_acc(s);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk) {
-        const uint32_t off = (kk / 4) * CB_BYTES + (kk % 4) * 32;
-        wgmma_ss_n128(s, smem_desc(sQ + 64 * wg * kRowBytes + off, 16, 1024),
-                      smem_desc(sK + st * TX + off, 16, 1024), kk > 0);
+        const uint32_t col = (kk % 4) * 32;
+        const uint64_t da = smem_desc(sQ + 64 * wg * kRowBytes + (kk / 4) * L::kQCol + col,
+                                      16, 1024);
+        const uint64_t db = smem_desc(sK + st * TX + (kk / 4) * L::kKVCol + col, 16, 1024);
+        if constexpr (BK == 128)
+          wgmma_ss_n128(s, da, db, kk > 0);
+        else
+          wgmma_ss_n64<0, 0>(s, da, db, kk > 0);
       }
       wgmma_commit();
       wgmma_wait_all();
       fence_acc(s);
 
       // Every key of this tile is kept for every row of this warpgroup?
-      const bool interior = k0 + kTile <= p.kv_len &&
-                            (!p.causal || k0 + kTile - 1 <= qw0) &&
+      const bool interior = k0 + BK <= p.kv_len &&
+                            (!p.causal || k0 + BK - 1 <= qw0) &&
                             (p.window <= 0 || k0 > qw0 + 63 - p.window);
       if (interior)
-        softmax_tile<false>(s, m_i, l_i, o, p, c, r_lo, k0, lane);
+        softmax_tile<false, NS>(s, m_i, l_i, o, p, c, r_lo, k0, lane);
       else
-        softmax_tile<true>(s, m_i, l_i, o, p, c, r_lo, k0, lane);
+        softmax_tile<true, NS>(s, m_i, l_i, o, p, c, r_lo, k0, lane);
 
       // O += P V: the score n-tiles 2kk, 2kk + 1, rounded to bf16, are the
       // A fragment of k-step kk (keys 16kk .. 16kk + 15); V is MN-major,
-      // k-step kk 16 rows (2,048 bytes) down, column blocks kTile rows apart.
-      uint32_t pa[kTile / 16][4];
+      // k-step kk 16 rows (2,048 bytes) down, column blocks BK rows apart
+      // (the descriptor's leading offset: 128 rows at BK 64 would read the
+      // wrong keys without any error).
+      uint32_t pa[BK / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < kTile / 16; ++kk) {
+      for (int kk = 0; kk < BK / 16; ++kk) {
         pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
         pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
         pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
@@ -488,12 +521,14 @@ flash_fwd_bf16_kernel(const FlashParams p, const __grid_constant__ CUtensorMap t
       fence_acc(o);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kTile / 16; ++kk) {
-        const uint64_t dv = smem_desc(sV + st * TX + kk * 16 * kRowBytes, CB_BYTES, 1024);
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t dv = smem_desc(sV + st * TX + kk * 16 * kRowBytes, L::kKVCol, 1024);
         if constexpr (DP == 64)
           wgmma_rs_n64(o, pa[kk], dv);
-        else
+        else if constexpr (DP == 128)
           wgmma_rs_n128(o, pa[kk], dv);
+        else
+          wgmma_rs_n256(o, pa[kk], dv);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -546,24 +581,29 @@ template <int DP>
 int launch_bf16(const FlashParams& p, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   if (int err = encode_bf16(&tq, p.q, p.q_stride, p.batch, p.heads, p.sq, p.head_dim)) return err;
-  if (int err = encode_bf16(&tk, p.k, p.k_stride, p.batch, p.kv_heads, p.skv, p.head_dim))
+  constexpr int keys = Bf16Smem<DP>::kKeys;   // K and V boxes: 64 columns x keys rows
+  if (int err = encode_bf16(&tk, p.k, p.k_stride, p.batch, p.kv_heads, p.skv, p.head_dim, keys))
     return err;
-  if (int err = encode_bf16(&tv, p.v, p.v_stride, p.batch, p.kv_heads, p.skv, p.head_dim))
+  if (int err = encode_bf16(&tv, p.v, p.v_stride, p.batch, p.kv_heads, p.skv, p.head_dim, keys))
     return err;
   constexpr int bytes = Bf16Smem<DP>::kBytes;
   if (int err = opt_in_smem(flash_fwd_bf16_kernel<DP>, bytes)) return err;
-  const dim3 grid((p.sq + kTile - 1) / kTile, p.heads, p.batch);
+  const dim3 grid((p.sq + kQTile - 1) / kQTile, p.heads, p.batch);
   flash_fwd_bf16_kernel<DP><<<grid, kBf16Threads, bytes, stream>>>(p, tq, tk, tv);
   return static_cast<int>(cudaGetLastError());
 }
 
 int dispatch(const FlashParams& p, cudaStream_t stream) {
-  if (p.dtype == 1) return p.head_dim <= 64 ? launch_bf16<64>(p, stream)
-                                            : launch_bf16<128>(p, stream);
+  if (p.dtype == 1) {
+    if (p.head_dim <= 64) return launch_bf16<64>(p, stream);
+    if (p.head_dim <= 128) return launch_bf16<128>(p, stream);
+    return launch_bf16<256>(p, stream);
+  }
   if (p.head_dim <= 32) return launch_f32<32>(p, stream);
   if (p.head_dim <= 64) return launch_f32<64>(p, stream);
   if (p.head_dim <= 96) return launch_f32<96>(p, stream);
-  return launch_f32<128>(p, stream);
+  if (p.head_dim <= 128) return launch_f32<128>(p, stream);
+  return launch_f32<256>(p, stream);
 }
 
 }  // namespace
@@ -574,7 +614,7 @@ int dispatch(const FlashParams& p, cudaStream_t stream) {
 // wrapper has checked devices, dtypes, shapes and strides already.
 extern "C" int flash_attention_launch(const FlashParams* params, cudaStream_t stream) {
   const FlashParams& p = *params;
-  if (p.head_dim < 8 || p.head_dim > 128 || p.head_dim % 8 != 0 || p.kv_heads < 1 ||
+  if (p.head_dim < 8 || p.head_dim > 256 || p.head_dim % 8 != 0 || p.kv_heads < 1 ||
       p.heads % p.kv_heads != 0 || p.sq < 1 || p.skv < 1 || p.kv_len > p.skv ||
       p.heads > 65535 || p.batch > 65535)
     return kBadParams;

@@ -11,8 +11,10 @@ q's dtype.  bf16 inputs run on Hopper's tensor cores (``wgmma``, with K and
 V tiles brought in by TMA for two consumer warpgroups; P is rounded to bf16
 for the P·V product), f32 inputs on the CUDA cores in full f32.
 Unlike the reference kernel it needs no padding: any sequence lengths (the
-kernel masks ragged edges itself) and any head dim ``D ≤ 128`` that is a
-multiple of 8, the head dims the configs have (32, 64, 96, 128).
+kernel masks ragged edges itself) and any head dim ``D ≤ 256`` that is a
+multiple of 8, the head dims the configs have (32, 64, 96, 112, 128, 256).
+The kernel rounds D up to 64, 128 or 256 with zero lanes (D 136–256 run at
+256, where the bf16 body takes 64-key K / V tiles).
 
 The tensors may be strided views, so the model's ``(B, S, H, D)``
 activations go in as ``transpose(1, 2)`` views with no copy, and ``out`` may
@@ -25,7 +27,8 @@ so a view the kernel cannot take raises ``ValueError`` before any launch.
 A CUDA tensor launches the kernel — built from source with nvcc at first use
 (``kernels/build.py``) — or raises; a CPU tensor takes the plain PyTorch
 version (``ref.attention_ref``).  There is no fallback from one to the other.
-``flash_attention_kernel.launches`` counts kernel launches (CUDA only).
+``flash_attention_kernel.launches`` counts kernel launches (CUDA only),
+``flash_attention_kernel.launches_by_head_dim`` the same per head dim D.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ import torch
 from repro_torch.kernels import build, refuse_grad
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 HEAD_DIM_MULTIPLE = 8
 ROW_ALIGN_BYTES = 16
 MAX_DIM = 2**31             # the C struct's int fields (TMA itself takes up to 2**32)
@@ -161,7 +164,10 @@ def flash_attention_kernel(
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed: {_launch_error(rc)}")
     flash_attention_kernel.launches += 1
+    by_d = flash_attention_kernel.launches_by_head_dim
+    by_d[d] = by_d.get(d, 0) + 1
     return out
 
 
 flash_attention_kernel.launches = 0
+flash_attention_kernel.launches_by_head_dim = {}

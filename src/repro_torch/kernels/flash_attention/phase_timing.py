@@ -10,11 +10,12 @@ and the producer's thread adds up the cycles it waits for a free stage.
 For the heaviest query tile of head 0, batch 0 it also keeps the clock at
 which each warpgroup starts each tile's S product, so the two warpgroups'
 offset shows whether they take turns on the tensor cores or run in step.
-It runs once at TinyLlama's and Zamba2's prefill layers (B 4, S 4,096,
-causal, bf16) and prints the mean cycles per key tile and warpgroup of each
-step, the producer's waits, and the offsets; it also times the real kernel
-(CUDA events).  The copy goes to ``build/kernels/`` and is never the kernel
-the port runs.
+It runs once at TinyLlama's, Zamba2's and Gemma's prefill layers (B 4,
+S 4,096, causal, bf16; Gemma's D 256 walks 64-key tiles) and prints the mean
+cycles per key tile and warpgroup of each step, the producer's waits, and
+the offsets; it also times the real kernel (CUDA events).  The copy goes to
+``build/kernels/`` and is never the kernel the port runs; it prints the
+copy's spills, since a copy that spills is slower than the kernel.
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ops
 
-SHAPES = {"tinyllama": (4, 32, 4, 4096, 64), "zamba2": (4, 32, 32, 4096, 112)}  # B, H, Hkv, S, D
+SHAPES = {"tinyllama": (4, 32, 4, 4096, 64), "zamba2": (4, 32, 32, 4096, 112),
+          "gemma": (4, 8, 1, 4096, 256)}  # B, H, Hkv, S, D
 PHASES = ("wait K", "S = QK^T", "softmax", "wait V", "P V")
 MAX_TILES = 256   # key tiles whose S start is kept for the traced CTA
 
@@ -102,6 +104,12 @@ def _build_instrumented(ctas: int) -> ctypes.CDLL:
     out = subprocess.run(build.nvcc_command(src, lib), capture_output=True, text=True)
     if out.returncode != 0:
         raise RuntimeError(f"nvcc failed:\n{out.stdout}{out.stderr}")
+    body = None
+    for line in (out.stdout + out.stderr).splitlines():
+        if "Compiling entry" in line:
+            body = line.split("ILi")[1].split("E")[0] if "flash_fwd_bf16" in line else None
+        elif body and "spill" in line:
+            print(f"[flash_phases] instrumented copy, DP {body}: {line.strip()}")
     return ctypes.CDLL(str(lib))
 
 
@@ -121,11 +129,16 @@ def _ms(fn, reps: int = 10, repeats: int = 5) -> float:
     return float(np.median(times))
 
 
-def _tiles(q_tiles: int, s: int, tile: int = 128) -> np.ndarray:
-    """Key tiles each CTA of a causal S x S layer walks, by grid x index
-    (grid x 0 runs the last query tile)."""
+def key_tile(d: int) -> int:
+    """Keys per K / V tile of the bf16 body at head dim ``d`` (64 at DP 256)."""
+    return 128 if d <= 128 else 64
+
+
+def _tiles(q_tiles: int, s: int, tile: int = 128, keys: int = 128) -> np.ndarray:
+    """Key tiles of ``keys`` keys each CTA of a causal S x S layer walks, by
+    grid x index (grid x 0 runs the last query tile of ``tile`` rows)."""
     q0 = (q_tiles - 1 - np.arange(q_tiles)) * tile
-    return (np.minimum(s, q0 + tile) + tile - 1) // tile
+    return (np.minimum(s, q0 + tile) + keys - 1) // keys
 
 
 def main() -> int:
@@ -157,7 +170,8 @@ def main() -> int:
             if rc != 0:
                 raise RuntimeError(f"reading the counters failed: cudaError {rc}")
             n = b * h * (s // 128)
-            tiles = int(_tiles(s // 128, s).sum()) * b * h   # key tiles walked, all CTAs
+            kt = key_tile(d)
+            tiles = int(_tiles(s // 128, s, keys=kt).sum()) * b * h   # key tiles walked, all CTAs
             per_tile = dbg[:n * 10].reshape(n, 2, 5).sum(axis=0) / tiles
             for wg in range(2):
                 parts = ", ".join(f"{p} {c:.0f}" for p, c in zip(PHASES, per_tile[wg]))
@@ -166,7 +180,7 @@ def main() -> int:
                       f"sum {per_tile[wg].sum():.0f}")
             print(f"[flash_phases] {name}: producer waits for a free stage "
                   f"{wait[:n].sum() / tiles:.0f} cycles per key tile")
-            nt = int(_tiles(s // 128, s)[0])
+            nt = int(_tiles(s // 128, s, keys=kt)[0])
             t0, t1 = ts[:nt], ts[MAX_TILES:MAX_TILES + nt]
             off = t1 - t0
             step = np.diff(t0)

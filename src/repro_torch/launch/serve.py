@@ -9,9 +9,14 @@ length must be a multiple of its scan chunk (``ssm_chunk``) or shorter
 than it, as the reference asserts.
 
     python -m repro_torch.launch.serve --arch tinyllama-1.1b --device cpu   # smoke size
+    python -m repro_torch.launch.serve --arch gemma-2b --device cpu
+    python -m repro_torch.launch.serve --arch llama3.2-1b --device cpu
+    python -m repro_torch.launch.serve --arch glm4-9b --device cpu
     python -m repro_torch.launch.serve --arch zamba2-7b --device cpu
     python -m repro_torch.launch.serve --arch zamba2-7b --full \\
         --batch 4 --prompt-len 4096 --gen 32          # one H100
+    python -m repro_torch.launch.serve --arch gemma-2b --full \\
+        --batch 4 --prompt-len 4096 --gen 32          # one H100 (head dim 256)
 """
 
 from __future__ import annotations

@@ -1,11 +1,11 @@
 """The port's flash attention against the JAX package's.
 
 * the plain PyTorch version (what the wrapper runs for a CPU tensor) against
-  the jnp oracle ``attention_ref`` over the reference's seven kernel cases
-  and four ragged ones (lengths off the 64-row tiles, Sq != Skv both ways,
-  GQA 3:1 with a window), f32 and bf16, and against the Pallas
-  ``flash_attention`` in interpret mode on the causal, window-0 cases (the
-  only ones that path honours);
+  the jnp oracle ``attention_ref`` over the reference's seven kernel cases,
+  four ragged ones (lengths off the 64-row tiles, Sq != Skv both ways,
+  GQA 3:1 with a window) and two at head dims above 128 (D 256 MQA, D 192),
+  f32 and bf16, and against the Pallas ``flash_attention`` in interpret mode
+  on the causal, window-0 cases (the only ones that path honours);
 * both layouts (``flash_attention`` on ``(B,S,H,D)``, ``flash_attention_bhsd``)
   and a caller's strided ``out``;
 * the wrapper's checks and its C interface (``struct FlashParams`` in the
@@ -51,12 +51,21 @@ EXTRA = [
     (1, 2, 2, 70, 200, 128, True, 0),
     (1, 2, 1, 200, 70, 64, True, 0),
 ]
-# ragged shapes at each of the bf16 body's two widths, DP 64 and DP 128 with
-# D 112 (chip_smoke.py FLASH_HOPPER); run on a card only
+# head dims above 128, which the kernel runs at DP 256 (Gemma-2b's D 256, MQA)
+WIDE = [
+    (1, 8, 1, 128, 256, 256, True, 0),
+    (1, 2, 2, 128, 128, 192, True, 0),
+]
+# ragged shapes at each of the bf16 body's three widths, DP 64, DP 128 with
+# D 112, DP 256 with its 64-key tiles (chip_smoke.py FLASH_HOPPER); run on a
+# card only
 HOPPER = [
     (2, 2, 2, 129, 257, 32, False, 0),
     (1, 2, 1, 200, 333, 112, True, 0),
     (1, 3, 1, 130, 255, 128, True, 40),
+    (1, 2, 1, 129, 257, 256, False, 0),
+    (2, 8, 1, 130, 255, 256, True, 0),
+    (1, 3, 1, 200, 333, 192, True, 40),
 ]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 ROW_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
@@ -82,7 +91,7 @@ def _close(out: torch.Tensor, ref: np.ndarray, dtype: str) -> None:
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", CASES + EXTRA)
+@pytest.mark.parametrize("case", CASES + EXTRA + WIDE)
 def test_plain_matches_jax_oracle(case, dtype):
     causal, window = case[6], case[7]
     q, k, v = _inputs(case, jnp.dtype(dtype), seed=hash(case) % 2**31)
@@ -95,7 +104,7 @@ def test_plain_matches_jax_oracle(case, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", [c for c in CASES if c[6] and c[7] == 0])
+@pytest.mark.parametrize("case", [c for c in CASES + WIDE if c[6] and c[7] == 0])
 def test_plain_matches_jax_pallas_interpret(case, dtype):
     """Causal, window 0: the cases where the Pallas path computes what it is
     asked (its wrapper drops ``mask``; ``causal=True, window=0`` are its
@@ -144,8 +153,8 @@ def test_wrapper_rejects(bad):
         k = k.to(torch.bfloat16)
     elif bad == "heads":
         k, v = torch.zeros(1, 3, 8, 16), torch.zeros(1, 3, 8, 16)
-    elif bad == "head_dim":
-        q, k, v = (torch.zeros(*t.shape[:3], 160) for t in (q, k, v))
+    elif bad == "head_dim":   # past MAX_HEAD_DIM (256), a multiple of 8
+        q, k, v = (torch.zeros(*t.shape[:3], 264) for t in (q, k, v))
     elif bad == "window":
         kw["window"] = -1
     elif bad == "empty":
@@ -206,10 +215,11 @@ def test_phase_timing_instruments_every_step():
     """The on-card phase-timing tool finds each place it instruments in the
     kernel source exactly once (it raises otherwise)."""
     src = phase_timing.instrumented_source(4096)
-    # the wait loop's own clock (in the included hopper.cuh), the start mark,
-    # five step ends, the producer's two
+    # the start mark, five step ends, the producer's two; the included
+    # hopper.cuh's wait loop reads its clock inside its PTX, not by clock64()
     assert '#include "hopper.cuh"' in src
-    assert (build.CSRC / "hopper.cuh").read_text().count("clock64()") == 1
+    hopper = (build.CSRC / "hopper.cuh").read_text()
+    assert hopper.count("clock64()") == 0 and hopper.count("%%clock64") == 2
     assert src.count("clock64()") == 8
     assert "g_dbg[4096 * 2 * 5]" in src and "flash_dbg_read" in src
 
@@ -217,6 +227,21 @@ def test_phase_timing_instruments_every_step():
 def test_phase_timing_counts_the_key_tiles_of_a_causal_grid():
     # grid x 0 runs the last query tile, which walks every key tile
     assert phase_timing._tiles(4, 512).tolist() == [4, 3, 2, 1]
+    # at DP 256 the bf16 body walks 64-key tiles: two per 128-row query tile
+    assert phase_timing._tiles(4, 512, keys=phase_timing.key_tile(256)).tolist() == \
+        [8, 6, 4, 2]
+    assert phase_timing.key_tile(128) == 128
+
+
+@pytest.mark.parametrize("d", range(8, 257, 8))
+def test_wrapper_accepts_every_head_dim_up_to_256(d):
+    """Every multiple of 8 up to MAX_HEAD_DIM runs (the plain version on the
+    CPU) and agrees with the jnp oracle."""
+    case = (1, 2, 1, 9, 11, d, True, 0)
+    q, k, v = _inputs(case, jnp.float32, seed=d)
+    ref = jops.attention_reference(*map(jnp.asarray, (q, k, v)), causal=True)
+    out = ops.flash_attention(*_torch((q, k, v)), causal=True)
+    _close(out, ref, "float32")
 
 
 def test_flash_attention_is_built_with_the_port():
@@ -231,7 +256,7 @@ def test_cuda_kernel_matches_plain(dtype):
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     gen = torch.Generator(device="cuda").manual_seed(0)
     tol = TOL[str(dtype)[6:]]
-    for b, h, hkv, sq, skv, d, causal, window in CASES + EXTRA + HOPPER:
+    for b, h, hkv, sq, skv, d, causal, window in CASES + EXTRA + WIDE + HOPPER:
         q = torch.randn(b, sq, h, d, device="cuda", generator=gen).to(dtype)
         k = torch.randn(b, skv, hkv, d, device="cuda", generator=gen).to(dtype)
         v = torch.randn(b, skv, hkv, d, device="cuda", generator=gen).to(dtype)
