@@ -121,8 +121,6 @@ _UNPORTED = {
     "llava-next-34b": "Queue 1 item 15 (VLM frontends)",
     "whisper-small": "Queue 1 item 15 (encoder-decoder)",
     "xlstm-125m": "Queue 1 item 15 (xLSTM)",
-    "resnet8": "Queue 1 item 4 (the ResNet task uses fl.tasks, not a config)",
-    "resnet18": "Queue 1 item 4 (the ResNet task uses fl.tasks, not a config)",
 }
 
 
@@ -155,6 +153,7 @@ def _ensure_loaded() -> None:
     if _LOADED:
         return
     from repro_torch.configs import (  # noqa: F401  (register)
-        gemma_2b, glm4_9b, llama3_2_1b, nlp_transformer, tinyllama_1_1b, zamba2_7b)
+        gemma_2b, glm4_9b, llama3_2_1b, nlp_transformer, resnet, tinyllama_1_1b,
+        zamba2_7b)
 
     _LOADED = True

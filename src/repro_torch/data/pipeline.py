@@ -3,8 +3,10 @@ deterministic shuffling, plus a balanced held-out eval set (the paper tests
 the global model on a balanced set).
 
 A numpy-only copy of ``repro.data.pipeline``, value-identical, including
-``stack_client_batches``: the vmap engine's pad-and-mask stacking (clients
-bucketed by batch width, ragged step counts padded at the tail).
+``stack_client_batches``: the batched engines' pad-and-mask stacking
+(clients bucketed by batch width, ragged step counts padded at the tail,
+and with ``pad_clients_to`` the client axis padded for the shard_map
+engine).
 """
 
 from __future__ import annotations
@@ -83,16 +85,26 @@ def stack_client_batches(
     batch_size: int,
     epochs: int,
     seeds: Sequence[int],
+    *,
+    pad_clients_to: int = 1,
 ) -> list[StackedClientBatches]:
     """Stack the round's clients into vmap-ready buckets.
 
     Clients are bucketed by effective batch width ``min(batch_size, n)`` (one
     batch shape per bucket); within a bucket, ragged step counts are
     padded with the client's first batch and masked out via ``step_valid``.
+
+    ``pad_clients_to`` rounds each bucket's client axis up to a multiple of
+    it by appending padding clients (the first member's data, ``step_valid``
+    all zero): the shard_map engine gives every rank the same number of
+    clients, and a padding client carries zero aggregation weight.
+    ``members`` lists the real clients only.
     """
     out = []
-    for members, plans, valid in bucket_plans(datasets, batch_size, epochs, seeds):
+    for members, plans, valid in bucket_plans(datasets, batch_size, epochs, seeds,
+                                              pad_clients_to=pad_clients_to):
         src = [datasets[i] for i in members]
+        src += [src[0]] * (len(plans) - len(src))
         out.append(StackedClientBatches(
             inputs=np.stack([d.inputs[pl] for d, pl in zip(src, plans)]),
             labels=np.stack([d.labels[pl] for d, pl in zip(src, plans)]),
@@ -105,13 +117,19 @@ def bucket_plans(
     batch_size: int,
     epochs: int,
     seeds: Sequence[int],
+    *,
+    pad_clients_to: int = 1,
 ) -> list[tuple[tuple[int, ...], np.ndarray, np.ndarray]]:
     """The index side of ``stack_client_batches``: per bucket, ``(members,
     plans, step_valid)`` with ``plans`` the ``(clients, steps, bs)`` batch
     indices into each client's own dataset, so an engine can gather the
-    batches where the data lives."""
+    batches where the data lives.  Rows past ``len(members)`` are the
+    padding clients of ``pad_clients_to``: the first member's plan, never
+    valid."""
     if len(datasets) != len(seeds):
         raise ValueError("one seed per client dataset is required")
+    if pad_clients_to < 1:
+        raise ValueError(f"pad_clients_to must be >= 1, got {pad_clients_to}")
     buckets: dict[int, list[int]] = {}
     for pos, ds in enumerate(datasets):
         buckets.setdefault(min(batch_size, len(ds)), []).append(pos)
@@ -131,6 +149,9 @@ def bucket_plans(
             v = np.zeros(max_steps, dtype=np.float32)
             v[: max_steps - pad] = 1.0
             valid.append(v)
+        for _ in range(-len(members) % pad_clients_to):
+            padded.append(padded[0])
+            valid.append(np.zeros(max_steps, dtype=np.float32))
         out.append((tuple(members), np.stack(padded), np.stack(valid)))
     return out
 

@@ -1,5 +1,5 @@
 """Client-simulation engines (port of ``repro.fl.batched``): the sequential
-oracle and the vmap engine.
+oracle, the vmap engine and the multi-device shard_map engine.
 
 * ``SequentialEngine`` trains the round's clients one at a time through
   ``LocalTrainer.run_local_round`` and aggregates on the device: the full
@@ -14,57 +14,69 @@ oracle and the vmap engine.
   ``fused_adam``, one launch of the cohort masked-Adam kernel for the whole
   bucket.  The round ends in one stacked aggregation
   (``core.aggregation.*_stacked``).
+* ``ShardMapEngine`` shards each bucket's client axis over the ranks of a
+  ``torch.distributed`` client mesh (``launch.mesh.make_client_mesh``; one
+  process per device): each rank trains its share as the vmap engine
+  does, reduces it to its weighted transmitted update, and one
+  ``all_reduce`` per bucket sums the ranks' updates (the reference's
+  ``psum``), so only the round's transmitted subtree crosses ranks.
 
 Transmission compression (``core.compress``): an engine built with
 ``compression=`` (a ``CompressionConfig``; ``None`` = off, the uncompressed
 paths untouched) replaces each client's transmitted leaves by
 ``global + Q(update + residual)`` right before aggregation — the sequential
 engine per client, the vmap engine once for the whole cohort's stacked
-trees.  Error-feedback residuals are kept per real client id (``run_round``
-then needs ``client_ids=``) in the engine's ``ClientStateStore`` under
-``"ef"`` (``run_federated`` passes the run's).  MOON keeps the uncompressed
-local models.
+trees, the shard_map engine once per rank's share, before its all-reduce
+(so only compressed values cross ranks).  Error-feedback residuals are
+kept per real client id (``run_round`` then needs ``client_ids=``) in the
+engine's ``ClientStateStore`` under ``"ef"`` (``run_federated`` passes the
+run's).  MOON keeps the uncompressed local models.
 
-Beside ``run_round`` (train and aggregate), both engines expose the async
+Beside ``run_round`` (train and aggregate), every engine exposes the async
 runtime's backend (``fl.runtime``): ``run_local_async`` trains one cohort
 against the global params it is given and returns its stacked local models
 and its ``(K,)`` losses without aggregating and without syncing the host
 (the vmap engine leaves the losses on the device; the runtime reads them
 when the cohort resolves); ``run_local`` is its blocking form.
 ``cohort_pool`` gives the vmap engine's slots for concurrent cohorts
-(``launch.mesh.SubmeshPool``, one per visible device), and
-``run_local_async(submesh=...)`` places a cohort on its slot's device.
+(``launch.mesh.SubmeshPool``, one per visible device; the shard_map
+engine's ``RankPool``, one per rank), and ``run_local_async(submesh=...)``
+places a cohort on its slot.
 ``VmapEngine.run_round`` is ``run_local_async`` plus the aggregation.  No
 CUDA streams are used: a cohort's launches go to the current stream of its
 slot's device, where ``MaskedAdamCohort`` binds its kernel.
 
 The reference's ``jit`` buffer donation has no counterpart: the port
 updates its packed buffers in place and never writes the global params, so
-there is nothing to donate.  The shard_map engine (ROADMAP Queue 1 item
-13) is not ported and raises.
+there is nothing to donate.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Sequence
+import math
+from typing import ClassVar, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import aggregation, compress, masking
 from repro_torch.core.partition import Partition
 from repro_torch.core.schedule import RoundSpec, round_base_mask
 from repro_torch.data.pipeline import ClientDataset, bucket_plans
 from repro_torch.fl.algorithms import AlgoConfig
-from repro_torch.fl.client import LocalTrainer
+from repro_torch.fl.client import FUSED_BLOCK_ROWS, LocalTrainer
 from repro_torch.fl.population import ClientStateStore
-from repro_torch.launch.mesh import SubmeshPool, visible_devices
+from repro_torch.kernels.masked_adam import ops as madam_ops
+from repro_torch.launch.mesh import (CLIENT_AXIS, RankPool, SubmeshPool,  # noqa: F401
+                                     make_client_mesh, visible_devices)
 from repro_torch.optim.partial import guard_fused_config
-from repro_torch.tree import PyTree, tree_leaves, tree_map
+from repro_torch.tree import (PyTree, tree_from_paths, tree_leaves, tree_map,
+                              tree_map_with_path, tree_paths)
 
-ENGINES = ("sequential", "vmap")
+ENGINES = ("sequential", "vmap", "shard_map")
 
 
 def resolve_plan(plan, spec: RoundSpec, num_groups: int):
@@ -297,34 +309,70 @@ class _BatchedEngineBase(_CompressionState):
             raise ValueError(
                 f"client weights must sum to a positive value, got {sum(weights)}")
 
-    @staticmethod
-    def _bucket_gmask(plan: np.ndarray, members: tuple[int, ...]) -> np.ndarray:
-        """This bucket's rows of the cohort plan, ``(clients, M)`` bool."""
-        return plan[list(members)]
-
     def _buckets(self, params: PyTree, datasets: Sequence[ClientDataset], *,
                  batch_size: int, epochs: int, seeds: Sequence[int],
-                 prev_params: Sequence[PyTree | None] | None, use_prev: bool):
+                 prev_params: Sequence[PyTree | None] | None, use_prev: bool,
+                 pad_clients_to: int = 1, shard: tuple[int, int] = (0, 1)):
         """Yield ``(members, inputs, labels, step_valid, prev_arg)`` per
-        batch-width bucket: ``inputs`` / ``labels`` the ``(clients, steps,
-        bs, ...)`` batches gathered on the params' device, ``prev_arg`` the
-        stacked MOON previous local models (the global model where a client
-        has none) or ``None``."""
+        batch-width bucket.  The bucket's client axis is padded to a
+        multiple of ``pad_clients_to`` (``data.pipeline.bucket_plans``) and
+        ``shard = (rank, ranks)`` keeps the rank's contiguous share of it:
+        rows ``rank * n`` to ``(rank + 1) * n`` for ``n`` rows a rank;
+        ``members`` are the bucket's real clients.  ``inputs`` / ``labels``
+        are the rows' ``(clients, steps, bs, ...)`` batches gathered on the
+        params' device, ``prev_arg`` the rows' stacked MOON previous local
+        models (the global model for a client with none and for a padding
+        client) or ``None``."""
         device = tree_leaves(params)[0].device
+        rank, ranks = shard
         for members, plans, valid in bucket_plans(datasets, batch_size, epochs,
-                                                  seeds):
+                                                  seeds, pad_clients_to=pad_clients_to):
+            per = len(plans) // ranks
+            rows = range(rank * per, (rank + 1) * per)
+            src = [members[r] if r < len(members) else members[0] for r in rows]
             xs, ys = [], []
-            for m, plan in zip(members, plans):
-                idx = torch.as_tensor(plan, device=device)
+            for m, r in zip(src, rows):
+                idx = torch.as_tensor(plans[r], device=device)
                 xs.append(torch.as_tensor(datasets[m].inputs, device=device)[idx])
                 ys.append(torch.as_tensor(np.asarray(datasets[m].labels, np.int64),
                                           device=device)[idx])
             prev_arg = None
             if use_prev:
                 prev_arg = masking.stack_trees([
-                    prev_params[m] if prev_params is not None
-                    and prev_params[m] is not None else params for m in members])
-            yield members, torch.stack(xs), torch.stack(ys), valid, prev_arg
+                    prev_params[m] if r < len(members) and prev_params is not None
+                    and prev_params[m] is not None else params
+                    for m, r in zip(src, rows)])
+            yield (members, torch.stack(xs), torch.stack(ys),
+                   valid[rows.start:rows.stop], prev_arg)
+
+    def _cohort_parts(self, params: PyTree, spec: RoundSpec,
+                      datasets: Sequence[ClientDataset], *, seeds: Sequence[int],
+                      epochs: int, batch_size: int,
+                      prev_params: Sequence[PyTree | None] | None, plan,
+                      pad_clients_to: int = 1, shard: tuple[int, int] = (0, 1)):
+        """Train each bucket's ``rows`` together (``LocalTrainer.
+        run_cohort_round``: fused, one cohort-kernel launch per local step);
+        yields ``(members, rows, stacked locals, losses)`` per bucket, the
+        outputs over ``rows`` (``plan`` already resolved; a padding row's
+        plan trains nothing)."""
+        use_prev = self.algo.name == "moon"
+        dev = tree_leaves(params)[0].device
+        ctx = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+        with ctx:
+            for members, xs, ys, valid, prev_arg in self._buckets(
+                    params, datasets, batch_size=batch_size, epochs=epochs,
+                    seeds=seeds, prev_params=prev_params, use_prev=use_prev,
+                    pad_clients_to=pad_clients_to, shard=shard):
+                rows = range(shard[0] * len(xs), (shard[0] + 1) * len(xs))
+                gm = None
+                if plan is not None:
+                    gm = np.zeros((len(rows), plan.shape[1]), dtype=bool)
+                    real = [r for r in rows if r < len(members)]
+                    gm[:len(real)] = plan[[members[r] for r in real]]
+                stacked, losses = self.trainer.run_cohort_round(
+                    params, xs, ys, valid, group=spec.group, plan_rows=gm,
+                    prev_params=prev_arg, fused=self.fused_adam)
+                yield members, rows, stacked, losses
 
     @staticmethod
     def _gather_order(parts: list[tuple[tuple[int, ...], PyTree, torch.Tensor]],
@@ -382,20 +430,11 @@ class _BatchedEngineBase(_CompressionState):
         cohorts first.  ``submesh`` (from ``cohort_pool``) runs the cohort
         on its slot's device."""
         plan = resolve_plan(plan, spec, self.partition.num_groups)
-        use_prev = self.algo.name == "moon"
         params, prev_params = self._place_cohort_args(params, prev_params, submesh)
-        dev = tree_leaves(params)[0].device
-        ctx = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
-        parts = []
-        with ctx:
-            for members, xs, ys, valid, prev_arg in self._buckets(
-                    params, datasets, batch_size=batch_size, epochs=epochs,
-                    seeds=seeds, prev_params=prev_params, use_prev=use_prev):
-                stacked, losses = self.trainer.run_cohort_round(
-                    params, xs, ys, valid, group=spec.group,
-                    plan_rows=None if plan is None else self._bucket_gmask(plan, members),
-                    prev_params=prev_arg, fused=self.fused_adam)
-                parts.append((members, stacked, losses))
+        parts = [(members, stacked, losses) for members, _, stacked, losses in
+                 self._cohort_parts(params, spec, datasets, seeds=seeds, epochs=epochs,
+                                    batch_size=batch_size, prev_params=prev_params,
+                                    plan=plan)]
         return self._gather_order(parts, len(datasets))
 
     def run_local(
@@ -470,13 +509,351 @@ class VmapEngine(_BatchedEngineBase):
         return new_params, losses_dev.tolist(), new_locals
 
 
+def _transmitted_rows(params: PyTree, partition: Partition, groups,
+                      block_rows: int = FUSED_BLOCK_ROWS) -> np.ndarray:
+    """Packed-row indices of the round's transmitted blocks: the blocks of
+    ``groups``' leaves minus BN running moments, in ``madam_ops.pack``
+    layout (the subtree the tree epilogue selects and ``drop_local_stats``-es)."""
+    bm = madam_ops.block_mask_for_group(params, partition, groups, block_rows,
+                                        exclude=aggregation.is_local_stat)
+    blocks = np.flatnonzero(bm)
+    return (blocks[:, None] * block_rows + np.arange(block_rows)[None, :]).reshape(-1)
+
+
+def _plan_rows(params: PyTree, partition: Partition,
+               block_rows: int = FUSED_BLOCK_ROWS) -> tuple[np.ndarray, np.ndarray]:
+    """(rows, per-row group ids) for plan rounds: every non-stat block
+    travels (any client may have trained it), each row weighted by its
+    group's per-client weight."""
+    gids = madam_ops.block_group_ids(params, partition, block_rows,
+                                     exclude=aggregation.is_local_stat)
+    blocks = np.flatnonzero(gids >= 0)
+    rows = (blocks[:, None] * block_rows + np.arange(block_rows)[None, :]).reshape(-1)
+    return rows, np.repeat(gids[blocks], block_rows)
+
+
+def _flat_rows(tree: PyTree, lead: int) -> tuple[torch.Tensor, list]:
+    """The leaves of ``tree`` (each with a leading axis of ``lead``, all of
+    one dtype) as one ``(lead, n)`` buffer, and the layout ``_unflat_rows``
+    needs: one collective for the tree instead of one per leaf."""
+    items = tree_paths(tree)
+    if len({leaf.dtype for _, leaf in items}) > 1:
+        raise ValueError("a tree crossing ranks must have one dtype, got "
+                         f"{sorted({str(leaf.dtype) for _, leaf in items})}")
+    buf = torch.cat([leaf.reshape(lead, -1) for _, leaf in items], dim=1)
+    return buf, [(path, tuple(leaf.shape[1:])) for path, leaf in items]
+
+
+def _unflat_rows(buf: torch.Tensor, layout: list) -> PyTree:
+    pieces = buf.split([math.prod(shape) for _, shape in layout], dim=1)
+    return tree_from_paths((path, piece.reshape((buf.shape[0],) + shape))
+                           for (path, shape), piece in zip(layout, pieces))
+
+
+@dataclasses.dataclass
+class ShardMapEngine(_BatchedEngineBase):
+    """Multi-device engine: each bucket's client axis sharded over the ranks
+    of a one-dimensional ``"clients"`` mesh (``launch.mesh.make_client_mesh``;
+    one process per device, NCCL on the card, gloo on the CPU).
+
+    Every rank runs the same server loop on the same seeds and holds the
+    global params; ``run_round`` pads each bucket to a multiple of the
+    world size (padding clients: the first member's data, never a valid
+    step, zero weight) and each rank trains its contiguous share of it
+    through ``LocalTrainer.run_cohort_round`` (fused: one cohort-kernel
+    launch per local step).  Each rank reduces its share to the round's
+    weight-scaled transmitted update, and one ``all_reduce`` per bucket sums
+    the ranks' updates — the reference's ``psum``.  Only the transmitted
+    subtree crosses ranks: the trainable group's leaves, BN running moments
+    never; fused, the packed transmitted rows alone (``_transmitted_rows``;
+    ``_plan_rows`` under a per-client plan), one ``(rows, 128)`` f32 buffer.
+    Under compression each rank compresses its clients' updates before the
+    reduction, so only compressed values travel, and the per-leaf form
+    reduces.  The buckets' sums are spliced into the global params the same
+    way on every rank, so the ranks' params stay bit-identical.  The
+    losses, MOON's local models and the new error-feedback residuals are
+    ``all_gather``-ed, so every rank holds every client's, whichever rank
+    trains it next round.
+
+    The async runtime's backend: ``run_local_async`` shards a cohort over
+    every rank and gathers its locals; with a slot of ``cohort_pool`` (a
+    ``launch.mesh.RankPool``) the slot's rank trains the whole cohort and
+    ``broadcast``s it.
+
+    ``ShardMapEngine.traffic`` records each ``run_round``'s collectives
+    (calls and bytes of the update's ``all_reduce`` and of the
+    ``all_gather``-s); the caller resets it."""
+
+    name: str = "shard_map"
+    devices: int = 0                # mesh size: 0 = every rank
+    device_type: str = "cuda"       # "cuda": an NCCL group, "cpu": a gloo one
+    traffic: ClassVar[list[dict]] = []
+
+    def __post_init__(self):
+        super().__post_init__()
+        self.mesh = make_client_mesh(self.devices, self.device_type)
+        self.group = self.mesh.get_group()
+        self.rank = self.mesh.get_local_rank()
+        self._rows: dict = {}
+
+    @property
+    def num_devices(self) -> int:
+        return self.mesh.size()
+
+    # -- collectives --------------------------------------------------------
+
+    def _check_device(self, params: PyTree) -> torch.device:
+        dev = tree_leaves(params)[0].device
+        if dev.type != self.device_type:
+            raise ValueError(f"the {self.device_type} client mesh cannot reduce "
+                             f"tensors on {dev}")
+        return dev
+
+    def _all_reduce(self, t: torch.Tensor, rec: dict) -> torch.Tensor:
+        dist.all_reduce(t, group=self.group)
+        rec["all_reduce_calls"] += 1
+        rec["all_reduce_bytes"] += t.numel() * t.element_size()
+        return t
+
+    def _all_reduce_tree(self, update: PyTree, rec: dict) -> PyTree:
+        """``_all_reduce`` of an f32 tree as one flat buffer."""
+        buf, layout = _flat_rows(tree_map(lambda x: x[None], update), 1)
+        return tree_map(lambda x: x[0], _unflat_rows(self._all_reduce(buf, rec), layout))
+
+    def _all_gather(self, t: torch.Tensor, rec: dict | None) -> torch.Tensor:
+        """Every rank's ``t`` concatenated along the leading axis, in rank
+        order: the bucket's rows in order."""
+        t = t.contiguous()
+        out = [torch.empty_like(t) for _ in range(self.num_devices)]
+        dist.all_gather(out, t, group=self.group)
+        if rec is not None:
+            rec["all_gather_calls"] += 1
+            rec["all_gather_bytes"] += t.numel() * t.element_size() * len(out)
+        return torch.cat(out)
+
+    def _all_gather_tree(self, stacked: PyTree, rec: dict | None) -> PyTree:
+        buf, layout = _flat_rows(stacked, tree_leaves(stacked)[0].shape[0])
+        return _unflat_rows(self._all_gather(buf, rec), layout)
+
+    def _rows_for(self, params: PyTree, group) -> torch.Tensor:
+        """The fused epilogue's row index on the params' device: the
+        transmitted rows of ``group`` (``-1``: every group), or the plan
+        rows for ``group="plan"``; built once per (group, device)."""
+        dev = tree_leaves(params)[0].device
+        key = (group, str(dev))
+        if key not in self._rows:
+            if group == "plan":
+                rows, gids = _plan_rows(params, self.partition)
+                self._rows[key] = (torch.as_tensor(rows, device=dev),
+                                   torch.as_tensor(gids, device=dev))
+            else:
+                sel = tuple(range(self.partition.num_groups)) if group < 0 else group
+                self._rows[key] = torch.as_tensor(
+                    _transmitted_rows(params, self.partition, sel), device=dev)
+        return self._rows[key]
+
+    # -- the per-rank epilogue and the splice ---------------------------------
+
+    def _epilogue(self, params: PyTree, stacked: PyTree, group: int, plan, w,
+                  packed_form: bool):
+        """The rank's weight-scaled sum of its clients' transmitted update:
+        ``w`` is ``(clients,)`` (homogeneous) or ``(clients, M)`` per-group
+        weights (plan), zero for padding clients.  ``packed_form``: the
+        ``(rows, 128)`` packed transmitted rows, else a tree."""
+        if packed_form:
+            packed, _ = madam_ops.pack_stacked(stacked, FUSED_BLOCK_ROWS)
+            if plan is None:
+                return torch.tensordot(w, packed[:, self._rows_for(params, group)], dims=1)
+            rows, gids = self._rows_for(params, "plan")
+            return torch.einsum("ct,ctl->tl", w[:, gids], packed[:, rows])
+        if plan is None:
+            sub = stacked if group < 0 else masking.select(stacked, self.partition, group)
+            return tree_map(lambda x: torch.tensordot(w, x.float(), dims=1),
+                            aggregation.drop_local_stats(sub))
+        return tree_map_with_path(
+            lambda path, x: torch.tensordot(w[:, self.partition.group_of(path)],
+                                            x.float(), dims=1),
+            aggregation.drop_local_stats(stacked))
+
+    def _splice(self, params: PyTree, summed, group: int, trained, packed_form: bool):
+        """Write the summed update into the global params: fused, scatter
+        the rows into ``madam_ops.pack(params)`` and unpack (untransmitted
+        leaves round-trip bit-exact); a group nobody trained (``trained``,
+        plan rounds) keeps the global bit-identical."""
+        if packed_form:
+            pg, meta = madam_ops.pack(params, FUSED_BLOCK_ROWS)
+            if trained is None:
+                pg[self._rows_for(params, group)] = summed
+            else:
+                rows, gids = self._rows_for(params, "plan")
+                keep = torch.as_tensor(trained, device=pg.device)[gids][:, None]
+                pg[rows] = torch.where(keep, summed, pg[rows])
+            return madam_ops.unpack(pg, meta)
+        if trained is None:
+            ref = params if group < 0 else masking.select(params, self.partition, group)
+            averaged = tree_map(lambda s, r: s.to(r.dtype), summed,
+                                aggregation.drop_local_stats(ref))
+        else:
+            averaged = tree_map_with_path(
+                lambda path, s, r: (s.to(r.dtype) if trained[self.partition.group_of(path)]
+                                    else r),
+                summed, aggregation.drop_local_stats(params))
+        return masking.tree_update(params, averaged)
+
+    # -- round execution ---------------------------------------------------
+
+    def run_round(
+        self,
+        params: PyTree,
+        spec: RoundSpec,
+        datasets: Sequence[ClientDataset],
+        *,
+        seeds: Sequence[int],
+        weights: Sequence[float],
+        epochs: int,
+        batch_size: int,
+        prev_params: Sequence[PyTree | None] | None = None,
+        tracker=None,
+        plan=None,
+        client_ids: Sequence[int] | None = None,
+    ) -> tuple[PyTree, list[float], list[PyTree] | None]:
+        """Train the rank's share of every bucket, reduce it, ``all_reduce``
+        one update per bucket and splice their sum; the losses (and MOON's
+        locals) come back in the round's client order on every rank."""
+        self._guard_round(weights, tracker)
+        plan = resolve_plan(plan, spec, self.partition.num_groups)
+        ids = self._require_client_ids(client_ids, len(datasets))
+        dev = self._check_device(params)
+        use_prev = self.algo.name == "moon"
+        cfg = self.compression
+        packed_form = self.fused_adam and cfg is None
+        w = np.asarray(weights, dtype=np.float32)
+        if plan is None:
+            w_cohort, trained = w / w.sum(), None
+        else:
+            # per-group participant denominators over the whole cohort
+            denom = aggregation.plan_group_denominators(plan, w)
+            w_cohort = (w[:, None] * plan.astype(np.float32)
+                        / np.where(denom > 0, denom, 1.0)[None, :])
+            trained = denom > 0
+        rec = {"group": spec.group, "all_reduce_calls": 0, "all_reduce_bytes": 0,
+               "all_gather_calls": 0, "all_gather_bytes": 0}
+        updates, parts = [], []
+        for members, rows, stacked, losses in self._cohort_parts(
+                params, spec, datasets, seeds=seeds, epochs=epochs,
+                batch_size=batch_size, prev_params=prev_params, plan=plan,
+                pad_clients_to=self.num_devices, shard=(self.rank, self.num_devices)):
+            real = [members[r] for r in rows if r < len(members)]
+            wb = np.zeros((len(rows),) + w_cohort.shape[1:], dtype=np.float32)
+            wb[:len(real)] = w_cohort[real]
+            send = stacked                   # MOON keeps the TRUE locals
+            if cfg is not None:
+                res = masking.stack_trees(
+                    [self._residual_for(ids[m], params) for m in real]
+                    + [compress.init_residual(params)] * (len(rows) - len(real)))
+                if plan is None:
+                    send, new_res = compress.transmit_tree(
+                        params, stacked, res, cfg, partition=self.partition,
+                        groups=None if spec.is_full else (spec.group,), stacked=True)
+                else:
+                    gm = np.zeros((len(rows), plan.shape[1]), dtype=bool)
+                    gm[:len(real)] = plan[real]
+                    send, new_res = compress.transmit_tree_plan(
+                        params, stacked, res, gm, cfg, partition=self.partition,
+                        stacked=True)
+                new_res = self._all_gather_tree(new_res, rec)
+                for i, m in enumerate(members):
+                    self.state_store.put("ef", ids[m],
+                                         tree_map(lambda x, i=i: x[i].clone(), new_res))
+            update = self._epilogue(params, send, spec.group, plan,
+                                    torch.as_tensor(wb, device=dev), packed_form)
+            updates.append(self._all_reduce(update, rec) if packed_form
+                           else self._all_reduce_tree(update, rec))
+            n = len(members)
+            gathered = self._all_gather_tree(stacked, rec) if use_prev else {}
+            parts.append((members, tree_map(lambda x: x[:n], gathered),
+                          self._all_gather(losses, rec)[:n]))
+        summed = sum(updates) if packed_form else tree_map(lambda *xs: sum(xs), *updates)
+        new_params = self._splice(params, summed, spec.group, trained, packed_form)
+        locals_, losses = self._gather_order(parts, len(datasets))
+        new_locals = ([tree_map(torch.clone, t)
+                       for t in masking.unstack_tree(locals_, len(datasets))]
+                      if use_prev else None)
+        ShardMapEngine.traffic.append(rec)
+        return new_params, losses.tolist(), new_locals
+
+    # -- cohort execution (the async runtime's backend) ----------------------
+
+    def cohort_pool(self, max_inflight: int, device_type: str = "cuda"):
+        """Width-1 rank slots, at most ``min(max_inflight, ranks)``; ``None``
+        for one cohort at a time (sharded over every rank)."""
+        if max_inflight <= 1:
+            return None
+        dev = (torch.device("cuda", torch.cuda.current_device())
+               if self.device_type == "cuda" else torch.device("cpu"))
+        return RankPool(max_inflight, self.mesh, dev)
+
+    def run_local_async(
+        self,
+        params: PyTree,
+        spec: RoundSpec,
+        datasets: Sequence[ClientDataset],
+        *,
+        seeds: Sequence[int],
+        epochs: int,
+        batch_size: int,
+        prev_params: Sequence[PyTree | None] | None = None,
+        submesh=None,
+        plan=None,
+    ) -> tuple[PyTree, torch.Tensor]:
+        """Train one cohort without aggregating; every rank returns the
+        cohort's stacked locals and ``(K,)`` losses in ``datasets`` order.
+        Without ``submesh`` the cohort is sharded over every rank and
+        gathered; with one (a ``RankPool`` slot) its rank trains it whole
+        and broadcasts it."""
+        plan = resolve_plan(plan, spec, self.partition.num_groups)
+        self._check_device(params)
+        kw = dict(seeds=seeds, epochs=epochs, batch_size=batch_size,
+                  prev_params=prev_params, plan=plan)
+        if submesh is None:
+            parts = []
+            for members, _, stacked, losses in self._cohort_parts(
+                    params, spec, datasets, **kw, pad_clients_to=self.num_devices,
+                    shard=(self.rank, self.num_devices)):
+                n = len(members)
+                parts.append((members,
+                              tree_map(lambda x: x[:n], self._all_gather_tree(stacked, None)),
+                              self._all_gather(losses, None)[:n]))
+            return self._gather_order(parts, len(datasets))
+        src, num = submesh.ranks[0], len(datasets)
+        if self.rank == src:
+            parts = [(members, stacked, losses) for members, _, stacked, losses in
+                     self._cohort_parts(params, spec, datasets, **kw)]
+            stacked, losses = self._gather_order(parts, num)
+        else:
+            stacked = tree_map(lambda p: torch.empty((num,) + tuple(p.shape),
+                                                     dtype=p.dtype, device=p.device),
+                               params)
+            losses = torch.empty(num, dtype=torch.float32,
+                                 device=tree_leaves(params)[0].device)
+        buf, layout = _flat_rows(stacked, num)
+        losses = losses.contiguous()
+        for t in (buf, losses):
+            dist.broadcast(t, src=src, group=self.group)
+        return _unflat_rows(buf, layout), losses
+
+
 def make_engine(name: str, *, trainer: LocalTrainer, partition: Partition,
-                algo: AlgoConfig, fused_adam: bool = False,
+                algo: AlgoConfig, sim_devices: int = 0, fused_adam: bool = False,
                 compression: compress.CompressionConfig | None = None,
-                state_store: ClientStateStore | None = None):
-    """Build a client-simulation engine by name (``"sequential"`` or
-    ``"vmap"``); without ``state_store`` it keeps its residuals in an
-    unbounded store of its own."""
+                state_store: ClientStateStore | None = None,
+                device_type: str = "cuda"):
+    """Build a client-simulation engine by name (``"sequential"``,
+    ``"vmap"`` or ``"shard_map"``); without ``state_store`` it keeps its
+    residuals in an unbounded store of its own.  ``sim_devices`` and
+    ``device_type`` size and place the shard_map engine's client mesh
+    (0 = every rank of the process group; ``"cuda"``: NCCL, ``"cpu"``:
+    gloo) and are ignored by the other engines."""
     kw = dict(trainer=trainer, partition=partition, algo=algo,
               fused_adam=fused_adam, compression=compression,
               state_store=ClientStateStore() if state_store is None else state_store)
@@ -485,7 +862,5 @@ def make_engine(name: str, *, trainer: LocalTrainer, partition: Partition,
     if name == "vmap":
         return VmapEngine(**kw)
     if name == "shard_map":
-        raise NotImplementedError(
-            "engine='shard_map' is not ported yet (ROADMAP Queue 1 item 13); "
-            "use engine='sequential' or 'vmap'")
+        return ShardMapEngine(**kw, devices=sim_devices, device_type=device_type)
     raise ValueError(f"unknown engine {name!r}; expected one of {ENGINES}")

@@ -10,9 +10,9 @@ discrete-event simulation:
    scheduled for version ``v`` (``core.schedule.ScheduleIndex``; under a
    per-client plan, its own group set) against the version-``v`` model.  Up
    to ``max_inflight_cohorts`` cohorts fly at once, each launched on a free
-   slot of ``engine.cohort_pool`` (``launch.mesh.SubmeshPool``); with no
-   free slot the launch queues while the dispatch is still booked at its
-   virtual time.
+   slot of ``engine.cohort_pool`` (``launch.mesh.SubmeshPool``; on the
+   shard_map engine a ``RankPool``, one rank a slot); with no free slot the
+   launch queues while the dispatch is still booked at its virtual time.
 2. **Flight.**  Each member's completion is booked on the virtual clock:
    local compute scaled by the client's speed, the transmitted subtree's
    transfer down and up, latency jitter and dropout, from the seeded
@@ -36,7 +36,10 @@ device): ``resolve``, at a cohort's first popped member event, is where the
 host first waits for it.  No captured version-``v`` tree is ever written:
 the merge builds new leaves.  Per-dispatch host work is O(cohort), never
 O(population): Floyd sampling over ``range(n)`` minus the busy set, lazy
-per-id speeds and traces, shards built for picked members only.
+per-id speeds and traces, shards built for picked members only.  The host
+clock (``time.perf_counter``) feeds ``host_seconds`` and nothing else, so
+the shard_map engine's ranks, each running this loop, take the same
+decisions and issue the same collectives in the same order.
 
 In the degenerate configuration (full participation, perfect fleet,
 ``buffer_k=0``, exponent 0, one cohort in flight) every cohort is a barrier
@@ -76,7 +79,7 @@ from repro_torch.fl.runtime.control import make_controller
 from repro_torch.fl.runtime.policy import ClientUpdate, make_policy
 from repro_torch.fl.tasks import TaskAdapter
 from repro_torch.optim.adam import AdamConfig
-from repro_torch.tree import PyTree, tree_map
+from repro_torch.tree import PyTree, tree_leaves, tree_map
 
 if TYPE_CHECKING:  # fl.server imports this module
     from repro_torch.fl.server import FLResult, FLRunConfig
@@ -155,7 +158,8 @@ def run_federated_async(
     trainer = LocalTrainer(adapter=adapter, partition=partition, algo=run_cfg.algo,
                            adam=AdamConfig(lr=run_cfg.lr, eps=run_cfg.adam_eps))
     engine = make_engine(run_cfg.engine, trainer=trainer, partition=partition,
-                         algo=run_cfg.algo, fused_adam=run_cfg.fused_adam)
+                         algo=run_cfg.algo, sim_devices=run_cfg.sim_devices,
+                         fused_adam=run_cfg.fused_adam, device_type=device.type)
     policy = make_policy(run_cfg.async_policy, partition,
                          staleness_exponent=run_cfg.staleness_exponent,
                          buffer_goal=run_cfg.buffer_k)
@@ -221,8 +225,11 @@ def run_federated_async(
     occupancy = vtm.occupancy()
     launch_queue: deque[_Cohort] = deque()
     # results of a cohort on another slot's device come back to the run's
-    # device at resolve, so the merge never mixes devices
-    xfer_back = pool is not None and any(sm.device != device for sm in pool.submeshes)
+    # device at resolve, so the merge never mixes devices (a shard_map slot's
+    # results are broadcast to every rank's own device: no transfer)
+    params_device = tree_leaves(params)[0].device
+    xfer_back = pool is not None and any(sm.device != params_device
+                                         for sm in pool.submeshes)
 
     # -- event-loop state ---------------------------------------------------
     events: list[tuple] = []         # min-heap of (t, seq, kind, upd, cohort)

@@ -27,10 +27,14 @@ spilled to disk with ``state_store_entries`` / ``state_store_spill``.
 first client (sequential engine, sync runtime; Fig. 1).
 
 Everything runs on ``FLRunConfig.device`` — ``"cuda"`` unless the caller
-asks for ``"cpu"`` — and a CUDA device without a card raises.  The
-shard_map engine is not ported and raises ``NotImplementedError`` naming
-its ROADMAP item; the reference's ``sim_devices`` (its mesh size) and
-``donate_buffers`` (nothing to donate here) have no field.
+asks for ``"cpu"`` — and a CUDA device without a card raises.
+``engine="shard_map"`` shards each round's clients over the ranks of a
+``torch.distributed`` client mesh of ``sim_devices`` ranks (0 = all; NCCL
+on ``"cuda"``, gloo on ``"cpu"``): run one process per device, each
+calling ``run_federated`` with the same config (``torchrun``; without a
+launcher the mesh is this one process).  Every rank returns the same
+result.  The reference's ``donate_buffers`` has no field: there is
+nothing to donate.
 """
 
 from __future__ import annotations
@@ -81,6 +85,7 @@ class FLRunConfig:
     eval_batch: int = 256
     track_stepsizes: bool = False   # Fig. 1 step sizes (sync, sequential engine)
     engine: str = "sequential"
+    sim_devices: int = 0            # shard_map mesh size (0 = every rank)
     fused_adam: bool = False        # masked-Adam CUDA kernel local steps
     # -- transmitted-subtree compression (core.compress)
     compression: str = "none"       # "none" | "int8" | "onebit" | "topk"
@@ -213,8 +218,9 @@ def run_federated(
     ccfg = run_cfg.compression_config()
     state_store = run_cfg.make_state_store()
     engine = make_engine(run_cfg.engine, trainer=trainer, partition=partition,
-                         algo=run_cfg.algo, fused_adam=run_cfg.fused_adam,
-                         compression=ccfg, state_store=state_store)
+                         algo=run_cfg.algo, sim_devices=run_cfg.sim_devices,
+                         fused_adam=run_cfg.fused_adam, compression=ccfg,
+                         state_store=state_store, device_type=device.type)
     assigner = PlanAssigner(
         num_groups=partition.num_groups, kind=run_cfg.plan,
         capacity_tiers=tuple(run_cfg.capacity_tiers), seed=run_cfg.seed)

@@ -131,9 +131,12 @@ class MaskedAdamCohort:
     only checks the gradient's layout, launches and checks the return code.
     A CPU ``p`` takes the plain version (``ref.masked_adam_cohort_ref``);
     a CUDA one launches on the stream current at construction.
-    ``MaskedAdamCohort.launches`` counts launches (CUDA only)."""
+    ``MaskedAdamCohort.launches`` counts kernel launches (CUDA only);
+    ``MaskedAdamCohort.plain_steps`` counts the steps the plain version
+    took instead (CPU only), so the CPU tests can count a path's steps."""
 
     launches = 0
+    plain_steps = 0
 
     def __init__(
         self,
@@ -226,6 +229,7 @@ class MaskedAdamCohort:
             with torch.no_grad():
                 for dst, src in zip((self.p, self.m, self.v), out):
                     dst.copy_(src)
+            MaskedAdamCohort.plain_steps += 1
             return
         a = self._args
         a.g = g.data_ptr()

@@ -27,10 +27,18 @@ with every flag of the reference: ``--engine sequential|vmap``,
     python -m repro_torch.launch.fedtrain --sim-clients 8 --rounds 12 \\
         --batch 32 --engine vmap --fused-adam --device cpu
 
-``--engine shard_map`` raises ``NotImplementedError`` (ROADMAP Queue 1
-item 13), so ``--sim-devices`` sizes nothing yet.  The reference's
-``_simdev.force_sim_devices`` (an XLA flag for simulated host devices) is
-not applicable: torch has no simulated devices.
+``--engine shard_map`` shards each round's clients over a
+``torch.distributed`` client mesh of ``--sim-devices`` ranks (0 = every
+rank), one process per device: alone, the mesh is this one process; under
+``torchrun`` the ranks join the group from the environment, each on
+``cuda:LOCAL_RANK`` (or the CPU, over gloo), and only rank 0 prints:
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.fedtrain \\
+        --sim-clients 8 --engine shard_map --device cpu
+
+The reference's ``_simdev.force_sim_devices`` (an XLA flag for simulated
+host devices) is not applicable: torch has no simulated devices, so N
+ranks are N processes.
 
 Everything runs on ``--device`` (default ``cuda``; no fallback).
 """
@@ -38,6 +46,7 @@ Everything runs on ``--device`` (default ``cuda``; no fallback).
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -178,8 +187,15 @@ def build_simulation(args):
     cycles = max(1, -(-args.rounds // (10 * args.rl)))   # just enough rounds
     sched = FedPartSchedule(num_groups=10, warmup_rounds=args.warmup,
                             rounds_per_layer=args.rl, cycles=cycles)
+    rank, local_rank = _launcher_ranks()
+    device, spill = args.device, args.state_store_spill
+    if device == "cuda" and local_rank is not None:
+        device = f"cuda:{local_rank}"
+    if spill and rank:
+        spill = os.path.join(spill, f"rank{rank}")   # each rank spills its own copy
     cfg = FLRunConfig(local_epochs=1, batch_size=args.batch, lr=args.lr,
-                      engine=args.engine, fused_adam=args.fused_adam,
+                      engine=args.engine, sim_devices=args.sim_devices,
+                      fused_adam=args.fused_adam,
                       runtime=args.runtime, async_policy=args.async_policy,
                       buffer_k=args.buffer_k,
                       staleness_exponent=args.staleness_exp,
@@ -187,7 +203,7 @@ def build_simulation(args):
                       cohort_size=args.cohort_size,
                       participation_sampling=args.participation_sampling,
                       state_store_entries=args.state_store_entries,
-                      state_store_spill=args.state_store_spill,
+                      state_store_spill=spill,
                       max_inflight_cohorts=args.max_inflight,
                       controller=args.controller,
                       controller_window=args.controller_window,
@@ -214,8 +230,15 @@ def build_simulation(args):
                           trace_period=args.trace_period,
                           duty_cycle=tuple(args.duty_cycle),
                           trace_path=args.trace_path),
-                      device=args.device)
+                      device=device)
     return adapter, clients, eval_set, sched.rounds()[: args.rounds], cfg
+
+
+def _launcher_ranks() -> tuple[int, int | None]:
+    """(``RANK``, ``LOCAL_RANK``) as ``torchrun`` sets them; (0, None)
+    without a launcher."""
+    local = os.environ.get("LOCAL_RANK")
+    return int(os.environ.get("RANK", 0)), None if local is None else int(local)
 
 
 def run_simulation(args):
@@ -225,8 +248,11 @@ def run_simulation(args):
 
     adapter, clients, eval_set, rounds, cfg = build_simulation(args)
     n_clients = args.population if args.population > 0 else args.sim_clients
+    lead = _launcher_ranks()[0] == 0        # only rank 0 prints
     t0 = time.time()
-    res = run_federated(adapter, clients, eval_set, rounds, cfg, verbose=True)
+    res = run_federated(adapter, clients, eval_set, rounds, cfg, verbose=lead)
+    if not lead:
+        return res
     extra = ""
     if res.timeline is not None:
         stale = [h["staleness_max"] for h in res.history]
@@ -274,14 +300,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--engine", choices=["sequential", "vmap", "shard_map"],
                     default="sequential",
                     help="client engine for --sim-clients: per-client oracle "
-                         "loop (default) or batched vmap-over-clients; "
-                         "shard_map is not ported yet (ROADMAP Queue 1 item 13)")
+                         "loop (default), batched vmap-over-clients, or "
+                         "shard_map over a torch.distributed client mesh "
+                         "(see --sim-devices)")
     ap.add_argument("--fused-adam", action="store_true",
                     help="run local steps through the CUDA masked-Adam kernel "
                          "(packed optimizer state; its plain version on the CPU)")
     ap.add_argument("--sim-devices", type=int, default=0,
-                    help="shard_map mesh size over the 'clients' axis; the "
-                         "shard_map engine is not ported yet, so unused")
+                    help="shard_map mesh size over the 'clients' axis (0 = "
+                         "every rank; start N ranks with torchrun "
+                         "--nproc-per-node N)")
     ap.add_argument("--runtime", choices=["sync", "async"], default="sync",
                     help="round execution model for --sim-clients: barrier "
                          "per round, or the event-driven async simulator")

@@ -10,7 +10,10 @@ numbers differ from ``jax.random``'s).  Stacked initialisers take a leading
 chunk and layer axes), as ``jax.vmap`` over keys gives.
 
 ``bf16_grad_barrier`` is not ported: it is the identity in the forward pass
-and only casts cotangents, and the port's serving path has no backward.
+and only casts each cotangent to its primal's dtype, which PyTorch's
+autograd already does for every tensor (the train steps of
+``launch.steps`` differentiate these layers; ``tests/test_torch_steps_bf16.py``
+holds their bf16 gradients against the reference's).
 """
 
 from __future__ import annotations

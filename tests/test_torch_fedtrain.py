@@ -102,9 +102,22 @@ def test_main_runs_both_modes(capsys):
     assert fedtrain.main(["--sim-clients", "2", "--rounds", "2", "--batch", "64",
                           "--device", "cpu"]) == 0
     assert "[fedtrain.sim] engine=sequential" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 13"):
-        fedtrain.main(["--sim-clients", "2", "--rounds", "1", "--engine", "shard_map",
-                       "--device", "cpu"])
+    # the shard_map engine on a one-rank client mesh: exits 0, books
+    # printed, and the vmap engine's result within 1e-5
+    assert fedtrain.main(["--sim-clients", "2", "--rounds", "2", "--batch", "64",
+                          "--engine", "shard_map", "--sim-devices", "1",
+                          "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "[fedtrain.sim] engine=shard_map" in out and "of FNU" in out
+    res = {e: fedtrain.run_simulation(fedtrain.parse_args(
+        ["--sim-clients", "2", "--rounds", "2", "--batch", "64", "--engine", e,
+         "--sim-devices", "1", "--device", "cpu"])) for e in ("shard_map", "vmap")}
+    for a, b in zip(tree_leaves(res["shard_map"].params), tree_leaves(res["vmap"].params)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose([h["loss"] for h in res["shard_map"].history],
+                               [h["loss"] for h in res["vmap"].history],
+                               rtol=1e-5, atol=1e-5)
+    assert res["shard_map"].comm_total_bytes == res["vmap"].comm_total_bytes
 
 
 def _capture(monkeypatch, module):

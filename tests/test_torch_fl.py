@@ -139,10 +139,10 @@ def test_local_round_matches_reference(setup, fused, group):
 
 
 def test_unported_options_raise(setup, tmp_path):
-    """What is not ported yet raises, naming its ROADMAP item: the shard_map
-    engine (13).  The async runtime and a streamed population (items 12 and
-    11) are ported and run; so do compression and a bounded, spilling state
-    store."""
+    """Every option of the reference runs: the shard_map engine (ROADMAP
+    item 13, here a one-rank mesh) returns the vmap engine's result within
+    1e-5; the async runtime and a streamed population (items 12 and 11),
+    compression and a bounded, spilling state store run too."""
     base = dict(device="cpu", local_epochs=1, batch_size=BATCH)
     assert tfl.FLRunConfig(**base, runtime="async").runtime == "async"
     rounds = tsched.FedPartSchedule(num_groups=6, warmup_rounds=1).rounds()[:2]
@@ -158,8 +158,13 @@ def test_unported_options_raise(setup, tmp_path):
         def dataset(self, client_id):
             return setup["tclients"][client_id]
 
-    with pytest.raises(NotImplementedError, match="item 13"):
-        run(engine="shard_map")
+    shard, vmap = run(engine="shard_map"), run(engine="vmap")
+    for (path, a), (_, b) in zip(tree_paths(shard.params), tree_paths(vmap.params)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-5,
+                                   err_msg="/".join(path))
+    np.testing.assert_allclose([h["loss"] for h in shard.history],
+                               [h["loss"] for h in vmap.history], rtol=1e-5, atol=1e-5)
+    assert shard.comm_total_bytes == vmap.comm_total_bytes
     streamed, listed = run(clients=Streamed()), run()
     assert [h["loss"] for h in streamed.history] == [h["loss"] for h in listed.history]
     for kw in (dict(compression="int8"), dict(state_store_entries=2),

@@ -154,8 +154,17 @@ def test_vmap_engine_guards(setup):
     assert engine.cohort_pool(2, "cpu").num_submeshes == 1
     with pytest.raises(ValueError, match="weight_decay"):
         _engine(setup, "vmap", weight_decay=0.1)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        _engine(setup, "shard_map")
+    # the shard_map engine (a one-rank mesh here) returns the vmap round
+    shard = make_engine("shard_map", trainer=engine.trainer, partition=engine.partition,
+                        algo=tfl.AlgoConfig(), fused_adam=True, device_type="cpu")
+    got, got_losses, _ = shard.run_round(params, spec, setup["tclients"], seeds=[1, 2, 3],
+                                         weights=[1, 1, 1], epochs=1, batch_size=BATCH)
+    want, want_losses, _ = engine.run_round(params, spec, setup["tclients"],
+                                            seeds=[1, 2, 3], weights=[1, 1, 1], epochs=1,
+                                            batch_size=BATCH)
+    np.testing.assert_allclose(got_losses, want_losses, rtol=1e-5, atol=1e-5)
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-5)
     # the round never writes the global params it was given
     before = [t.clone() for t in tree_leaves(params)]
     engine.run_round(params, spec, setup["tclients"], seeds=[1, 2, 3],
