@@ -130,15 +130,23 @@ Phases, in order; any failure raises and the script exits non-zero:
               (stride-0) q and k, odd N / P / chunk (the kernel's
               element-wise loads), a slow decay over 8 chunks, steep decays
               (chunk totals near -128, and below -160: the per-element
-              decay), Zamba2's widths without the broadcast, and Zamba2's
-              layer (B 4, H 112, S 4,096, N 64, P 64, chunk 128); each
+              decay), Zamba2's widths without the broadcast, the mLSTM's N =
+              P = 192 and N 192 with P 1 (q / k per head; the reference's
+              decays and the mLSTM's own: log_sigmoid forgets, chunk sums
+              near -100, v scaled by the clipped input gate), ragged P (130,
+              200: a narrow last P tile), Zamba2's layer (B 4, H 112, S
+              4,096, N 64, P 64, chunk 128) and the xLSTM layer's two scans
+              (B 4, H 8, S 4,096, N 192, P 192 and P 1, chunk 128); each
               element, each output row and the final state held to its
               limit, and the body that ran each case named.  The bf16
-              ``wgmma`` body's ``HGMMA`` / ``UTMALDG`` / ``HMMA`` counts from
-              ``cuobjdump -sass``.  Times (CUDA events) at Zamba2's layer:
-              the CUDA-core and ``wgmma`` bodies in turns, against the bound
-              and the tensor FLOPs the ``wgmma`` body issues, the plain
-              chunked form and ``ssd_ref``; registers and spills from nvcc.
+              ``wgmma`` body's ``HGMMA`` / ``UTMALDG`` / ``HMMA`` counts and
+              both bodies' ``STL`` / ``LDL`` from ``cuobjdump -sass``.
+              Times (CUDA events) at Zamba2's layer: the CUDA-core and
+              ``wgmma`` bodies in turns, against the bound and the tensor
+              FLOPs the ``wgmma`` body issues, the plain chunked form and
+              ``ssd_ref``; at the xLSTM layer each scan's kernel time, bound,
+              plain chunked form and ``ssd_ref``; registers and spills from
+              nvcc.
 9. serve_hybrid — ``serve_session`` on zamba2-7b at full width, bf16,
               random weights from a seed, B 4 x 4,096 prompt, 32 greedy
               tokens: every Mamba2 prefill scan must launch the SSD kernel
@@ -147,6 +155,19 @@ Phases, in order; any failure raises and the script exits non-zero:
               f32 cross-check at full width (B 4 x 512, 4 tokens, TF32
               off): kernel path against plain PyTorch, every step's logits
               within 1e-3 and the same tokens.
+   serve_xlstm — ``serve_session`` on xlstm-125m at full width (6 mLSTM /
+              sLSTM pairs, d_model 768, mLSTM 8 heads of N = P = 192), bf16,
+              random weights from a seed, B 4 x 4,096 prompt, 32 greedy
+              tokens: both scans of every mLSTM prefill (values, P 192, and
+              the normaliser, P 1) must launch the SSD kernel (12), all
+              through its CUDA-core body.  One prefill of B 4 x 512 under
+              ``torch.profiler`` (at 4,096 its ~615,000 launches take
+              minutes to tabulate), with the sLSTM's eager loop over time as
+              a share of the wall and busy time.  Then the f32 cross-check at
+              full width (B 4 x 512, 4 tokens, TF32 off), kernel path
+              against plain PyTorch, every step's logits within 1e-3 and the
+              same tokens.  Not held against the reference, whose mLSTM
+              returns NaN at chunk 128 (``ROADMAP.md`` Queue 3).
 10. fedtrain_llm — ``launch.fedtrain``'s default, mesh-trainer path on
               tinyllama-1.1b at full width (bf16; 24 groups: embed, 22
               blocks, final_norm|head): ``--full-size --batch 4 --seq 512
@@ -184,8 +205,10 @@ carries ``nvidia-smi``'s name and power limit, the
 one before it the ``kernels`` JSON (the masked-Adam entries count their
 launches by path: ``fedpart``, ``nlp`` and ``fedtrain_sim`` for the
 one-client launches, ``fedpart_vmap``, ``fedpart_shard``, ``nlp``,
-``compress``, ``async`` and ``fedtrain_sim`` for the cohort launches); the
-last line is the ``ok`` JSON.
+``compress``, ``async`` and ``fedtrain_sim`` for the cohort launches; the
+SSD entry by path, ``serve_hybrid`` and ``serve_xlstm``, and by body within
+each, with the xLSTM layer's two scans beside Zamba2's layer); the last
+line is the ``ok`` JSON.
 """
 
 from __future__ import annotations
@@ -275,13 +298,28 @@ SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 # per output row (b, t, h) over P: ||k - p|| / ||p||.  Both sides compute in
 # f32; in bf16 each rounds y once (2^-8 relative at most), so a sound kernel
 # sits near 2^-9 on average and below 2^-8; one wrong chunk moves its rows by
-# their whole size.  The final state is f32 on both sides for either dtype.
+# their whole size.  At P 1 (the mLSTM's normaliser) a row over P is one
+# element, a sum of terms of either sign that can cancel to ~0, where f32's
+# reordered sums differ by more than 1e-4 of it: there the row is (b, t)
+# over H x P.  The final state is f32 on both sides for either dtype.
 SSD_ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# With v scaled by gates up to G (the "xlstm_gated" cases), the scan's terms
+# are G times larger and so is any f32 summation's rounding: each element is
+# held to SSD_TOL·(G + |p|), which is SSD_TOL·(1 + |p|) at G = 1.  Measured
+# at xLSTM's layer (S 4,096, gates ~80x, f32): on an H100 the kernel's
+# sequential FMAs 9.61e-4 abs from ssd_ref, where an O(1) limit allows
+# 2e-4·(1 + |p|); on a CPU the plain chunked form 5.1e-4, and with gates to
+# ~1,700x 7.1e-3 off an f64 recurrence, ssd_ref itself 1.3e-3.
+# The row and state limits are relative and stay as they are.
 SSD_STATE_TOL = 2e-4
 # (b, h, s, n, p, chunk, broadcast q/k over heads, decay: "ref" as the
 # reference's tests draw it, "slow" in (-0.01, 0), "steep" in (-1.1, -0.9)
 # (chunk totals near -128: the factorised decay's rebased range), "steeper"
-# in (-2.2, -1.8) (totals below -160: the per-element decay))
+# in (-2.2, -1.8) (totals below -160: the per-element decay), "xlstm" the
+# mLSTM's forget gates, log_sigmoid of N(0, 1) (chunk totals near -100 at
+# chunk 128), and "xlstm_gated" those with v scaled by the clipped input
+# gate exp(min(N(0, 1), 8)) as the model's random init draws it (i_raw has
+# std 1; ~60-80x at most over a layer))
 SSD_CASES = [
     (1, 2, 128, 128, 128, 64, False, "ref"),    # tests/test_kernels_ssd.py CASES
     (2, 3, 256, 128, 128, 128, False, "ref"),
@@ -295,9 +333,25 @@ SSD_CASES = [
     (1, 4, 512, 64, 64, 128, True, "steep"),
     (1, 4, 512, 64, 64, 128, True, "steeper"),
     (2, 8, 1024, 64, 64, 128, False, "ref"),    # zamba2's widths, q / k per head
+    (2, 8, 512, 192, 192, 128, False, "ref"),   # the mLSTM's N = P = 192: three P tiles
+    (2, 8, 512, 192, 1, 128, False, "ref"),     # its normaliser: N 192, P 1
+    (1, 4, 256, 64, 130, 64, False, "ref"),     # ragged P: tiles of 64, 64, 2
+    (1, 2, 256, 192, 200, 128, False, "ref"),   # N 192, ragged P 200: 64, 64, 64, 8
+    (2, 8, 512, 192, 192, 128, False, "xlstm"),  # the mLSTM's own decays
+    (2, 8, 512, 192, 1, 128, False, "xlstm"),
+    (2, 8, 512, 192, 192, 128, False, "xlstm_gated"),   # and its gated values
+    (2, 8, 512, 192, 1, 128, False, "xlstm_gated"),
 ]
 # zamba2-7b's Mamba2 layer at the serve prompt, as the main path calls it
 ZAMBA2_SSD = (SERVE_BATCH, 112, SERVE_PROMPT, 64, 64, 128, True, "ref")
+# xlstm-125m's mLSTM layer at the serve prompt, as the main path calls it:
+# the value scan (8 heads of N = P = 192) and the normaliser scan (P 1)
+XLSTM_SSD = (SERVE_BATCH, 8, SERVE_PROMPT, 192, 192, 128, False, "xlstm_gated")
+XLSTM_NORM_SSD = (SERVE_BATCH, 8, SERVE_PROMPT, 192, 1, 128, False, "xlstm_gated")
+# serve_xlstm profiles a prefill of B 4 x 512: a full one (B 4 x 4,096) makes
+# ~615,000 launches, 6 x 4,096 steps of the sLSTM's eager loop, whose
+# profile took minutes to tabulate on the card
+XLSTM_PROFILE_PROMPT = 512
 
 
 def log(msg: str) -> None:
@@ -954,8 +1008,9 @@ def _ssd_inputs(case, dtype, gen):
     """q, k (B, S, H, N) and v (B, S, H, P) of ``dtype``, log_a (B, S, H)
     f32, in the model's layout; q and k as ``expand`` views over heads
     (stride 0) where the case says so, as ``mamba2_forward`` passes them.
-    Decays as the reference's tests draw them (-|N(0,1)|·0.2), or uniform
-    in the case's range (``SSD_CASES``)."""
+    Decays as the reference's tests draw them (-|N(0,1)|·0.2), uniform in
+    the case's range, or the mLSTM's gates (``SSD_CASES``).  Also returns
+    the largest gate v was scaled by (1 without one)."""
     b, h, s, n, p, _, bcast, decay = case
     dev = "cuda"
     hq = 1 if bcast else h
@@ -963,21 +1018,28 @@ def _ssd_inputs(case, dtype, gen):
     k = (torch.randn(b, s, hq, n, device=dev, generator=gen) * 0.3).to(dtype)
     if bcast:
         q, k = q.expand(b, s, h, n), k.expand(b, s, h, n)
-    v = torch.randn(b, s, h, p, device=dev, generator=gen).to(dtype)
+    v = torch.randn(b, s, h, p, device=dev, generator=gen)
+    scale = 1.0
+    if decay == "xlstm_gated":
+        gate = torch.exp(torch.clamp_max(torch.randn(b, s, h, device=dev, generator=gen), 8.0))
+        v, scale = v * gate[..., None], max(1.0, float(gate.max()))
+    v = v.to(dtype)
     if decay == "ref":
         la = -0.2 * torch.randn(b, s, h, device=dev, generator=gen).abs()
+    elif decay in ("xlstm", "xlstm_gated"):
+        la = torch.nn.functional.logsigmoid(torch.randn(b, s, h, device=dev, generator=gen))
     else:
         lo, hi = {"slow": (0.0, 0.01), "steep": (0.9, 1.1), "steeper": (1.8, 2.2)}[decay]
         la = -(lo + (hi - lo) * torch.rand(b, s, h, device=dev, generator=gen))
-    return q, k, v, la
+    return q, k, v, la, scale
 
 
-def _ssd_check(case, dtype, gen) -> tuple[float, float, float, str]:
+def _ssd_check(case, dtype, gen) -> tuple[float, float, float, str, float]:
     """Kernel vs plain version on one case; returns the max abs error of y,
-    the max row error over the row's norm, the state's max abs error and
-    the body that ran."""
+    the max row error over the row's norm, the state's max abs error, the
+    body that ran and the largest gate v was scaled by."""
     from repro_torch.kernels.ssd_chunk import ops, ssd_chunk_kernel
-    q, k, v, la = _ssd_inputs(case, dtype, gen)
+    q, k, v, la, scale = _ssd_inputs(case, dtype, gen)
     before = dict(ssd_chunk_kernel.launches_by_body)
     y, st = ops.ssd_scan(q, k, v, la, chunk=case[5])
     body, = [b for b, n in ssd_chunk_kernel.launches_by_body.items() if n != before[b]]
@@ -989,12 +1051,13 @@ def _ssd_check(case, dtype, gen) -> tuple[float, float, float, str]:
     diff = y.float() - y_ref.float()
     err = diff.abs()
     tol = SSD_TOL[dtype]
-    row = float((diff.norm(dim=-1) / y_ref.float().norm(dim=-1).clamp_min(1e-30)).max())
+    rows = (-2, -1) if y.shape[-1] == 1 else (-1,)
+    row = float((diff.norm(dim=rows) / y_ref.float().norm(dim=rows).clamp_min(1e-30)).max())
     st_err = (st - st_ref).abs()
     if not bool(torch.isfinite(y.float()).all()) or bool(
-            (err > tol * (1 + y_ref.float().abs())).any()):
+            (err > tol * (scale + y_ref.float().abs())).any()):
         raise AssertionError(f"ssd {case} {dtype}: max abs err {float(err.max()):.3g} "
-                             f"beyond tolerance {tol:g}·(1 + |ref|)")
+                             f"beyond tolerance {tol:g}·({scale:.4g} + |ref|)")
     if not row <= SSD_ROW_TOL[dtype]:
         raise AssertionError(f"ssd {case} {dtype}: max row error {row:.3g} beyond "
                              f"{SSD_ROW_TOL[dtype]:g} of the row's norm")
@@ -1002,7 +1065,7 @@ def _ssd_check(case, dtype, gen) -> tuple[float, float, float, str]:
             (st_err > SSD_STATE_TOL * (1 + st_ref.abs())).any()):
         raise AssertionError(f"ssd {case} {dtype}: state max abs err "
                              f"{float(st_err.max()):.3g} beyond {SSD_STATE_TOL:g}·(1 + |ref|)")
-    return float(err.max()), row, float(st_err.max()), body
+    return float(err.max()), row, float(st_err.max()), body, scale
 
 
 def _ssd_bound_ms(case, dtype) -> tuple[float, str]:
@@ -1067,11 +1130,39 @@ def _sass(lib: str, fn_filter: str) -> dict | None:
     return counts
 
 
+def _xlstm_layer_times(gen) -> dict:
+    """At xlstm-125m's mLSTM layer (B 4, H 8, S 4,096, chunk 128, bf16),
+    the value scan (N = P = 192) and the normaliser scan (P 1) as the main
+    path calls them: the kernel (CUDA-core body, P split over CTAs), the
+    plain chunked form, ``ssd_ref`` and the bound of each."""
+    from repro_torch.kernels.ssd_chunk import ops
+    from repro_torch.models.ssm import chunked_decay_attention
+    out = {}
+    for tag, case in (("value", XLSTM_SSD), ("normaliser", XLSTM_NORM_SSD)):
+        b, h, s, n, p, chunk, _, _ = case
+        q, k, v, la, _ = _ssd_inputs(case, torch.bfloat16, gen)
+        ms = cuda_ms(lambda: ops.ssd_scan(q, k, v, la, chunk=chunk), 5)
+        chunked_ms = cuda_ms(lambda: chunked_decay_attention(q, k, v, la, chunk), 1)
+        torch.cuda.empty_cache()
+        ref_ms = cuda_ms(lambda: ops.ssd_reference(q, k, v, la), 1)
+        bound, bound_by = _ssd_bound_ms(case, torch.bfloat16)
+        log(f"[ssd] xlstm layer {tag} scan B{b} H{h} S{s} N{n} P{p} chunk {chunk} bf16: "
+            f"cuda_core body {ms:.6f} ms, bound {bound:.6f} ms ({bound_by}; "
+            f"{100 * bound / ms:.2f}% of it); plain chunked form {chunked_ms:.6f} ms, "
+            f"ssd_ref {ref_ms:.6f} ms; no single PyTorch call computes this scan")
+        out[tag] = {"ms": ms, "bound_ms": bound, "bound_by": bound_by, "plain_ms": ref_ms,
+                    "plain_chunked_ms": chunked_ms}
+        del q, k, v, la
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_ssd() -> dict:
     """The SSD chunk kernel against its plain version (``ssd_ref``) on every
     case in f32 and bf16, naming the body that ran; then, at Zamba2's layer,
     the CUDA-core and ``wgmma`` bodies timed in turns (old, new, new, old),
-    the plain chunked form (``impl="plain"``), ``ssd_ref``, the bound."""
+    the plain chunked form (``impl="plain"``), ``ssd_ref``, the bound; and
+    the same for the xLSTM layer's two scans (``_xlstm_layer_times``)."""
     from repro_torch.kernels import build
     from repro_torch.kernels.ssd_chunk import kernel as sk
     from repro_torch.kernels.ssd_chunk import ops
@@ -1079,25 +1170,26 @@ def phase_ssd() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(13)
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for case in SSD_CASES + [ZAMBA2_SSD]:
-            err, row, st, body = _ssd_check(case, dtype, gen)
+        for case in SSD_CASES + [ZAMBA2_SSD, XLSTM_SSD, XLSTM_NORM_SSD]:
+            err, row, st, body, scale = _ssd_check(case, dtype, gen)
             worst = max(worst, err)
             b, h, s, n, p, chunk, bcast, decay = case
             log(f"[ssd] B{b} H{h} S{s} N{n} P{p} chunk {min(chunk, s)}"
                 f"{' stride-0 q/k' if bcast else ''}"
                 f"{'' if decay == 'ref' else f' {decay} decay'} {str(dtype)[6:]}, {body} "
-                f"body: max abs err {err:.3g} (tolerance {SSD_TOL[dtype]:g}·(1+|ref|)), max "
-                f"row err {row:.3g} (limit {SSD_ROW_TOL[dtype]:g}), state max abs err "
-                f"{st:.3g} (limit {SSD_STATE_TOL:g}·(1+|ref|))")
+                f"body: max abs err {err:.3g} (tolerance {SSD_TOL[dtype]:g}·({scale:.4g}"
+                f"+|ref|)), max row err {row:.3g} (limit {SSD_ROW_TOL[dtype]:g}), state max "
+                f"abs err {st:.3g} (limit {SSD_STATE_TOL:g}·(1+|ref|))")
         torch.cuda.empty_cache()
-    sass = _sass("ssd_chunk", "ssd_wgmma")
-    if sass is None:
-        log("[ssd] SASS of the wgmma body: not available (no cuobjdump)")
-    for fn, counts in (sass or {}).items():
-        log(f"[ssd] SASS of {fn}: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
+    for body_fn in ("ssd_wgmma", "ssd_chunk_kernel"):
+        sass = _sass("ssd_chunk", body_fn)
+        if sass is None:
+            log(f"[ssd] SASS of {body_fn}: not available (no cuobjdump)")
+        for fn, counts in (sass or {}).items():
+            log(f"[ssd] SASS of {fn}: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
 
     b, h, s, n, p, chunk, _, _ = ZAMBA2_SSD
-    q, k, v, la = _ssd_inputs(ZAMBA2_SSD, torch.bfloat16, gen)
+    q, k, v, la, _ = _ssd_inputs(ZAMBA2_SSD, torch.bfloat16, gen)
     y = torch.empty_like(v)
     views = [t.transpose(1, 2) for t in (q, k, v, la)]
     turns = [(body, cuda_ms(lambda: sk.ssd_chunk_body(*views, body=body, chunk=chunk,
@@ -1123,12 +1215,14 @@ def phase_ssd() -> dict:
             log(f"[ssd] nvcc: {line.strip()}")
     del q, k, v, la, y, views
     torch.cuda.empty_cache()
+    xlstm = _xlstm_layer_times(gen)
     return {"name": "ssd_chunk", "route": "cuda",
             "source": "src/repro_torch/csrc/ssd_chunk.cu",
             "replaces": "src/repro/kernels/ssd_chunk/kernel.py:84",
             "launches": None, "max_abs_err": worst, "ms": ms, "plain_ms": ref_ms,
             "plain_chunked_ms": chunked_ms, "cuda_core_ms": old_ms, "bound_ms": bound,
-            "bound_by": bound_by, "library_ms": None}
+            "bound_by": bound_by, "library_ms": None,
+            "xlstm_layer": xlstm["value"], "xlstm_normaliser": xlstm["normaliser"]}
 
 
 def _vision_setup(clients: int = 8, per_client: int = 500):
@@ -1914,11 +2008,17 @@ def _profile_fl_round(cfg, tag: str, setup=None) -> None:
                 f"{100 * e.self_device_time_total / dev_us:.2f}% of device busy")
 
 
-def _serve_profile(cfg, params, prompt, tag: str = "serve") -> None:
-    """Device time by kernel over one warm prefill (under torch.profiler)."""
+def _serve_profile(cfg, params, prompt, tag: str = "serve", label: str | None = None) -> None:
+    """Device time by kernel over one warm prefill (under torch.profiler);
+    with ``label``, the host time inside that ``record_function`` range and
+    the device time of the kernels launched in it, as shares of the
+    prefill's wall time and device busy time (the range's own mark on the
+    card's timeline is a span, not a kernel, and is left out of the busy
+    time)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import steps
     prefill = steps.make_prefill_step(cfg, impl="kernel")
+    t_prof = time.perf_counter()
     with torch.inference_mode():
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -1926,8 +2026,9 @@ def _serve_profile(cfg, params, prompt, tag: str = "serve") -> None:
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
     del logits, cache
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.key != label]
     dev_us = sum(getattr(e, "self_device_time_total", 0.0) for e in kernels)
     if dev_us <= 0:
         log(f"[{tag}] the profiler recorded no device time: not measured")
@@ -1938,6 +2039,19 @@ def _serve_profile(cfg, params, prompt, tag: str = "serve") -> None:
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"[{tag}]   {e.self_device_time_total / 1e3:9.3f} ms "
             f"({100 * e.self_device_time_total / dev_us:5.1f}%) {e.count:5d}x {e.key[:90]}")
+    if label is not None:
+        rng, = [e for e in events if e.key == label
+                and e.device_type == torch.autograd.DeviceType.CPU]
+        span_us = sum(e.self_device_time_total for e in events if e.key == label
+                      and e.device_type == torch.autograd.DeviceType.CUDA)
+        host_us = rng.cpu_time_total
+        in_dev_us = getattr(rng, "device_time_total", 0.0)
+        log(f"[{tag}] {label} ({rng.count} ranges): host {host_us / 1e3:.3f} ms "
+            f"({100 * host_us / wall_us:.1f}% of the prefill's wall time), device time of "
+            f"its kernels {in_dev_us / 1e3:.3f} ms ({100 * in_dev_us / dev_us:.1f}% of busy), "
+            f"its span on the card's timeline {span_us / 1e3:.3f} ms")
+    log(f"[{tag}] the profiled prefill and its tables took "
+        f"{time.perf_counter() - t_prof:.1f} s")
 
 
 def _serve_dense(arch: str, tag: str, f32_layers: int = 0) -> int:
@@ -2134,6 +2248,98 @@ def phase_serve_hybrid() -> tuple[int, int, dict]:
     del params, prompt, out
     torch.cuda.empty_cache()
     return ssd_n, flash_n, by_body
+
+
+def phase_serve_xlstm() -> tuple[int, dict]:
+    """The xLSTM serving path: ``serve_session`` on xlstm-125m at full
+    width, bf16, random weights from a seed, B 4 × 4,096 prompt, 32 tokens;
+    both scans of every mLSTM prefill through the SSD kernel's CUDA-core
+    body (12 launches: values and normaliser for each of 6 pairs).  One
+    prefill under ``torch.profiler``, with the sLSTM's loop over time as a
+    share, at a 512-token prompt: at 4,096 the loop's ~615,000 launches
+    take the profiler minutes to tabulate.  Then the same config in f32
+    (TF32 off), prompt 512, 4 tokens: the kernel path against plain
+    PyTorch, every step's logits within
+    ``SERVE_CROSS_TOL`` and the same tokens.  Not held against the
+    reference: its mLSTM returns NaN at chunk 128 (``ROADMAP.md`` Queue 3).
+    Returns the counted run's SSD launches and their split by body."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_kernel
+    from repro_torch.launch.serve import serve_session
+    from repro_torch.models import api, ssm
+    from repro_torch.models.api import InputShape
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("xlstm-125m")
+    pairs = cfg.num_layers // 2
+    b, s, g = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = api.init(gen, cfg, "cuda")
+    prompt = api.synth_batch(gen, cfg, InputShape("serve", s, b, "prefill"), "cuda")
+    n_params = sum(int(x.numel()) for x in tree_leaves(params))
+    d_inner = cfg.ssm_expand * cfg.d_model
+    log(f"[serve_xlstm] {cfg.name} full: {pairs} (mLSTM, sLSTM) pairs, d_model "
+        f"{cfg.d_model}, mLSTM {d_inner // cfg.ssm_head_dim} heads of N = P = "
+        f"{cfg.ssm_head_dim} over d_inner {d_inner}, chunk {cfg.ssm_chunk}; sLSTM "
+        f"{cfg.d_model // cfg.ssm_head_dim} heads of {cfg.ssm_head_dim}; vocab "
+        f"{cfg.vocab_size} {cfg.param_dtype}, {n_params} params")
+    # warm-up at full width (cuBLAS handles, kernel loads), then the counted run
+    serve_session(cfg, b, 256, 2, device="cuda", params=params, verbose=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    ssd_chunk_kernel.launches = 0
+    ssd_chunk_kernel.launches_by_body = dict.fromkeys(ssd_chunk_kernel.launches_by_body, 0)
+    res = serve_session(cfg, b, s, g, device="cuda", params=params, prompt=prompt,
+                        verbose=False)
+    torch.cuda.synchronize()
+    ssd_n = ssd_chunk_kernel.launches
+    by_body = dict(ssd_chunk_kernel.launches_by_body)
+
+    toks = res.tokens
+    decoded = b * (g - 1)
+    log(f"[serve_xlstm] prefill {b}x{s}: {res.prefill_seconds:.6f} s "
+        f"({b * s / res.prefill_seconds:.1f} prompt tokens/s); decode {g - 1} "
+        f"steps x batch {b} = {decoded} tokens in {res.decode_seconds:.6f} s: "
+        f"{decoded / res.decode_seconds:.3f} tokens/s, "
+        f"{1e3 * res.decode_seconds / (g - 1):.3f} ms per step; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    log(f"[serve_xlstm] tokens[0] {toks[0].tolist()}")
+    log(f"[serve_xlstm] ssd_chunk launches {ssd_n} (two per mLSTM layer: {2 * pairs}; "
+        f"by body {by_body})")
+    if ssd_n != 2 * pairs or by_body["cuda_core"] != 2 * pairs:
+        raise AssertionError(f"ssd launches {ssd_n} (by body {by_body}) != {2 * pairs}, "
+                             f"all through the cuda_core body")
+    if toks.shape != (b, g) or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+        raise AssertionError(f"bad tokens {tuple(toks.shape)}")
+    for i, x in enumerate(res.logits):
+        if x.shape != (b, 1, cfg.vocab_size) or not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"step {i}: logits {tuple(x.shape)} not finite")
+    _serve_profile(cfg, params, {"tokens": prompt["tokens"][:, :XLSTM_PROFILE_PROMPT]},
+                   tag="serve_xlstm", label=ssm.SLSTM_LOOP)
+    del params, prompt, res
+    torch.cuda.empty_cache()
+
+    cfg32 = cfg.with_(param_dtype="float32", activation_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = api.init(gen, cfg32, "cuda")
+    prompt = api.synth_batch(gen, cfg32, InputShape("serve", 512, b, "prefill"), "cuda")
+    out = {impl: serve_session(cfg32, b, 512, 4, device="cuda", params=params,
+                               prompt=prompt, impl=impl, verbose=False)
+           for impl in ("kernel", "plain")}
+    diffs = [float((k - p).abs().max())
+             for k, p in zip(out["kernel"].logits, out["plain"].logits)]
+    scale = max(float(x.abs().max()) for x in out["plain"].logits)
+    same = torch.equal(out["kernel"].tokens, out["plain"].tokens)
+    log(f"[serve_xlstm] f32 cross-check B{b} prompt 512 gen 4, full depth and width, "
+        f"kernel vs plain mLSTM scans: max abs logit diff per step "
+        f"{[f'{d:.3g}' for d in diffs]} (tolerance {SERVE_CROSS_TOL:g}; max |logit| "
+        f"{scale:.3g}); tokens equal: {same}")
+    if max(diffs) > SERVE_CROSS_TOL or not same:
+        raise AssertionError("f32 xLSTM serve: kernel and plain paths disagree")
+    del params, prompt, out
+    torch.cuda.empty_cache()
+    return ssd_n, by_body
 
 
 # ---------------------------------------------------------------------------
@@ -2548,7 +2754,11 @@ def main() -> int:
     flash_serve = _timed(phase_serve)
     flash_dense = _timed(phase_serve_dense)
     ssd = _timed(phase_ssd)
-    ssd["launches"], flash_hybrid, ssd["launches_by_body"] = _timed(phase_serve_hybrid)
+    ssd_hybrid, flash_hybrid, hybrid_bodies = _timed(phase_serve_hybrid)
+    ssd_xlstm, xlstm_bodies = _timed(phase_serve_xlstm)
+    ssd["launches_by_path"] = {"serve_hybrid": ssd_hybrid, "serve_xlstm": ssd_xlstm}
+    ssd["launches"] = ssd_hybrid + ssd_xlstm
+    ssd["launches_by_body"] = {"serve_hybrid": hybrid_bodies, "serve_xlstm": xlstm_bodies}
     flash["launches_by_path"] = {"serve": flash_serve, **flash_dense,
                                  "serve_hybrid": flash_hybrid}
     flash["launches"] = sum(flash["launches_by_path"].values())

@@ -3,8 +3,8 @@
 ``ModelConfig`` is the reference's dataclass field for field, so a config
 built on either side describes the same model.  The registry holds the
 architectures the port runs: the dense decoders ``tinyllama-1.1b``,
-``llama3.2-1b``, ``gemma-2b`` and ``glm4-9b``, ``zamba2-7b`` (Mamba2 hybrid)
-and ``nlp-transformer`` (the paper's text classifier,
+``llama3.2-1b``, ``gemma-2b`` and ``glm4-9b``, ``zamba2-7b`` (Mamba2 hybrid),
+``xlstm-125m`` (mLSTM / sLSTM pairs) and ``nlp-transformer`` (the paper's text classifier,
 ``models/nlp_small.py``), full and smoke.  Every other architecture of
 the reference raises ``NotImplementedError`` naming the ROADMAP item that
 ports it.
@@ -120,7 +120,6 @@ _UNPORTED = {
     "llama4-maverick-400b-a17b": "Queue 1 item 15 (MoE decoders)",
     "llava-next-34b": "Queue 1 item 15 (VLM frontends)",
     "whisper-small": "Queue 1 item 15 (encoder-decoder)",
-    "xlstm-125m": "Queue 1 item 15 (xLSTM)",
 }
 
 
@@ -154,6 +153,6 @@ def _ensure_loaded() -> None:
         return
     from repro_torch.configs import (  # noqa: F401  (register)
         gemma_2b, glm4_9b, llama3_2_1b, nlp_transformer, resnet, tinyllama_1_1b,
-        zamba2_7b)
+        xlstm_125m, zamba2_7b)
 
     _LOADED = True

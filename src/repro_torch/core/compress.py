@@ -213,9 +213,11 @@ def init_residual(params: PyTree) -> PyTree:
                                           device=x.device), params)
 
 
-def _split_pairs(pairs: PyTree) -> tuple[PyTree, PyTree]:
-    """A tree of ``(tx, residual)`` leaves -> the two trees."""
-    return tree_map(lambda pr: pr[0], pairs), tree_map(lambda pr: pr[1], pairs)
+def _split_pairs(like: PyTree, pairs: PyTree) -> tuple[PyTree, PyTree]:
+    """A tree of ``(tx, residual)`` leaves, shaped like ``like`` -> the two
+    trees (walked by ``like``'s structure, so the pairs stay leaves)."""
+    return (tree_map(lambda _, pr: pr[0], like, pairs),
+            tree_map(lambda _, pr: pr[1], like, pairs))
 
 
 def transmit_tree(global_params: PyTree, local: PyTree, residual: PyTree,
@@ -236,7 +238,7 @@ def transmit_tree(global_params: PyTree, local: PyTree, residual: PyTree,
         return transmit_leaf(g_leaf, l_leaf, r_leaf, cfg, stacked=stacked)
 
     pairs = tree_map_with_path(_leaf, global_params, local, residual)
-    return _split_pairs(pairs)
+    return _split_pairs(global_params, pairs)
 
 
 def transmit_tree_plan(global_params: PyTree, local: PyTree, residual: PyTree,
@@ -259,7 +261,7 @@ def transmit_tree_plan(global_params: PyTree, local: PyTree, residual: PyTree,
         return torch.where(bit, tx, l_leaf), torch.where(bit, nr, r_leaf)
 
     pairs = tree_map_with_path(_leaf, global_params, local, residual)
-    return _split_pairs(pairs)
+    return _split_pairs(global_params, pairs)
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,9 @@
 // Replaces the Pallas TPU kernel src/repro/kernels/ssd_chunk/kernel.py,
 // `_ssd_kernel` (launched by `ssd_chunk_kernel`, reached through
 // `ops.ssd_scan`).  In the port, `models/ssm.py` `mamba2_forward
-// (impl="kernel")` sends every Mamba2 prefill scan through it.
+// (impl="kernel")` sends every Mamba2 prefill scan through it, and
+// `mlstm_forward(impl="kernel")` both scans of every mLSTM prefill (xLSTM:
+// N = P = 192 for the values, P = 1 for the normaliser).
 //
 // What it computes, for every batch b and head h, from a zero state, with
 // a_t = exp(log_a_t) <= 1:
@@ -80,24 +82,31 @@
 //     threads, so there is no `setmaxnreg` (its increase draws only on what
 //     the CTA's other warps release).
 // - CUDA cores ("cuda_core"; f32, and bf16 views a tensor map cannot take,
-//   N or P above 64, Q above 128): one CTA of 256 threads per (b, h) keeps
-//   the state in shared memory.  Per chunk it stages K (transposed, N x Q)
-//   and V (Q x P) in shared memory as f32, then walks the chunk's query rows
-//   in tiles of TQ: Q^T tile (N x TQ), the decayed score tile W^T (Q x TQ,
-//   only the keys that reach the tile's rows), then y for the tile (the
-//   intra-chunk product stops at each row's diagonal).  Last the state
-//   update.  Every product is a 4 x 4 register tile per thread fed by float4
-//   reads from shared memory, f32 FMAs on the CUDA cores; at Zamba2's layer
-//   112 KB of shared memory at TQ 32, so two CTAs share an SM.
+//   N or P above 64, Q above 128): one CTA of 256 threads per (b, h, P
+//   tile) keeps its P tile of the state in shared memory.  P is split into
+//   tiles of kPTile columns over the grid's y axis (one launch still): the
+//   state's and y's P columns evolve independently, so the split is exact;
+//   each CTA holds all of N and recomputes the chunk's q.k^T scores.  Per
+//   chunk it stages K (transposed, N x Q) and its V tile (Q x PT) in shared
+//   memory as f32, then walks the chunk's query rows in tiles of TQ: Q^T
+//   tile (N x TQ), the decayed score tile W^T (Q x TQ, only the keys that
+//   reach the tile's rows), then y for the tile (the intra-chunk product
+//   stops at each row's diagonal).  Last the state update.  Every product
+//   is a 4 x 4 register tile per thread fed by float4 reads from shared
+//   memory, f32 FMAs on the CUDA cores; at Zamba2's layer 112 KB of shared
+//   memory at TQ 32, so two CTAs share an SM; at xLSTM's N 192 and a P tile
+//   of 64, 230,912 of the 232,448 bytes a block may use at TQ 32 (one CTA
+//   per SM; 96 CTAs for B 4 x H 8 x 3 P tiles).
 //   * Strided inputs: every tensor comes with its element strides (stride-0
 //     heads included).  Rows with unit-stride, 16-byte-aligned columns are
 //     staged as 16-byte loads; other layouts element by element.
-//   * Ragged sizes: N, P and Q are padded to multiples of 4 in shared memory
-//     with zeros (q = k = v = 0, log_a = 0).
+//   * Ragged sizes: N, the P tile and Q are padded to multiples of 4 in
+//     shared memory with zeros (q = k = v = 0, log_a = 0); the last P tile
+//     may be narrower than kPTile (P 130: 64, 64, 2).
 //   * Limits (the wrapper checks them on either device, this file again):
-//     N, P <= 128, Q <= 256, S a multiple of Q, shared memory <= 227 KB;
-//     the wrapper picks TQ (32, or less where the chunk would not fit: 16 at
-//     N = P = Q = 128).
+//     N <= 192, any P (at most 65,535 tiles), Q <= 256, S a multiple of Q,
+//     shared memory <= 227 KB; the wrapper picks TQ (32, or less where the
+//     chunk would not fit; N 192 at chunk 256 fits at none).
 // No fast-math in either: IEEE expf.
 
 #include "hopper.cuh"
@@ -125,7 +134,9 @@ struct SsdParams {
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxDim = 128;          // N and P
+constexpr int kMaxN = 192;            // N: all of it sits in each CTA
+constexpr int kPTile = 64;            // P columns per CTA (the grid's y axis)
+constexpr int kMaxPTiles = 65535;     // gridDim.y's limit
 constexpr int kMaxChunk = 256;
 constexpr int kPerLane = kMaxChunk / 32;   // log_a rows per lane of warp 0
 constexpr int kBatch = 8;             // global loads in flight per thread (per stage)
@@ -133,10 +144,10 @@ constexpr int kMaxSmem = 232448;      // 227 KB, Hopper's per-block limit
 
 __host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
 
-// Shared-memory floats for one CTA; kernels/ssd_chunk/kernel.py
-// `_smem_bytes` computes the same.
-__host__ __device__ inline long long smem_floats(int n, int p, int chunk, int tq) {
-  const long long np = round4(n), pp = round4(p), qp = round4(chunk);
+// Shared-memory floats for one CTA of `pt` P columns (its P tile);
+// kernels/ssd_chunk/kernel.py `_smem_bytes` computes the same.
+__host__ __device__ inline long long smem_floats(int n, int pt, int chunk, int tq) {
+  const long long np = round4(n), pp = round4(pt), qp = round4(chunk);
   return np * (qp + 4) + qp * pp + np * pp + np * (tq + 4) + qp * (tq + 4) + 3 * qp;
 }
 
@@ -267,7 +278,9 @@ __device__ inline void outer_sum(float (&acc)[4][4], const float* A, int as, con
 template <typename T>
 __global__ void __launch_bounds__(kThreads) ssd_chunk_kernel(const SsdParams prm) {
   extern __shared__ float4 smem_f4[];
-  const int n = prm.n, p = prm.p, Q = prm.chunk, TQ = prm.tile_q;
+  // this CTA's P tile: columns p_lo .. p_lo + p - 1 of the (b, h) scan
+  const int p_lo = blockIdx.y * kPTile;
+  const int n = prm.n, p = min(kPTile, prm.p - p_lo), Q = prm.chunk, TQ = prm.tile_q;
   const int NP = round4(n), PP = round4(p), QP = round4(Q);
   const int kts = QP + 4, qts = TQ + 4;       // row strides of kT and qT / WT
   float* kT = reinterpret_cast<float*>(smem_f4);   // (NP, kts): k transposed
@@ -282,9 +295,11 @@ __global__ void __launch_bounds__(kThreads) ssd_chunk_kernel(const SsdParams prm
   const int b = blockIdx.x / prm.heads, h = blockIdx.x % prm.heads;
   const T* q = static_cast<const T*>(prm.q) + b * prm.q_stride[0] + h * prm.q_stride[1];
   const T* k = static_cast<const T*>(prm.k) + b * prm.k_stride[0] + h * prm.k_stride[1];
-  const T* v = static_cast<const T*>(prm.v) + b * prm.v_stride[0] + h * prm.v_stride[1];
+  const T* v = static_cast<const T*>(prm.v) + b * prm.v_stride[0] + h * prm.v_stride[1] +
+               p_lo * prm.v_stride[3];
   const float* la = prm.log_a + b * prm.la_stride[0] + h * prm.la_stride[1];
-  T* y = static_cast<T*>(prm.y) + b * prm.y_stride[0] + h * prm.y_stride[1];
+  T* y = static_cast<T*>(prm.y) + b * prm.y_stride[0] + h * prm.y_stride[1] +
+         p_lo * prm.y_stride[3];
   const int tid = threadIdx.x;
   const int npb = PP / 4;
 
@@ -434,8 +449,9 @@ __global__ void __launch_bounds__(kThreads) ssd_chunk_kernel(const SsdParams prm
   }
   __syncthreads();
 
-  float* out = prm.state + (static_cast<long long>(b) * prm.heads + h) * n * p;
-  for (int e = tid; e < n * p; e += kThreads) out[e] = S[(e / p) * PP + e % p];
+  float* out = prm.state + (static_cast<long long>(b) * prm.heads + h) * n * prm.p + p_lo;
+  for (int e = tid; e < n * p; e += kThreads)
+    out[(e / p) * static_cast<long long>(prm.p) + e % p] = S[(e / p) * PP + e % p];
 }
 
 // ---- bfloat16 on Hopper: TMA-fed chunks, wgmma products, the state in registers ----
@@ -860,11 +876,13 @@ constexpr int kBadParams = -1;
 
 template <typename T>
 int launch_cuda_core(const SsdParams& prm, cudaStream_t stream) {
-  const int smem = static_cast<int>(smem_floats(prm.n, prm.p, prm.chunk, prm.tile_q) * 4);
+  const int smem =
+      static_cast<int>(smem_floats(prm.n, min(prm.p, kPTile), prm.chunk, prm.tile_q) * 4);
   cudaError_t err = cudaFuncSetAttribute(
       ssd_chunk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_chunk_kernel<T><<<prm.batch * prm.heads, kThreads, smem, stream>>>(prm);
+  const dim3 grid(prm.batch * prm.heads, (prm.p + kPTile - 1) / kPTile);
+  ssd_chunk_kernel<T><<<grid, kThreads, smem, stream>>>(prm);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -890,15 +908,15 @@ int launch_wgmma(const SsdParams& prm, cudaStream_t stream) {
 // -1000 - r when encoding a tensor map failed with CUresult r.
 extern "C" int ssd_chunk_launch(const SsdParams* prm, void* stream) {
   const SsdParams& P = *prm;
-  if (P.batch < 1 || P.heads < 1 || P.seq < 1 || P.n < 1 || P.n > kMaxDim ||
-      P.p < 1 || P.p > kMaxDim || P.chunk < 1 || P.chunk > kMaxChunk ||
+  if (P.batch < 1 || P.heads < 1 || P.seq < 1 || P.n < 1 || P.n > kMaxN ||
+      P.p < 1 || (P.p - 1) / kPTile >= kMaxPTiles || P.chunk < 1 || P.chunk > kMaxChunk ||
       P.seq % P.chunk != 0 || (P.dtype != 0 && P.dtype != 1) ||
       static_cast<long long>(P.batch) * P.heads > 0x7fffffffLL)
     return kBadParams;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (P.body == 1) return wgmma_ok(P) ? launch_wgmma(P, s) : kBadParams;
   if (P.body != 0 || P.tile_q < 4 || P.tile_q % 4 != 0 || P.tile_q > round4(P.chunk) ||
-      smem_floats(P.n, P.p, P.chunk, P.tile_q) * 4 > kMaxSmem)
+      smem_floats(P.n, P.p < kPTile ? P.p : kPTile, P.chunk, P.tile_q) * 4 > kMaxSmem)
     return kBadParams;
   return P.dtype == 1 ? launch_cuda_core<__nv_bfloat16>(P, s) : launch_cuda_core<float>(P, s);
 }

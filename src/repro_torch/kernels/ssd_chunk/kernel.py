@@ -13,9 +13,10 @@ multiple of it) in f32.  Returns ``y`` in v's dtype and the final state
 The tensors may be strided views with any strides, zero included: the
 model's head-broadcast q and k (``expand`` over heads) and its
 ``(B, S, H, ·)`` layout go in as views with no copy, and ``out`` may be such
-a view of the caller's buffer.  The kernel takes N, P ≤ 128 and chunks up to
-256 rows whose working set fits in the 227 KB of shared memory a block may
-use; the wrapper raises for anything else, on either device.
+a view of the caller's buffer.  The kernel takes N ≤ 192, any P (split
+over CTAs in tiles of ``P_TILE`` columns, one launch per call) and chunks up
+to 256 rows whose working set fits in the 227 KB of shared memory a block
+may use; the wrapper raises for anything else, on either device.
 
 A CUDA tensor launches the kernel — built from source with nvcc at first use
 (``kernels/build.py``) — or raises; a CPU tensor takes the plain PyTorch
@@ -38,11 +39,14 @@ import torch
 from repro_torch.kernels import build, refuse_grad
 from repro_torch.kernels.ssd_chunk.ref import ssd_ref
 
-MAX_DIM = 128                  # N and P
+MAX_N = 192                    # N: each CTA holds all of it
+P_TILE = 64                    # P columns per CTA of the CUDA-core body
+MAX_P_TILES = 65_535           # the grid's y axis
 MAX_CHUNK = 256
 MAX_SMEM_BYTES = 232_448       # 227 KB, Hopper's per-block limit
 # query rows per tile, the largest that fits; at Zamba2's N = P = 64, chunk
-# 128, 32 rows take 112 KB (two CTAs per SM), 64 rows 137 KB (one)
+# 128, 32 rows take 112 KB (two CTAs per SM), 64 rows 137 KB (one); at
+# xLSTM's N 192, P tile 64, chunk 128, 32 rows take 230,912 bytes (one)
 TILE_Q = (32, 16, 8, 4)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BODIES = ("cuda_core", "wgmma")   # SsdParams.body 0, 1
@@ -79,10 +83,11 @@ def _round4(x: int) -> int:
 
 
 def _smem_bytes(n: int, p: int, chunk: int, tile_q: int) -> int:
-    """Shared memory of one CTA: k transposed, v, the state, the tile's q
-    transposed and its score block, three per-row vectors (``smem_floats``
-    in the CUDA source)."""
-    np_, pp, qp = _round4(n), _round4(p), _round4(chunk)
+    """Shared memory of one CTA of the CUDA-core body at P ``p`` (its P tile
+    is the first ``min(p, P_TILE)`` columns): k transposed, the tile's v
+    and state, the query tile's q transposed and its score block, three
+    per-row vectors (``smem_floats`` in the CUDA source)."""
+    np_, pp, qp = _round4(n), _round4(min(p, P_TILE)), _round4(chunk)
     return 4 * (np_ * (qp + 4) + qp * pp + np_ * pp + np_ * (tile_q + 4)
                 + qp * (tile_q + 4) + 3 * qp)
 
@@ -144,8 +149,10 @@ def _check(q, k, v, log_a, chunk: int, out) -> tuple[int, int]:
                          f"v {tuple(v.shape)} log_a {tuple(log_a.shape)}")
     if min(b, h, s) < 1:
         raise ValueError(f"empty input: B {b}, H {h}, S {s}")
-    if not (1 <= n <= MAX_DIM and 1 <= p <= MAX_DIM):
-        raise ValueError(f"N {n} and P {p} must lie in 1..{MAX_DIM}")
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"N {n} must lie in 1..{MAX_N}")
+    if not 1 <= p <= MAX_P_TILES * P_TILE:
+        raise ValueError(f"P {p} must lie in 1..{MAX_P_TILES * P_TILE}")
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     chunk = min(chunk, s)

@@ -92,7 +92,8 @@ def instrumented_source(ctas: int) -> str:
     start = "  for (int e = tid; e < NP * PP; e += kThreads) S[e] = 0.f;"
     src = _replace_once(src, start, "  long long dbg[5] = {}; long long t_mark = clock64();\n"
                         + start)
-    end = "  float* out = prm.state + (static_cast<long long>(b) * prm.heads + h) * n * p;"
+    end = ("  float* out = prm.state + (static_cast<long long>(b) * prm.heads + h) * n * prm.p"
+           " + p_lo;")
     src = _replace_once(src, end, "  if (threadIdx.x == 0)\n    for (int z = 0; z < 5; ++z) "
                                   "g_dbg[blockIdx.x * 5 + z] = dbg[z];\n" + end)
     # the wgmma body's: per consumer warpgroup, and the producer's waits

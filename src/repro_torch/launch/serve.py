@@ -2,21 +2,26 @@
 ``repro.launch.serve``).
 
 Runs on the card unless asked for the CPU.  With ``impl="kernel"`` every
-prefill attention goes through the CUDA flash-attention kernel and every
-Mamba2 prefill scan (``zamba2-7b``) through the CUDA SSD-chunk kernel;
-one-token decode is plain PyTorch, as in the reference.  A hybrid's prompt
-length must be a multiple of its scan chunk (``ssm_chunk``) or shorter
-than it, as the reference asserts.
+prefill attention goes through the CUDA flash-attention kernel, and every
+Mamba2 prefill scan (``zamba2-7b``) and both scans of every mLSTM layer
+(``xlstm-125m``: values and normaliser) through the CUDA SSD-chunk kernel;
+the sLSTM's loop over time and one-token decode are plain PyTorch, as in
+the reference.  A hybrid's or an xLSTM's prompt length must be a multiple
+of its scan chunk (``ssm_chunk``) or shorter than it, as the reference
+asserts.
 
     python -m repro_torch.launch.serve --arch tinyllama-1.1b --device cpu   # smoke size
     python -m repro_torch.launch.serve --arch gemma-2b --device cpu
     python -m repro_torch.launch.serve --arch llama3.2-1b --device cpu
     python -m repro_torch.launch.serve --arch glm4-9b --device cpu
     python -m repro_torch.launch.serve --arch zamba2-7b --device cpu
+    python -m repro_torch.launch.serve --arch xlstm-125m --device cpu
     python -m repro_torch.launch.serve --arch zamba2-7b --full \\
         --batch 4 --prompt-len 4096 --gen 32          # one H100
     python -m repro_torch.launch.serve --arch gemma-2b --full \\
         --batch 4 --prompt-len 4096 --gen 32          # one H100 (head dim 256)
+    python -m repro_torch.launch.serve --arch xlstm-125m --full \\
+        --batch 4 --prompt-len 4096 --gen 32          # one H100 (N = P = 192)
 """
 
 from __future__ import annotations
@@ -106,7 +111,8 @@ def _grow_attention_caches(cache: PyTree, prompt_len: int, cache_len: int) -> Py
     """Pad attention caches (stacked (L,B,S,...) layout, seq axis 2: the
     decoder's ``blocks/{k,v}``, the hybrid's ``chunks/attn_kv/{k,v}``) from
     the prefill length to prompt+gen with zeros.  Other leaves (the Mamba2
-    ``state`` and ``conv``) are untouched."""
+    ``state`` and ``conv``, the mLSTM states, the sLSTM's ``(c, n, h, m)``)
+    are untouched."""
 
     def grow(path, leaf):
         name = path.rsplit("/", 1)[-1]
@@ -129,8 +135,8 @@ def main(argv=None) -> int:
                     help="use the full-size config (one H100; not for the CPU)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--impl", default="kernel", choices=("kernel", "plain"),
-                    help="prefill attention and Mamba2 scans: the CUDA kernels "
-                         "or plain PyTorch")
+                    help="prefill attention and Mamba2 / mLSTM scans: the CUDA "
+                         "kernels or plain PyTorch")
     args = ap.parse_args(argv)
     cfg = get_config(args.arch, smoke=not args.full)
     serve_session(cfg, args.batch, args.prompt_len, args.gen, device=args.device,

@@ -3,8 +3,8 @@
 - ``make_train_step``          — FNU baseline: full-network Adam step.
 - ``make_fedpart_train_step``  — the paper's technique on a served
   architecture: gradients and optimizer state restricted to one layer group
-  (a layer of a stacked key such as ``blocks``, or the ``embed`` /
-  ``shared_attn`` / ``final_norm|head`` subtrees).
+  (a layer of a stacked key such as ``blocks`` or the xLSTM's ``pairs``, or
+  the ``embed`` / ``shared_attn`` / ``final_norm|head`` subtrees).
 - ``make_prefill_step``        — full-sequence forward + KV cache write.
 - ``make_serve_step``          — one-token decode against the cache.
 

@@ -8,9 +8,9 @@
     cache_init(cfg, batch, cache_len, dtype, device) -> cache
     synth_batch(gen, cfg, shape, device)            -> batch
 
-``kind == "decoder"`` (dense GQA) and ``kind == "hybrid"`` (Zamba2) are
-ported; ``xlstm`` and ``encdec`` raise ``NotImplementedError`` naming their
-ROADMAP item.  Randomness comes from an explicit ``torch.Generator`` (the
+``kind == "decoder"`` (dense GQA), ``kind == "xlstm"`` (mLSTM / sLSTM
+pairs) and ``kind == "hybrid"`` (Zamba2) are ported; ``encdec`` raises
+``NotImplementedError`` naming its ROADMAP item.  Randomness comes from an explicit ``torch.Generator`` (the
 reference's distributions, not its numbers: tests bridge the reference's
 params and batches instead).
 
@@ -59,7 +59,7 @@ INPUT_SHAPES: dict[str, InputShape] = {
 
 
 def _ported_kind(cfg: ModelConfig) -> None:
-    if cfg.kind not in ("decoder", "hybrid"):
+    if cfg.kind not in ("decoder", "xlstm", "hybrid"):
         raise NotImplementedError(
             f"model kind {cfg.kind!r} is not ported yet: ROADMAP Queue 1 item 15")
 
@@ -85,6 +85,8 @@ def cache_length(cfg: ModelConfig, seq_len: int) -> int:
 
 def init(gen: torch.Generator, cfg: ModelConfig, device) -> PyTree:
     _ported_kind(cfg)
+    if cfg.kind == "xlstm":
+        return transformer.xlstm_init(gen, cfg, device)
     if cfg.kind == "hybrid":
         return transformer.hybrid_init(gen, cfg, device)
     return transformer.decoder_init(gen, cfg, device)
@@ -101,6 +103,9 @@ def forward(
     remat: bool = False,
 ) -> tuple[torch.Tensor, PyTree | None, torch.Tensor]:
     _ported_kind(cfg)
+    if cfg.kind == "xlstm":
+        return transformer.xlstm_forward(params, cfg, batch["tokens"], impl=impl,
+                                         collect_cache=collect_cache, remat=remat)
     kw = dict(window=window, impl=impl, collect_cache=collect_cache, remat=remat)
     if cfg.kind == "hybrid":
         return transformer.hybrid_forward(params, cfg, batch["tokens"], **kw)
@@ -129,6 +134,8 @@ def decode_step(
     window: int = 0,
 ) -> tuple[torch.Tensor, PyTree]:
     _ported_kind(cfg)
+    if cfg.kind == "xlstm":
+        return transformer.xlstm_decode_step(params, cfg, token, cache, pos)
     if cfg.kind == "hybrid":
         return transformer.hybrid_decode_step(params, cfg, token, cache, pos,
                                               window=window)
@@ -139,6 +146,8 @@ def decode_step(
 def cache_init(cfg: ModelConfig, batch: int, cache_len: int, dtype,
                device) -> PyTree:
     _ported_kind(cfg)
+    if cfg.kind == "xlstm":
+        return transformer.xlstm_cache_init(cfg, batch, dtype, device)
     if cfg.kind == "hybrid":
         return transformer.hybrid_cache_init(cfg, batch, cache_len, dtype, device)
     return transformer.decoder_cache_init(cfg, batch, cache_len, dtype, device)

@@ -1,29 +1,40 @@
-"""Mamba2 (SSD) blocks (port of the Mamba2 half of ``repro.models.ssm``).
+"""State-space and recurrent blocks: Mamba2 (SSD) and xLSTM (mLSTM /
+sLSTM) (port of ``repro.models.ssm``).
 
 One chunked decay-weighted linear-attention engine implements the
 recurrence
 
     S_t = a_t * S_{t-1} + k_t ⊗ v_t          y_t = q_t · S_t
 
-``mamba2_forward`` runs it one of two ways:
+Mamba2 (a = exp(-Δ·exp(A_log)), k = B, q = C, v = Δ·x) and the mLSTM (a =
+σ(f), k, q from projections, v scaled by the clipped exponential input
+gate; a second scan with v ≡ the gate gives the normaliser) both lower
+onto it.  ``mamba2_forward`` and ``mlstm_forward`` run it one of two ways:
 
 * ``impl="kernel"`` (the default): the hand-written CUDA SSD-chunk kernel
   (``kernels.ssd_chunk.ops.ssd_scan``); on CPU tensors that is its plain
   version, the sequential recurrence.  The kernel computes in f32 and
   returns an f32 state; it is cast to v's dtype for the cache, as the
   reference's jnp path leaves it, so cache layouts and dtypes are the same
-  on both paths.
+  on both paths.  The mLSTM's two scans (N = P = 192 and P = 1 at
+  xlstm-125m's widths) are two launches per layer.
 * ``impl="plain"``: ``chunked_decay_attention``, the reference's jnp
   chunked form op for op (its casts included), with a Python loop over the
   chunks in place of ``jax.lax.scan``.
 
-The mLSTM and sLSTM blocks (xLSTM) are not ported yet and raise.
+The sLSTM keeps its true sequential recurrence (h_{t-1} feeds the gates)
+with the m-stabiliser: the reference's ``lax.scan`` over time is a Python
+loop over time here, plain PyTorch (no TPU kernel runs it; XLA left it to
+its fusion), under the profiler label ``SLSTM_LOOP``.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_chunk import ops as ssd_ops
@@ -31,7 +42,7 @@ from repro_torch.models.layers import _lead, linear, linear_init, rmsnorm, rmsno
 from repro_torch.tree import PyTree
 
 IMPLS = ("kernel", "plain")
-_XLSTM = "the xLSTM blocks (mLSTM, sLSTM) are not ported yet: ROADMAP Queue 1 item 15"
+SLSTM_LOOP = "slstm_time_loop"   # profiler label of the sLSTM's loop over time
 
 
 # ---------------------------------------------------------------------------
@@ -259,28 +270,188 @@ def mamba2_cache_init(cfg: ModelConfig, batch: int, dtype, device,
 
 
 # ---------------------------------------------------------------------------
-# xLSTM blocks: not ported yet
+# mLSTM block (xLSTM)
 # ---------------------------------------------------------------------------
 
-def mlstm_init(*args, **kwargs):
-    raise NotImplementedError(_XLSTM)
+def _mlstm_dims(cfg: ModelConfig) -> tuple[int, int, int]:
+    d_inner = cfg.ssm_expand * cfg.d_model
+    hdim = cfg.ssm_head_dim or 64
+    return d_inner, d_inner // hdim, hdim
 
 
-def mlstm_forward(*args, **kwargs):
-    raise NotImplementedError(_XLSTM)
+def mlstm_init(gen: torch.Generator, cfg: ModelConfig, dtype, device,
+               n: int | tuple[int, ...] | None = None) -> PyTree:
+    """One mLSTM block's params (the reference's distributions), or blocks
+    stacked on leading axes ``n``."""
+    d = cfg.d_model
+    d_inner, heads, _ = _mlstm_dims(cfg)
+    return {
+        "up_proj": linear_init(gen, d, 2 * d_inner, dtype, device, n=n),   # x-branch, z-gate
+        "wq": linear_init(gen, d_inner, d_inner, dtype, device, n=n),
+        "wk": linear_init(gen, d_inner, d_inner, dtype, device, n=n),
+        "wv": linear_init(gen, d_inner, d_inner, dtype, device, n=n),
+        "w_i": linear_init(gen, d_inner, heads, dtype, device, bias=True, n=n),
+        "w_f": linear_init(gen, d_inner, heads, dtype, device, bias=True, n=n),
+        "out_norm": rmsnorm_init(d_inner, dtype, device, n),
+        "down_proj": linear_init(gen, d_inner, d, dtype, device, n=n),
+    }
 
 
-def mlstm_decode(*args, **kwargs):
-    raise NotImplementedError(_XLSTM)
+def _mlstm_qkv(params: PyTree, cfg: ModelConfig, xb: torch.Tensor):
+    d_inner = xb.shape[-1]
+    hdim = cfg.ssm_head_dim or 64
+    heads = d_inner // hdim
+    shp = (*xb.shape[:-1], heads, hdim)
+    q = linear(params["wq"], xb).reshape(shp)
+    # the reference divides by sqrt(hdim) taken in f32, cast to x's dtype
+    scale = float(torch.tensor(math.sqrt(hdim), dtype=torch.float32).to(xb.dtype))
+    k = linear(params["wk"], xb).reshape(shp) / scale
+    v = linear(params["wv"], xb).reshape(shp)
+    i_raw = linear(params["w_i"], xb).float()
+    f_raw = linear(params["w_f"], xb).float()
+    return q, k, v, i_raw, f_raw, heads
 
 
-def slstm_init(*args, **kwargs):
-    raise NotImplementedError(_XLSTM)
+def mlstm_forward(
+    params: PyTree, cfg: ModelConfig, x: torch.Tensor, *, impl: str = "kernel",
+) -> tuple[torch.Tensor, PyTree]:
+    """Full-sequence mLSTM.  The exponential input gate is clipped
+    (``exp(min(i, 8))``) as the reference clips it, which keeps the chunked
+    forward consistent with the recurrent decode.  Returns (y, cache) with
+    the final value and normaliser states in v's dtype."""
+    b, s, _ = x.shape
+    up = linear(params["up_proj"], x)
+    d_inner = up.shape[-1] // 2
+    xb, z = up[..., :d_inner], up[..., d_inner:]
+    q, k, v, i_raw, f_raw, heads = _mlstm_qkv(params, cfg, xb)
+    i_gate = torch.exp(torch.clamp_max(i_raw, 8.0))                # (b,s,h)
+    log_f = F.logsigmoid(f_raw)                                     # <= 0
+    v_scaled = v * i_gate[..., None].to(v.dtype)
+    y, state = chunked_decay_attention(q, k, v_scaled, log_f, cfg.ssm_chunk, impl=impl)
+    # normaliser: the same recurrence with v ≡ the input gate (P = 1)
+    ones = i_gate[..., None].to(v.dtype)                            # (b,s,h,1)
+    norm, n_state = chunked_decay_attention(q, k, ones, log_f, cfg.ssm_chunk, impl=impl)
+    denom = torch.clamp_min(norm[..., 0].abs(), 1.0)[..., None]
+    h = (y / denom).reshape(b, s, d_inner)
+    h = rmsnorm(params["out_norm"], h) * F.silu(z)
+    out = linear(params["down_proj"], h)
+    return out, {"state": state.to(v.dtype), "n_state": n_state.to(v.dtype)}
 
 
-def slstm_forward(*args, **kwargs):
-    raise NotImplementedError(_XLSTM)
+def mlstm_decode(
+    params: PyTree, cfg: ModelConfig, x: torch.Tensor, cache: PyTree
+) -> tuple[torch.Tensor, PyTree]:
+    """One-token step.  x: (B,1,d); cache: {state (b,h,P,P), n_state
+    (b,h,P,1)}; returns new cache tensors."""
+    b = x.shape[0]
+    up = linear(params["up_proj"], x)
+    d_inner = up.shape[-1] // 2
+    xb, z = up[:, 0, :d_inner], up[:, 0, d_inner:]
+    q, k, v, i_raw, f_raw, heads = _mlstm_qkv(params, cfg, xb)
+    i_gate = torch.exp(torch.clamp_max(i_raw, 8.0))
+    f_gate = torch.sigmoid(f_raw).to(v.dtype)
+    v_scaled = v * i_gate[..., None].to(v.dtype)
+    y, state = decay_attention_step(q, k, v_scaled, f_gate, cache["state"])
+    ones = i_gate[..., None].to(v.dtype)                            # (b,h,1)
+    norm, n_state = decay_attention_step(q, k, ones, f_gate, cache["n_state"])
+    denom = torch.clamp_min(norm[..., 0].abs(), 1.0)[..., None]
+    h = (y / denom).reshape(b, 1, d_inner)
+    h = rmsnorm(params["out_norm"], h) * F.silu(z)[:, None, :]
+    out = linear(params["down_proj"], h)
+    return out, {"state": state, "n_state": n_state}
 
 
-def slstm_decode(*args, **kwargs):
-    raise NotImplementedError(_XLSTM)
+def mlstm_cache_init(cfg: ModelConfig, batch: int, dtype, device,
+                     n: int | tuple[int, ...] | None = None) -> PyTree:
+    """A zero mLSTM cache, or caches stacked on leading axes ``n``."""
+    _, heads, hdim = _mlstm_dims(cfg)
+    lead = _lead(n)
+    return {
+        "state": torch.zeros(lead + (batch, heads, hdim, hdim), dtype=dtype, device=device),
+        "n_state": torch.zeros(lead + (batch, heads, hdim, 1), dtype=dtype, device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# sLSTM block (true recurrence, a Python loop over time)
+# ---------------------------------------------------------------------------
+
+M_INIT = -30.0   # the m-stabiliser's starting value (the reference's)
+
+
+def _slstm_dims(cfg: ModelConfig) -> tuple[int, int]:
+    hdim = cfg.ssm_head_dim or 64
+    return cfg.d_model // hdim, hdim
+
+
+def slstm_init(gen: torch.Generator, cfg: ModelConfig, dtype, device,
+               n: int | tuple[int, ...] | None = None) -> PyTree:
+    """One sLSTM block's params: 4 gates (z, i, f, o), input weights and
+    block-diagonal recurrent weights per head; or blocks stacked on ``n``."""
+    d = cfg.d_model
+    heads, hdim = _slstm_dims(cfg)
+    r_h = torch.randn(_lead(n) + (heads, hdim, 4 * hdim), generator=gen, device=device,
+                      dtype=torch.float32)
+    return {
+        "w_x": linear_init(gen, d, 4 * d, dtype, device, bias=True, n=n),
+        "r_h": r_h.mul_(1.0 / math.sqrt(hdim)).to(dtype),
+        "out_norm": rmsnorm_init(d, dtype, device, n),
+        "out_proj": linear_init(gen, d, d, dtype, device, n=n),
+    }
+
+
+def slstm_forward(
+    params: PyTree, cfg: ModelConfig, x: torch.Tensor, init: tuple | None = None
+) -> tuple[torch.Tensor, tuple]:
+    """Sequential sLSTM with the exp-gating m-stabiliser.  x: (B,S,d).
+    Returns (y, (c, n, h, m)): c, n, h in x's dtype, m in f32, as the
+    reference casts them."""
+    b, s, d = x.shape
+    heads, hdim = _slstm_dims(cfg)
+    gx = linear(params["w_x"], x)                                   # (b,s,4d)
+    c, n, h, m = init if init is not None else slstm_cache_init_shapes(
+        b, heads, hdim, x.dtype, x.device)
+    r_h = params["r_h"].to(x.dtype)
+    hs = []
+    with record_function(SLSTM_LOOP):
+        for t in range(s):
+            rec = torch.einsum("bhp,hpq->bhq", h, r_h)              # (b,heads,4*hdim)
+            g = gx[:, t].reshape(b, heads, 4, hdim) + rec.reshape(b, heads, 4, hdim)
+            z_t = torch.tanh(g[:, :, 0])
+            i_t = g[:, :, 1].float()
+            f_t = g[:, :, 2].float()
+            o_t = torch.sigmoid(g[:, :, 3])
+            log_f = F.logsigmoid(f_t)
+            m_new = torch.maximum(log_f + m, i_t)
+            i_p = torch.exp(i_t - m_new).to(x.dtype)
+            f_p = torch.exp(log_f + m - m_new).to(x.dtype)
+            c = f_p * c + i_p * z_t
+            n = f_p * n + i_p
+            h = o_t * c / torch.clamp_min(n.abs(), 1.0)
+            m = m_new
+            hs.append(h)
+    y = torch.stack(hs, dim=1).reshape(b, s, d)
+    y = linear(params["out_proj"], rmsnorm(params["out_norm"], y))
+    return y, (c, n, h, m)
+
+
+def slstm_decode(
+    params: PyTree, cfg: ModelConfig, x: torch.Tensor, cache: tuple
+) -> tuple[torch.Tensor, tuple]:
+    return slstm_forward(params, cfg, x, init=cache)
+
+
+def slstm_cache_init_shapes(b: int, heads: int, hdim: int, dtype, device,
+                            lead: tuple[int, ...] = ()) -> tuple:
+    """Zero (c, n, h) in ``dtype`` and m at ``M_INIT`` in f32: four
+    separate tensors (decode writes them in place)."""
+    shape = lead + (b, heads, hdim)
+    z = [torch.zeros(shape, dtype=dtype, device=device) for _ in range(3)]
+    return (*z, torch.full(shape, M_INIT, dtype=torch.float32, device=device))
+
+
+def slstm_cache_init(cfg: ModelConfig, batch: int, dtype, device,
+                     n: int | tuple[int, ...] | None = None) -> tuple:
+    """A fresh sLSTM cache, or caches stacked on leading axes ``n``."""
+    heads, hdim = _slstm_dims(cfg)
+    return slstm_cache_init_shapes(batch, heads, hdim, dtype, device, _lead(n))

@@ -1,21 +1,23 @@
-"""Decoder-only transformer with dense GQA blocks, and the Zamba2 hybrid
-(port of the decoder and hybrid parts of ``repro.models.transformer``).
+"""Decoder-only transformer with dense GQA blocks, the xLSTM and the
+Zamba2 hybrid (port of the decoder, xLSTM and hybrid parts of
+``repro.models.transformer``).
 
 Parameters keep the reference's *stacked* layout: ``params["blocks"]``
-holds every block's leaves with a leading ``num_layers`` axis; the hybrid's
+holds every block's leaves with a leading ``num_layers`` axis; the xLSTM's
+``params["pairs"]`` its (mLSTM, sLSTM) pairs on one axis; the hybrid's
 ``params["chunks"]`` holds its Mamba2 blocks on ``(n_chunks, attn_every)``
 axes and ``params["tail"]`` the leftover ones on one axis.  So the
 reference's ``api.init`` params bridge across unchanged.  The reference's
 ``jax.lax.scan`` over those axes is a Python loop here (PyTorch runs
 eagerly; there is nothing to trace), and its ``remat`` (``jax.checkpoint``
 around the scan body) is ``torch.utils.checkpoint`` around each iteration
-of that loop: a decoder block, a hybrid chunk (shared block + its Mamba2
-blocks), a tail Mamba2 block.  A forward may also be handed a stack as a
+of that loop: a decoder block, an xLSTM pair, a hybrid chunk (shared block
++ its Mamba2 blocks), a tail Mamba2 block.  A forward may also be handed a stack as a
 list of per-layer trees (``_layer``): the partial train step does, so that
 only the trained layer's tensors require grad.
 
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP item:
-MoE blocks, MLA, the multi-token-prediction head, the xLSTM assembly.
+MoE blocks, MLA, the multi-token-prediction head.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ def _act_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def _ported(cfg: ModelConfig) -> None:
     """Raises for what the port does not run yet."""
-    if cfg.kind not in ("decoder", "hybrid"):
+    if cfg.kind not in ("decoder", "xlstm", "hybrid"):
         raise NotImplementedError(
             f"model kind {cfg.kind!r} is not ported yet: ROADMAP Queue 1 item 15")
     if cfg.is_moe:
@@ -235,6 +237,112 @@ def decoder_cache_init(cfg: ModelConfig, batch: int, cache_len: int, dtype,
     shape = (cfg.num_layers, batch, cache_len, cfg.num_kv_heads, hd)
     return {"blocks": {"k": torch.zeros(shape, dtype=dtype, device=device),
                        "v": torch.zeros(shape, dtype=dtype, device=device)}}
+
+
+# ---------------------------------------------------------------------------
+# xLSTM model (alternating mLSTM / sLSTM pairs)
+# ---------------------------------------------------------------------------
+
+def _n_pairs(cfg: ModelConfig) -> int:
+    if cfg.num_layers % 2:
+        raise ValueError(f"the xLSTM assembly uses mLSTM / sLSTM pairs: "
+                         f"num_layers {cfg.num_layers} is odd")
+    return cfg.num_layers // 2
+
+
+def xlstm_init(gen: torch.Generator, cfg: ModelConfig, device) -> PyTree:
+    """Random params from ``gen`` (the reference's distributions), on
+    ``device``; the pairs stacked on one leading axis."""
+    _ported(cfg)
+    dt = _dtype(cfg)
+    n = _n_pairs(cfg)
+    return {
+        "embed": embedding_init(gen, cfg.vocab_size, cfg.d_model, dt, device),
+        "pairs": {
+            "m_norm": norm_init(cfg.norm_kind, cfg.d_model, dt, device, n),
+            "mlstm": ssm.mlstm_init(gen, cfg, dt, device, n),
+            "s_norm": norm_init(cfg.norm_kind, cfg.d_model, dt, device, n),
+            "slstm": ssm.slstm_init(gen, cfg, dt, device, n),
+        },
+        "final_norm": norm_init(cfg.norm_kind, cfg.d_model, dt, device),
+        "head": linear_init(gen, cfg.d_model, cfg.vocab_size, dt, device),
+    }
+
+
+def xlstm_forward(
+    params: PyTree,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,
+    *,
+    impl: str = "kernel",
+    collect_cache: bool = False,
+    remat: bool = False,
+) -> tuple[torch.Tensor, PyTree | None, torch.Tensor]:
+    """Full-sequence forward (prefill, or the training loss's forward);
+    ``impl`` picks every mLSTM scan: the CUDA SSD-chunk kernel (two
+    launches a pair: values and normaliser) or plain PyTorch.  ``remat``
+    recomputes each pair's activations in the backward.
+
+    Returns (logits, caches | None, aux_loss); the caches keep the
+    reference's stacked layout: ``mlstm/{state,n_state}`` (pairs, B, H, P,
+    ·) and ``slstm`` the tuple (c, n, h, m) of (pairs, B, heads, hdim).
+    """
+    _ported(cfg)
+    x = embed(params["embed"], tokens, _act_dtype(cfg))
+
+    def pair(p, x):
+        h, m_cache = ssm.mlstm_forward(p["mlstm"], cfg,
+                                       norm_apply(cfg.norm_kind, p["m_norm"], x), impl=impl)
+        x = x + h
+        h, s_cache = ssm.slstm_forward(p["slstm"], cfg,
+                                       norm_apply(cfg.norm_kind, p["s_norm"], x))
+        return x + h, {"mlstm": m_cache, "slstm": s_cache}
+
+    n = _n_pairs(cfg)
+    caches = []
+    for i in range(n):
+        x, c = _call(pair, remat, _layer(params["pairs"], i), x)
+        if collect_cache:
+            caches.append(c)
+    x = norm_apply(cfg.norm_kind, params["final_norm"], x)
+    logits = _logits(params, cfg, x)
+    return (logits, _stack(caches, (n,)) if collect_cache else None,
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def xlstm_decode_step(
+    params: PyTree,
+    cfg: ModelConfig,
+    token: torch.Tensor,       # (B, 1) int
+    cache: PyTree,
+    pos: int,
+) -> tuple[torch.Tensor, PyTree]:
+    """One-token serve step; writes each pair's new mLSTM states and sLSTM
+    (c, n, h, m) into ``cache`` in place (the returned cache is the same
+    tensors).  ``pos`` is unused: the recurrent state carries it."""
+    _ported(cfg)
+    del pos
+    x = embed(params["embed"], token, _act_dtype(cfg))
+    for i in range(_n_pairs(cfg)):
+        p, c = _layer(params["pairs"], i), _layer(cache, i)
+        h, mc = ssm.mlstm_decode(p["mlstm"], cfg, norm_apply(cfg.norm_kind, p["m_norm"], x),
+                                 c["mlstm"])
+        x = x + h
+        h, sc = ssm.slstm_decode(p["slstm"], cfg, norm_apply(cfg.norm_kind, p["s_norm"], x),
+                                 c["slstm"])
+        x = x + h
+        tree_map(lambda dst, src: dst.copy_(src), c, {"mlstm": mc, "slstm": sc})
+    x = norm_apply(cfg.norm_kind, params["final_norm"], x)
+    return _logits(params, cfg, x), cache
+
+
+def xlstm_cache_init(cfg: ModelConfig, batch: int, dtype, device) -> PyTree:
+    """A fresh cache, the pairs stacked: mLSTM states zero in ``dtype``,
+    the sLSTM's (c, n, h) zero in ``dtype`` and m at ``ssm.M_INIT`` in f32."""
+    _ported(cfg)
+    n = _n_pairs(cfg)
+    return {"mlstm": ssm.mlstm_cache_init(cfg, batch, dtype, device, n),
+            "slstm": ssm.slstm_cache_init(cfg, batch, dtype, device, n)}
 
 
 # ---------------------------------------------------------------------------

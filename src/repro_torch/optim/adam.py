@@ -61,5 +61,6 @@ def adam_update(grads: PyTree, state: AdamState, params: PyTree,
         return (p.float() - cfg.lr * delta).to(p.dtype), m_new, v_new
 
     out = tree_map(upd, grads, state.m, state.v, params)
-    pick = lambda i: tree_map(lambda o: o[i], out)  # noqa: E731
+    # walked by params' structure, so each (p, m, v) triple stays a leaf
+    pick = lambda i: tree_map(lambda _, o: o[i], params, out)  # noqa: E731
     return pick(0), AdamState(step=step, m=pick(1), v=pick(2))

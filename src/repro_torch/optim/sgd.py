@@ -35,4 +35,6 @@ def sgd_update(grads: PyTree, state: SGDState, params: PyTree,
         return (p.float() - cfg.lr * v_new).to(p.dtype), v_new
 
     out = tree_map(upd, grads, state.velocity, params)
-    return tree_map(lambda o: o[0], out), SGDState(velocity=tree_map(lambda o: o[1], out))
+    # walked by params' structure, so each (p, v) pair stays a leaf
+    pick = lambda i: tree_map(lambda _, o: o[i], params, out)  # noqa: E731
+    return pick(0), SGDState(velocity=pick(1))

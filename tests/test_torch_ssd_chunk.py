@@ -4,14 +4,18 @@
   tensor) against the jnp oracle ``ssd_ref``;
 * ``ops.ssd_scan`` in the model layout against the Pallas ``ssd_scan`` in
   interpret mode, over the reference's four kernel cases, Zamba2's smoke
-  shape, a ragged chunk (S 12 < chunk 16), odd N / P / chunk (5 / 7 / 13)
-  and a slow decay over 8 chunks
-  (log_a in (-0.01, 0): the state carried between chunks matters), in f32
-  and bf16;
+  shape, a ragged chunk (S 12 < chunk 16), odd N / P / chunk (5 / 7 / 13),
+  a slow decay over 8 chunks
+  (log_a in (-0.01, 0): the state carried between chunks matters), the
+  mLSTM's N = P = 192 and its N 192, P 1 normaliser at chunk 128, and a P
+  of 130 (two full P tiles of the kernel and a ragged one), in f32 and
+  bf16;
 * ``chunked_decay_attention(impl="kernel")`` is ``ssd_scan`` (the plain
   chunked form is held against the reference in ``test_torch_ssm.py``);
 * head-broadcast (stride-0) q and k against contiguous copies; the
-  wrapper's checks, its tile choice and its C interface (``struct
+  wrapper's checks (N up to 192 and any P taken, N 193 and a working set
+  beyond the 227 KB refused), its tile choice and shared-memory budget
+  (pinned at N 192, P tile 64, chunk 128) and its C interface (``struct
   SsdParams`` in the CUDA source, field for field); the phase-timing
   tool's markers in the CUDA source;
 * the bf16 ``wgmma`` body's rounding plan (``ref.ssd_rounded``: W, k_dec
@@ -61,7 +65,10 @@ SMOKE = (2, 8, 32, 16, 32, 16)      # zamba2-7b smoke: 8 heads, N 16, P 32, chun
 RAGGED = (2, 3, 12, 16, 32, 16)     # S 12 < chunk 16: one chunk of 12
 ODD = (1, 3, 52, 5, 7, 13)          # odd N, P and chunk: padded in the kernel
 SLOW = (1, 2, 512, 32, 32, 64)      # log_a in (-0.01, 0) over 8 chunks
-ALL = CASES + [SMOKE, RAGGED, ODD, SLOW]
+XLSTM = (1, 2, 256, 192, 192, 128)  # xlstm-125m's mLSTM: N = P = 192, chunk 128
+XLSTM_NORM = (1, 2, 256, 192, 1, 128)   # its normaliser scan: P 1
+WIDE_P = (1, 2, 64, 32, 130, 32)    # P tiles of 64, 64 and a ragged 2
+ALL = CASES + [SMOKE, RAGGED, ODD, SLOW, XLSTM, XLSTM_NORM, WIDE_P]
 SEQ_TOL = 5e-5                      # ssd_ref: 512 sequential f32 steps, |S| up to ~10
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 ROW_TOL = 1e-2                      # bf16, of the row's norm over P
@@ -170,7 +177,8 @@ def test_kernel_layout_and_strided_out():
 
 @pytest.mark.parametrize("bad", ["dim", "dtype", "mixed", "log_a_dtype", "log_a_shape",
                                  "shape", "n", "p", "chunk_zero", "not_divisible",
-                                 "chunk_too_long", "no_fit", "out", "empty"])
+                                 "chunk_too_long", "no_fit", "no_fit_n192", "out",
+                                 "empty"])
 def test_wrapper_rejects(bad):
     b, h, s, n, p = 1, 2, 32, 16, 8
     q, k = torch.zeros(b, h, s, n), torch.zeros(b, h, s, n)
@@ -188,10 +196,10 @@ def test_wrapper_rejects(bad):
         la = torch.zeros(b, h, s + 1)
     elif bad == "shape":
         k = torch.zeros(b, h, s, n + 1)
-    elif bad == "n":
-        q, k = torch.zeros(b, h, s, 130), torch.zeros(b, h, s, 130)
-    elif bad == "p":
-        v = torch.zeros(b, h, s, 129)
+    elif bad == "n":           # one past the N a CTA holds
+        q, k = torch.zeros(b, h, s, sk.MAX_N + 1), torch.zeros(b, h, s, sk.MAX_N + 1)
+    elif bad == "p":           # one column past the grid's P tiles (a stride-0 view)
+        v = torch.zeros(1, 1, 1, 1).expand(b, h, s, sk.MAX_P_TILES * sk.P_TILE + 1)
     elif bad == "chunk_zero":
         kw["chunk"] = 0
     elif bad == "not_divisible":
@@ -200,9 +208,13 @@ def test_wrapper_rejects(bad):
         q, k = torch.zeros(b, h, 512, n), torch.zeros(b, h, 512, n)
         v, la = torch.zeros(b, h, 512, p), torch.zeros(b, h, 512)
         kw["chunk"] = 512
-    elif bad == "no_fit":      # N = P = 128 at chunk 256: 345 KB of shared memory
+    elif bad == "no_fit":      # N = P = 128 at chunk 256: 246,784 bytes at TQ 4
         q, k = torch.zeros(b, h, 256, 128), torch.zeros(b, h, 256, 128)
         v, la = torch.zeros(b, h, 256, 128), torch.zeros(b, h, 256)
+        kw["chunk"] = 256
+    elif bad == "no_fit_n192":   # the mLSTM's N 192 at chunk 256: 331,776 bytes
+        q, k = torch.zeros(b, h, 256, 192), torch.zeros(b, h, 256, 192)
+        v, la = torch.zeros(b, h, 256, 192), torch.zeros(b, h, 256)
         kw["chunk"] = 256
     elif bad == "out":
         kw["out"] = torch.zeros(b, h, s, p + 1)
@@ -213,19 +225,49 @@ def test_wrapper_rejects(bad):
         ssd_chunk_kernel(q, k, v, la, **kw)
 
 
+@pytest.mark.parametrize("case", ["n130", "p129", "n192_p200"])
+def test_wrapper_accepts_wide_n_and_p(case):
+    """N up to 192 and any P (P 129 and 200: a ragged last P tile on the
+    card) pass the checks; on the CPU the call is the plain version."""
+    n, p = {"n130": (130, 8), "p129": (16, 129), "n192_p200": (192, 200)}[case]
+    b, h, s = 1, 2, 32
+    gen = torch.Generator().manual_seed(4)
+    q, k = (torch.randn(b, h, s, n, generator=gen) * 0.3 for _ in range(2))
+    v = torch.randn(b, h, s, p, generator=gen)
+    la = -0.2 * torch.rand(b, h, s, generator=gen)
+    y, st = ssd_chunk_kernel(q, k, v, la, chunk=16)
+    y_ref, st_ref = ssd_ref(q, k, v, la)
+    assert y.shape == (b, h, s, p) and st.shape == (b, h, n, p)
+    assert torch.equal(y, y_ref) and torch.equal(st, st_ref)
+
+
 def test_tile_choice():
     """Zamba2's layer (N 64, P 64, chunk 128) runs 32-row query tiles in
     112,128 bytes of shared memory (two CTAs fit in an SM's 228 KB); the
-    reference's N = P = chunk = 128 cases fit only at 16 rows; ragged
-    chunks pad to a multiple of 4."""
+    reference's N = P = chunk = 128 cases, one 64-column P tile per CTA,
+    fit at 32 rows too; ragged chunks pad to a multiple of 4."""
     assert sk.tile_rows(64, 64, 128) == 32
     assert sk._smem_bytes(64, 64, 128, 32) == 112_128
     assert 2 * (112_128 + 1024) <= 228 * 1024
-    assert sk.tile_rows(128, 128, 128) == 16
-    assert sk._smem_bytes(128, 128, 128, 16) <= sk.MAX_SMEM_BYTES
-    assert sk._smem_bytes(128, 128, 128, 32) > sk.MAX_SMEM_BYTES
+    assert sk.tile_rows(128, 128, 128) == 32
+    assert sk._smem_bytes(128, 128, 128, 32) == sk._smem_bytes(128, 64, 128, 32) \
+        <= sk.MAX_SMEM_BYTES
     assert sk.tile_rows(16, 32, 12) == 12
     assert sk.tile_rows(16, 32, 13) == 16
+
+
+def test_smem_budget_at_the_mlstm_width():
+    """The mLSTM's N 192 at chunk 128: a CTA holds all of N and one P tile
+    of 64, 230,912 of the 232,448 bytes a block may use at 32 query rows
+    (64 rows would not fit); the P 1 normaliser scan fits at 32 rows too; a
+    P tile of 32 would take 189,952.  At chunk 256 no tile fits."""
+    assert sk.P_TILE == 64 and sk.MAX_N == 192
+    assert sk._smem_bytes(192, 192, 128, 32) == sk._smem_bytes(192, 64, 128, 32) == 230_912
+    assert 230_912 <= sk.MAX_SMEM_BYTES < sk._smem_bytes(192, 64, 128, 64)
+    assert sk.tile_rows(192, 192, 128) == sk.tile_rows(192, 1, 128) == 32
+    assert sk._smem_bytes(192, 32, 128, 32) == 189_952
+    with pytest.raises(ValueError, match="shared memory"):
+        sk.tile_rows(192, 192, 256)
 
 
 def test_params_struct_matches_cuda_source():
@@ -262,7 +304,9 @@ def _cuda_consts() -> dict[str, int]:
 
 def test_cuda_limits_match_the_wrapper():
     consts = _cuda_consts()
-    assert consts["kMaxDim"] == sk.MAX_DIM
+    assert consts["kMaxN"] == sk.MAX_N
+    assert consts["kPTile"] == sk.P_TILE
+    assert consts["kMaxPTiles"] == sk.MAX_P_TILES
     assert consts["kMaxChunk"] == sk.MAX_CHUNK
     assert consts["kMaxSmem"] == sk.MAX_SMEM_BYTES
     assert consts["kWgmmaDim"] == sk.WGMMA_MAX_DIM

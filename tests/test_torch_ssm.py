@@ -10,11 +10,18 @@
   prompt (conv tail zero-padded) and a bf16 variant whose caches keep the
   reference's dtypes;
 * ``mamba2_init`` / ``mamba2_cache_init`` trees, shapes and dtypes; the
-  xLSTM blocks raise.
+  xLSTM blocks raise on an unknown ``impl`` and when the kernel path is
+  differentiated (``test_torch_xlstm.py`` holds them against the
+  reference);
+* the reference's mLSTM at ``xlstm-125m``'s full widths (chunk 128) returns
+  NaN, from the same multiply-by-mask, where the port's stays finite and
+  its chunked scan within the SSD kernel's f32 tolerance of ``ssd_ref``.
 
 Tolerances: the chunked form ≤ 1e-5 and caches ≤ 1e-5, block outputs ≤ 1e-4
 (f32, sums in another order); bf16 outputs ≤ 5e-2 abs + rel (one bf16 ulp
-is 2^-8 relative, rounded at several ops on both sides).
+is 2^-8 relative, rounded at several ops on both sides); the full-width
+mLSTM scan ≤ 2e-4 abs + rel (``test_torch_ssd_chunk.py``'s f32 ``TOL``:
+chunk sums reach −112 and values ~100).
 """
 
 import jax
@@ -27,7 +34,8 @@ from repro.configs import get_config as j_get_config
 from repro.models import ssm as jssm
 from repro_torch import bridge
 from repro_torch.kernels.ssd_chunk import ops
-from repro_torch.models import ssm
+from repro_torch.models import ssm, transformer
+from repro_torch.models.layers import linear
 from repro_torch.tree import tree_paths
 
 torch.set_num_threads(1)   # one thread per xdist worker (see test_torch_masked_adam)
@@ -219,7 +227,58 @@ def test_mamba2_init_and_cache_init_match_reference():
 
 
 def test_xlstm_blocks_raise():
-    for fn in (ssm.mlstm_init, ssm.mlstm_forward, ssm.mlstm_decode, ssm.slstm_init,
-               ssm.slstm_forward, ssm.slstm_decode):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn()
+    """The mLSTM refuses an unknown ``impl``, and its kernel path refuses to
+    be differentiated (the kernel has no backward; training passes
+    ``impl="plain"``); the assembly refuses an odd layer count."""
+    cfg = j_get_config("xlstm-125m", smoke=True)
+    params = ssm.mlstm_init(torch.Generator().manual_seed(0), cfg, torch.float32, "cpu")
+    x = torch.randn(1, 16, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    with pytest.raises(ValueError, match="impl"):
+        ssm.mlstm_forward(params, cfg, x, impl="pallas")
+    with pytest.raises(RuntimeError, match="has no backward"):
+        ssm.mlstm_forward(params, cfg, x.requires_grad_(True), impl="kernel")
+    y, _ = ssm.mlstm_forward(params, cfg, x, impl="plain")
+    assert y.requires_grad
+    with pytest.raises(ValueError, match="pairs"):
+        transformer.xlstm_init(torch.Generator(), cfg.with_(num_layers=3), "cpu")
+
+
+# the ssd_chunk kernel's f32 tolerance (tests/test_torch_ssd_chunk.py TOL)
+SCAN_TOL = 2e-4
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mlstm_stays_finite_where_the_reference_overflows(dtype):
+    """``xlstm-125m``'s full widths (8 heads of 192, chunk 128), one mLSTM
+    layer from ``mlstm_init(jax.random.key(0))``, x ~ N(0, 1) of (1, 256,
+    768) from ``jax.random.key(1)``: the forget gates' chunk sums reach
+    about -112, so above the diagonal exp(cum_i - cum_j) overflows and the
+    reference's multiply by the causal mask makes NaN in y (its final state
+    stays finite).  The port stays finite on both paths; in f32 its
+    chunked scan is within ``SCAN_TOL`` of the sequential recurrence
+    (bf16's chunked form rounds the scores to bf16, as the reference's
+    casts do, so it is held to finiteness only)."""
+    cfg = j_get_config("xlstm-125m").with_(param_dtype=dtype, activation_dtype=dtype)
+    jdt = jnp.dtype(dtype)
+    params = jssm.mlstm_init(jax.random.key(0), cfg, jdt)
+    x = jax.random.normal(jax.random.key(1), (1, 256, cfg.d_model)).astype(jdt)
+    y_j, cache_j = jax.jit(jssm.mlstm_forward, static_argnums=1)(params, cfg, x)
+    assert np.isnan(np.asarray(y_j, np.float32)).any()
+    assert np.isfinite(np.asarray(cache_j["state"], np.float32)).all()
+
+    tp, tx = bridge.from_numpy_tree(_np(params)), _torch([np.asarray(x)])[0]
+    for impl in ssm.IMPLS:
+        y, cache = ssm.mlstm_forward(tp, cfg, tx, impl=impl)
+        assert bool(torch.isfinite(y.float()).all()), impl
+        assert all(bool(torch.isfinite(c.float()).all()) for c in cache.values()), impl
+    up = linear(tp["up_proj"], tx)
+    q, k, v, i_raw, f_raw, _ = ssm._mlstm_qkv(tp, cfg, up[..., :up.shape[-1] // 2])
+    log_f = torch.nn.functional.logsigmoid(f_raw)
+    assert float(log_f.reshape(1, 2, 128, -1).sum(2).min()) < -100
+    v_scaled = v * torch.exp(torch.clamp_max(i_raw, 8.0))[..., None].to(v.dtype)
+    y, st = ssm.chunked_decay_attention(q, k, v_scaled, log_f, cfg.ssm_chunk)
+    assert bool(torch.isfinite(y.float()).all())
+    if dtype == "float32":
+        y_ref, st_ref = ops.ssd_reference(q, k, v_scaled, log_f)
+        torch.testing.assert_close(y, y_ref, rtol=SCAN_TOL, atol=SCAN_TOL)
+        torch.testing.assert_close(st, st_ref, rtol=SCAN_TOL, atol=SCAN_TOL)

@@ -62,7 +62,7 @@ def test_configs_equal_the_reference():
         b = dataclasses.asdict(get_config("tinyllama-1.1b", smoke=smoke_))
         assert a == b
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("xlstm-125m")
+        get_config("whisper-small")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 

@@ -1,5 +1,6 @@
-"""Cases shared by ``test_torch_steps.py`` (``tinyllama-1.1b``) and
-``test_torch_steps_hybrid.py`` (``zamba2-7b``): each file imports them and
+"""Cases shared by ``test_torch_steps.py`` (``tinyllama-1.1b``),
+``test_torch_steps_hybrid.py`` (``zamba2-7b``) and
+``test_torch_steps_xlstm.py`` (``xlstm-125m``): each file imports them and
 provides the fixtures ``setup`` (``make_setup(arch)``), ``expected_groups``
 and ``group_kind``.  What they hold and at which tolerance is in those
 files' docstrings."""
