@@ -105,13 +105,15 @@ Phases, in order; any failure raises and the script exits non-zero:
               TinyLlama's prefill layer (B 4, H 32, Hkv 4, S 4,096, D 64,
               bf16) causal and with a 1,024 window, Zamba2's
               shared-attention layer (B 4, H 32, Hkv 32, S 4,096, D 112,
-              bf16, causal) and Gemma's (B 4, H 8, Hkv 1, S 4,096, D 256,
-              bf16, causal), each element and each output row held to its
-              limit.  The bf16 bodies' ``HGMMA`` / ``UTMALDG`` / ``HMMA``
-              instruction counts from ``cuobjdump -sass``, registers and
-              spills from nvcc.  Times (CUDA events) at the three layers,
-              achieved TFLOP/s, their bounds, and
-              ``F.scaled_dot_product_attention`` as a yardstick.
+              bf16, causal), Gemma's (B 4, H 8, Hkv 1, S 4,096, D 256,
+              bf16, causal) and Llama-4-Maverick's (B 4, H 40, Hkv 8: a GQA
+              group of 5, S 4,096, D 128, bf16, causal), each element and
+              each output row held to its limit.  The bf16 bodies'
+              ``HGMMA`` / ``UTMALDG`` / ``HMMA`` instruction counts from
+              ``cuobjdump -sass``, registers and spills from nvcc.  Times
+              (CUDA events) at the four layers, achieved TFLOP/s, their
+              bounds, and ``F.scaled_dot_product_attention`` as a
+              yardstick.
 7. serve    — the serving path: ``serve_session`` on tinyllama-1.1b at full
               width, bf16, random weights from a seed, B 4 x 4,096 prompt,
               32 greedy tokens; every prefill layer must launch the flash
@@ -168,6 +170,33 @@ Phases, in order; any failure raises and the script exits non-zero:
               against plain PyTorch, every step's logits within 1e-3 and the
               same tokens.  Not held against the reference, whose mLSTM
               returns NaN at chunk 128 (``ROADMAP.md`` Queue 3).
+   serve_moe — ``serve_session`` on llama4-maverick-400b-a17b at full width
+              (d_model 5,120, 40 / 8 heads of 128, 128 experts of 8,192
+              top-1 plus a shared one, vocab 202,048), cut to 1 of its 48
+              layers (one MoE layer is 32.6 GB in bf16), bf16, random
+              weights from a seed, B 4 x 4,096 prompt, 32 greedy tokens:
+              the prefill attention must launch the flash kernel once, at D
+              128; the expert products are cuBLAS batched GEMMs.  One
+              prefill under ``torch.profiler``, split by the MoE layer's
+              labelled parts (router, dispatch, experts, combine, shared
+              expert).  Then the f32 cross-check at full width, cut to 2
+              layers and 8 experts (B 4 x 512, 4 tokens, TF32 off): kernel
+              vs plain attention, every step's logits within 1e-3, the same
+              tokens and no router choice differing.
+   serve_mla — ``serve_session`` on deepseek-v3-671b at full width (MLA,
+              256 experts of 2,048 top-8 plus a shared one), cut to its 3
+              dense layers and the first MoE layer of 61, plus the MTP
+              module, bf16, B 1 x 4,096 prompt (MLA's f32 scores are 8.6 GB
+              a copy), 32 tokens: no flash and no SSD launch (MLA has no
+              kernel, in the reference or here).  One prefill under
+              ``torch.profiler``.  On the same weights one FedPart step on
+              the ``mtp`` group (B 1 x 1,024 with labels): the loss and its
+              MTP term finite and positive, every leaf outside ``mtp/*``
+              bit for bit unchanged (word sums), seconds and peak memory.
+              Then f32 decode consistency at full width, cut to 2 layers
+              (1 dense), 16 experts and capacity factor 8.0 (no token
+              dropped): the decode logits at position 512 equal the
+              forward's over 513 tokens within 2e-4 (abs + rel).
 10. fedtrain_llm — ``launch.fedtrain``'s default, mesh-trainer path on
               tinyllama-1.1b at full width (bf16; 24 groups: embed, 22
               blocks, final_norm|head): ``--full-size --batch 4 --seq 512
@@ -207,12 +236,14 @@ launches by path: ``fedpart``, ``nlp`` and ``fedtrain_sim`` for the
 one-client launches, ``fedpart_vmap``, ``fedpart_shard``, ``nlp``,
 ``compress``, ``async`` and ``fedtrain_sim`` for the cohort launches; the
 SSD entry by path, ``serve_hybrid`` and ``serve_xlstm``, and by body within
-each, with the xLSTM layer's two scans beside Zamba2's layer); the last
-line is the ``ok`` JSON.
+each, with the xLSTM layer's two scans beside Zamba2's layer; the flash
+entry by path, ``serve_moe`` among them, with Zamba2's, Gemma's and
+Llama-4's layers beside TinyLlama's); the last line is the ``ok`` JSON.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
@@ -292,6 +323,29 @@ GEMMA_ATTN = (SERVE_BATCH, 8, 1, SERVE_PROMPT, SERVE_PROMPT, 256)
 # the layers its f32 cross-check keeps (0: all; glm4-9b's 40 f32 layers with
 # its f32 embedding and head are 37.6 GB, so it keeps 4 at full width)
 SERVE_DENSE = [("gemma-2b", 0), ("llama3.2-1b", 0), ("glm4-9b", 4)]
+# llama4-maverick-400b-a17b's prefill attention at the serve prompt: B 4, H 40,
+# Hkv 8 (a GQA group of 5, the first odd one of a served config), S 4,096, D 128
+LLAMA4_ATTN = (SERVE_BATCH, 40, 8, SERVE_PROMPT, SERVE_PROMPT, 128)
+# The MoE decoders at full width, cut in depth to what one card holds.
+# Llama-4: one MoE layer is 16.30 G params (32.6 GB in bf16) and the embedding
+# and head 2.07 G; beside them a prefill of B 4 x 4,096 holds 13.2 GB of f32
+# logits and the head's 4.1 GB f32 copy, so a second layer would pass 80 GB.
+SERVE_MOE_LAYERS = 1
+# its f32 cross-check: one full layer's f32 weights are 65 GB
+SERVE_MOE_F32 = {"num_layers": 2, "num_experts": 8}
+# DeepSeek-V3: the 3 dense layers and the first MoE layer, plus the MTP module
+# (15.8 G params, 31.6 GB in bf16); B 1, since MLA's f32 (B, 128, S, S)
+# scores are 8.6 GB a copy at B 1 x 4,096
+SERVE_MLA_LAYERS = 4
+SERVE_MLA_BATCH = 1
+MTP_STEP_SEQ = 1024            # the MTP head's FedPart step: B 1 x 1,024 with labels
+# its f32 decode-consistency check: 2 layers (1 dense, 1 MoE), 16 experts and
+# capacity factor 8.0, so that neither the forward nor a decode step drops a
+# token (capacity differs between T = B x S and T = B); the MTP head, which
+# decode never reads, left out
+SERVE_MLA_F32 = {"num_layers": 2, "first_dense_layers": 1, "num_experts": 16,
+                 "capacity_factor": 8.0, "mtp_depth": 0}
+DECODE_TOL = 2e-4              # decode vs forward, tests/test_decode_consistency.py
 # ssd_chunk kernel vs ssd_ref, per element: |k - p| <= tol·(1 + |p|); f32 is the
 # reference's own kernel-vs-oracle tolerance (tests/test_kernels_ssd.py)
 SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
@@ -950,8 +1004,9 @@ def phase_flash() -> dict:
     cases and four ragged ones in f32 and bf16, ragged cases at each width
     of the bf16 body (D 32 to 256), TinyLlama's prefill layer causal and
     with a 1,024 window, Zamba2's shared-attention layer (D 112), Gemma's
-    (D 256); then times at the three layers (kernel, plain version,
-    ``F.scaled_dot_product_attention`` as the library yardstick)."""
+    (D 256), Llama-4's (GQA group 5, D 128); then times at the four layers
+    (kernel, plain version, ``F.scaled_dot_product_attention`` as the
+    library yardstick)."""
     from repro_torch.kernels import build
     gen = torch.Generator(device="cuda").manual_seed(11)
     worst = 0.0
@@ -980,7 +1035,8 @@ def phase_flash() -> dict:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"[flash] nvcc: {line.strip()}")
     layers = [("tinyllama", TINYLLAMA_ATTN, 0), ("tinyllama", TINYLLAMA_ATTN, 1024),
-              ("zamba2", ZAMBA2_ATTN, 0), ("gemma", GEMMA_ATTN, 0)]
+              ("zamba2", ZAMBA2_ATTN, 0), ("gemma", GEMMA_ATTN, 0),
+              ("llama4", LLAMA4_ATTN, 0)]
     for name, (b, h, hkv, s, _, d), window in layers:
         err, row = _flash_check((b, h, hkv, s, s, d, True, window), torch.bfloat16, gen)
         worst = max(worst, err)
@@ -993,11 +1049,12 @@ def phase_flash() -> dict:
     main = _flash_layer("tinyllama", TINYLLAMA_ATTN, gen)
     zamba2 = _flash_layer("zamba2", ZAMBA2_ATTN, gen)
     gemma = _flash_layer("gemma", GEMMA_ATTN, gen)
+    llama4 = _flash_layer("llama4", LLAMA4_ATTN, gen)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:99",
             "launches": None, "max_abs_err": worst, **main,
-            "zamba2_layer": zamba2, "gemma_layer": gemma}
+            "zamba2_layer": zamba2, "gemma_layer": gemma, "llama4_layer": llama4}
 
 
 # ---------------------------------------------------------------------------
@@ -2008,11 +2065,12 @@ def _profile_fl_round(cfg, tag: str, setup=None) -> None:
                 f"{100 * e.self_device_time_total / dev_us:.2f}% of device busy")
 
 
-def _serve_profile(cfg, params, prompt, tag: str = "serve", label: str | None = None) -> None:
+def _serve_profile(cfg, params, prompt, tag: str = "serve",
+                   labels: tuple[str, ...] = ()) -> None:
     """Device time by kernel over one warm prefill (under torch.profiler);
-    with ``label``, the host time inside that ``record_function`` range and
-    the device time of the kernels launched in it, as shares of the
-    prefill's wall time and device busy time (the range's own mark on the
+    for each of ``labels``, the host time inside that ``record_function``
+    range and the device time of the kernels launched in it, as shares of
+    the prefill's wall time and device busy time (a range's own mark on the
     card's timeline is a span, not a kernel, and is left out of the busy
     time)."""
     from torch.profiler import ProfilerActivity, profile
@@ -2028,7 +2086,7 @@ def _serve_profile(cfg, params, prompt, tag: str = "serve", label: str | None = 
     del logits, cache
     events = prof.key_averages()
     kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.key != label]
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in labels]
     dev_us = sum(getattr(e, "self_device_time_total", 0.0) for e in kernels)
     if dev_us <= 0:
         log(f"[{tag}] the profiler recorded no device time: not measured")
@@ -2039,9 +2097,13 @@ def _serve_profile(cfg, params, prompt, tag: str = "serve", label: str | None = 
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"[{tag}]   {e.self_device_time_total / 1e3:9.3f} ms "
             f"({100 * e.self_device_time_total / dev_us:5.1f}%) {e.count:5d}x {e.key[:90]}")
-    if label is not None:
-        rng, = [e for e in events if e.key == label
-                and e.device_type == torch.autograd.DeviceType.CPU]
+    for label in labels:
+        ranges = [e for e in events if e.key == label
+                  and e.device_type == torch.autograd.DeviceType.CPU]
+        if not ranges:
+            log(f"[{tag}] {label}: not run")
+            continue
+        rng, = ranges
         span_us = sum(e.self_device_time_total for e in events if e.key == label
                       and e.device_type == torch.autograd.DeviceType.CUDA)
         host_us = rng.cpu_time_total
@@ -2052,6 +2114,85 @@ def _serve_profile(cfg, params, prompt, tag: str = "serve", label: str | None = 
             f"its span on the card's timeline {span_us / 1e3:.3f} ms")
     log(f"[{tag}] the profiled prefill and its tables took "
         f"{time.perf_counter() - t_prof:.1f} s")
+
+
+def _log_serve_run(tag: str, cfg, res, b: int, s: int, g: int) -> None:
+    """Logs a counted ``serve_session`` run (prefill seconds, decode tokens
+    per second and ms a step, peak device memory, the first row's tokens)
+    and fails on tokens or logits of the wrong shape, out of range or not
+    finite."""
+    toks = res.tokens
+    decoded = b * (g - 1)
+    log(f"[{tag}] prefill {b}x{s}: {res.prefill_seconds:.6f} s "
+        f"({b * s / res.prefill_seconds:.1f} prompt tokens/s); decode {g - 1} "
+        f"steps x batch {b} = {decoded} tokens in {res.decode_seconds:.6f} s: "
+        f"{decoded / res.decode_seconds:.3f} tokens/s, "
+        f"{1e3 * res.decode_seconds / (g - 1):.3f} ms per step; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    log(f"[{tag}] tokens[0] {toks[0].tolist()}")
+    if toks.shape != (b, g) or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+        raise AssertionError(f"bad tokens {tuple(toks.shape)}")
+    for i, x in enumerate(res.logits):
+        if x.shape != (b, 1, cfg.vocab_size) or not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"step {i}: logits {tuple(x.shape)} not finite")
+
+
+@contextlib.contextmanager
+def _recorded_routes():
+    """Records every MoE router call's chosen experts (T, k), in call order,
+    into the yielded list."""
+    from repro_torch.models import moe
+    routes, real = [], moe.route
+
+    def recording(*args):
+        out = real(*args)
+        routes.append(out[2])
+        return out
+
+    moe.route = recording
+    try:
+        yield routes
+    finally:
+        moe.route = real
+
+
+def _f32_cross_check(tag: str, cfg32, b: int, what: str) -> None:
+    """``cfg32`` (f32, TF32 off) served at prompt 512, 4 tokens, from random
+    weights (seed 1): the kernel path against plain PyTorch, every step's
+    logits within ``SERVE_CROSS_TOL``, the same tokens and, in a model with
+    MoE layers, the same router choices (routing is discontinuous: a flip
+    would change a token's expert, not move its logits by a rounding)."""
+    from repro_torch.launch.serve import serve_session
+    from repro_torch.models import api
+    from repro_torch.models.api import InputShape
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = api.init(gen, cfg32, "cuda")
+    prompt = api.synth_batch(gen, cfg32, InputShape("serve", 512, b, "prefill"), "cuda")
+    out, routes = {}, {}
+    for impl in ("kernel", "plain"):
+        with _recorded_routes() as routes[impl]:
+            out[impl] = serve_session(cfg32, b, 512, 4, device="cuda", params=params,
+                                      prompt=prompt, impl=impl, verbose=False)
+    diffs = [float((k - p).abs().max())
+             for k, p in zip(out["kernel"].logits, out["plain"].logits)]
+    scale = max(float(x.abs().max()) for x in out["plain"].logits)
+    same = torch.equal(out["kernel"].tokens, out["plain"].tokens)
+    msg = (f"[{tag}] f32 cross-check B{b} prompt 512 gen 4, {what}: max abs logit diff "
+           f"per step {[f'{d:.3g}' for d in diffs]} (tolerance {SERVE_CROSS_TOL:g}; max "
+           f"|logit| {scale:.3g}); tokens equal: {same}")
+    flips = 0
+    if routes["plain"]:
+        if len(routes["kernel"]) != len(routes["plain"]):
+            raise AssertionError(f"f32 serve {cfg32.name}: {len(routes['kernel'])} router "
+                                 f"calls on the kernel path, {len(routes['plain'])} plain")
+        flips = sum(int((k != p).sum()) for k, p in zip(routes["kernel"], routes["plain"]))
+        msg += (f"; router choices differing {flips} of "
+                f"{sum(r.numel() for r in routes['plain'])}")
+    log(msg)
+    if max(diffs) > SERVE_CROSS_TOL or not same or flips:
+        raise AssertionError(f"f32 serve {cfg32.name}: kernel and plain paths disagree")
+    del params, prompt, out, routes
+    torch.cuda.empty_cache()
 
 
 def _serve_dense(arch: str, tag: str, f32_layers: int = 0) -> int:
@@ -2094,25 +2235,12 @@ def _serve_dense(arch: str, tag: str, f32_layers: int = 0) -> int:
     launches = flash_attention_kernel.launches
     by_d = dict(flash_attention_kernel.launches_by_head_dim)
 
-    toks = res.tokens
-    decoded = b * (g - 1)
-    log(f"[{tag}] prefill {b}x{s}: {res.prefill_seconds:.6f} s "
-        f"({b * s / res.prefill_seconds:.1f} prompt tokens/s); decode {g - 1} "
-        f"steps x batch {b} = {decoded} tokens in {res.decode_seconds:.6f} s: "
-        f"{decoded / res.decode_seconds:.3f} tokens/s, "
-        f"{1e3 * res.decode_seconds / (g - 1):.3f} ms per step; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    log(f"[{tag}] tokens[0] {toks[0].tolist()}")
+    _log_serve_run(tag, cfg, res, b, s, g)
     log(f"[{tag}] flash_attention launches {launches} (one per layer: "
         f"{cfg.num_layers}), by head dim {by_d}")
     if launches != cfg.num_layers or by_d != {hd: cfg.num_layers}:
         raise AssertionError(f"flash launches {launches} (by head dim {by_d}) != "
                              f"layers {cfg.num_layers} at D {hd}")
-    if toks.shape != (b, g) or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
-        raise AssertionError(f"bad tokens {tuple(toks.shape)}")
-    for i, x in enumerate(res.logits):
-        if x.shape != (b, 1, cfg.vocab_size) or not bool(torch.isfinite(x).all()):
-            raise AssertionError(f"step {i}: logits {tuple(x.shape)} not finite")
     _serve_profile(cfg, params, prompt, tag=tag)
     del params, prompt, res
     torch.cuda.empty_cache()
@@ -2124,23 +2252,7 @@ def _serve_dense(arch: str, tag: str, f32_layers: int = 0) -> int:
         cfg32 = cfg32.with_(num_layers=f32_layers)
         depth = (f"{f32_layers} of {cfg.num_layers} layers (the f32 weights of all "
                  f"{cfg.num_layers} are {f32_bytes / 1e9:.1f} GB)")
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    params = api.init(gen, cfg32, "cuda")
-    prompt = api.synth_batch(gen, cfg32, InputShape("serve", 512, b, "prefill"), "cuda")
-    out = {impl: serve_session(cfg32, b, 512, 4, device="cuda", params=params,
-                               prompt=prompt, impl=impl, verbose=False)
-           for impl in ("kernel", "plain")}
-    diffs = [float((k - p).abs().max())
-             for k, p in zip(out["kernel"].logits, out["plain"].logits)]
-    scale = max(float(x.abs().max()) for x in out["plain"].logits)
-    same = torch.equal(out["kernel"].tokens, out["plain"].tokens)
-    log(f"[{tag}] f32 cross-check B{b} prompt 512 gen 4, full width, {depth}, kernel "
-        f"vs plain attention: max abs logit diff per step {[f'{d:.3g}' for d in diffs]} "
-        f"(tolerance {SERVE_CROSS_TOL:g}; max |logit| {scale:.3g}); tokens equal: {same}")
-    if max(diffs) > SERVE_CROSS_TOL or not same:
-        raise AssertionError(f"f32 serve {arch}: kernel and plain attention disagree")
-    del params, prompt, out
-    torch.cuda.empty_cache()
+    _f32_cross_check(tag, cfg32, b, f"full width, {depth}, kernel vs plain attention")
     return launches
 
 
@@ -2201,15 +2313,7 @@ def phase_serve_hybrid() -> tuple[int, int, dict]:
     ssd_n, flash_n = ssd_chunk_kernel.launches, flash_attention_kernel.launches
     by_body = dict(ssd_chunk_kernel.launches_by_body)
 
-    toks = res.tokens
-    decoded = b * (g - 1)
-    log(f"[serve_hybrid] prefill {b}x{s}: {res.prefill_seconds:.6f} s "
-        f"({b * s / res.prefill_seconds:.1f} prompt tokens/s); decode {g - 1} "
-        f"steps x batch {b} = {decoded} tokens in {res.decode_seconds:.6f} s: "
-        f"{decoded / res.decode_seconds:.3f} tokens/s, "
-        f"{1e3 * res.decode_seconds / (g - 1):.3f} ms per step; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    log(f"[serve_hybrid] tokens[0] {toks[0].tolist()}")
+    _log_serve_run("serve_hybrid", cfg, res, b, s, g)
     log(f"[serve_hybrid] ssd_chunk launches {ssd_n} (one per Mamba2 layer: "
         f"{mamba_layers}; by body {by_body}), flash_attention launches {flash_n} (one per "
         f"shared-attention application: {n_chunks})")
@@ -2219,34 +2323,14 @@ def phase_serve_hybrid() -> tuple[int, int, dict]:
     if by_body["wgmma"] != mamba_layers:
         raise AssertionError(f"ssd launches by body {by_body}: not all {mamba_layers} "
                              f"through the wgmma body")
-    if toks.shape != (b, g) or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
-        raise AssertionError(f"bad tokens {tuple(toks.shape)}")
-    for i, x in enumerate(res.logits):
-        if x.shape != (b, 1, cfg.vocab_size) or not bool(torch.isfinite(x).all()):
-            raise AssertionError(f"step {i}: logits {tuple(x.shape)} not finite")
     _serve_profile(cfg, params, prompt, tag="serve_hybrid")
     del params, prompt, res
     torch.cuda.empty_cache()
 
-    cfg32 = cfg.with_(param_dtype="float32", activation_dtype="float32")
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    params = api.init(gen, cfg32, "cuda")
-    prompt = api.synth_batch(gen, cfg32, InputShape("serve", 512, b, "prefill"), "cuda")
-    out = {impl: serve_session(cfg32, b, 512, 4, device="cuda", params=params,
-                               prompt=prompt, impl=impl, verbose=False)
-           for impl in ("kernel", "plain")}
-    diffs = [float((k - p).abs().max())
-             for k, p in zip(out["kernel"].logits, out["plain"].logits)]
-    scale = max(float(x.abs().max()) for x in out["plain"].logits)
-    same = torch.equal(out["kernel"].tokens, out["plain"].tokens)
-    log(f"[serve_hybrid] f32 cross-check B{b} prompt 512 gen 4, full depth and width, "
-        f"kernel vs plain (SSD scans and prefill attention): max abs logit diff per "
-        f"step {[f'{d:.3g}' for d in diffs]} (tolerance {SERVE_CROSS_TOL:g}; max "
-        f"|logit| {scale:.3g}); tokens equal: {same}")
-    if max(diffs) > SERVE_CROSS_TOL or not same:
-        raise AssertionError("f32 hybrid serve: kernel and plain paths disagree")
-    del params, prompt, out
-    torch.cuda.empty_cache()
+    _f32_cross_check("serve_hybrid", cfg.with_(param_dtype="float32",
+                                               activation_dtype="float32"), b,
+                     "full depth and width, kernel vs plain (SSD scans and prefill "
+                     "attention)")
     return ssd_n, flash_n, by_body
 
 
@@ -2296,50 +2380,242 @@ def phase_serve_xlstm() -> tuple[int, dict]:
     ssd_n = ssd_chunk_kernel.launches
     by_body = dict(ssd_chunk_kernel.launches_by_body)
 
-    toks = res.tokens
-    decoded = b * (g - 1)
-    log(f"[serve_xlstm] prefill {b}x{s}: {res.prefill_seconds:.6f} s "
-        f"({b * s / res.prefill_seconds:.1f} prompt tokens/s); decode {g - 1} "
-        f"steps x batch {b} = {decoded} tokens in {res.decode_seconds:.6f} s: "
-        f"{decoded / res.decode_seconds:.3f} tokens/s, "
-        f"{1e3 * res.decode_seconds / (g - 1):.3f} ms per step; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    log(f"[serve_xlstm] tokens[0] {toks[0].tolist()}")
+    _log_serve_run("serve_xlstm", cfg, res, b, s, g)
     log(f"[serve_xlstm] ssd_chunk launches {ssd_n} (two per mLSTM layer: {2 * pairs}; "
         f"by body {by_body})")
     if ssd_n != 2 * pairs or by_body["cuda_core"] != 2 * pairs:
         raise AssertionError(f"ssd launches {ssd_n} (by body {by_body}) != {2 * pairs}, "
                              f"all through the cuda_core body")
-    if toks.shape != (b, g) or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
-        raise AssertionError(f"bad tokens {tuple(toks.shape)}")
-    for i, x in enumerate(res.logits):
-        if x.shape != (b, 1, cfg.vocab_size) or not bool(torch.isfinite(x).all()):
-            raise AssertionError(f"step {i}: logits {tuple(x.shape)} not finite")
     _serve_profile(cfg, params, {"tokens": prompt["tokens"][:, :XLSTM_PROFILE_PROMPT]},
-                   tag="serve_xlstm", label=ssm.SLSTM_LOOP)
+                   tag="serve_xlstm", labels=(ssm.SLSTM_LOOP,))
     del params, prompt, res
     torch.cuda.empty_cache()
 
-    cfg32 = cfg.with_(param_dtype="float32", activation_dtype="float32")
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    params = api.init(gen, cfg32, "cuda")
-    prompt = api.synth_batch(gen, cfg32, InputShape("serve", 512, b, "prefill"), "cuda")
-    out = {impl: serve_session(cfg32, b, 512, 4, device="cuda", params=params,
-                               prompt=prompt, impl=impl, verbose=False)
-           for impl in ("kernel", "plain")}
-    diffs = [float((k - p).abs().max())
-             for k, p in zip(out["kernel"].logits, out["plain"].logits)]
-    scale = max(float(x.abs().max()) for x in out["plain"].logits)
-    same = torch.equal(out["kernel"].tokens, out["plain"].tokens)
-    log(f"[serve_xlstm] f32 cross-check B{b} prompt 512 gen 4, full depth and width, "
-        f"kernel vs plain mLSTM scans: max abs logit diff per step "
-        f"{[f'{d:.3g}' for d in diffs]} (tolerance {SERVE_CROSS_TOL:g}; max |logit| "
-        f"{scale:.3g}); tokens equal: {same}")
-    if max(diffs) > SERVE_CROSS_TOL or not same:
-        raise AssertionError("f32 xLSTM serve: kernel and plain paths disagree")
-    del params, prompt, out
-    torch.cuda.empty_cache()
+    _f32_cross_check("serve_xlstm", cfg.with_(param_dtype="float32",
+                                              activation_dtype="float32"), b,
+                     "full depth and width, kernel vs plain mLSTM scans")
     return ssd_n, by_body
+
+
+def phase_serve_moe() -> int:
+    """The MoE serving path: ``serve_session`` on llama4-maverick-400b-a17b
+    at full width (d_model 5,120, 40 query heads over 8 kv heads of 128, 128
+    experts of 8,192 top-1 plus a shared one, vocab 202,048), cut to
+    ``SERVE_MOE_LAYERS`` of its 48 layers, bf16, random weights from a seed,
+    B 4 x 4,096 prompt, 32 tokens; every prefill attention through the flash
+    kernel at D 128 (one launch per layer), the expert products through
+    cuBLAS.  One prefill under ``torch.profiler``, split by the MoE layer's
+    parts.  Then the f32 cross-check at full width, cut to
+    ``SERVE_MOE_F32``: kernel against plain attention, the logits within
+    ``SERVE_CROSS_TOL``, the same tokens and router choices.  Returns the
+    counted run's flash launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.launch.serve import serve_session
+    from repro_torch.models import api, moe
+    from repro_torch.models.api import InputShape
+    from repro_torch.tree import tree_leaves
+
+    full = get_config("llama4-maverick-400b-a17b")
+    cfg = full.with_(num_layers=SERVE_MOE_LAYERS)
+    hd = cfg.resolved_head_dim
+    b, s, g = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = api.init(gen, cfg, "cuda")
+    prompt = api.synth_batch(gen, cfg, InputShape("serve", s, b, "prefill"), "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(int(x.numel()) for x in tree_leaves(params))
+    layer_params = sum(int(x.numel()) for x in tree_leaves(params["moe_blocks"]))
+    log(f"[serve_moe] {cfg.name} full width, {cfg.num_layers} of {full.num_layers} layers "
+        f"(one MoE layer: {layer_params} params, {2 * layer_params / 1e9:.1f} GB in bf16): "
+        f"d_model {cfg.d_model} heads {cfg.num_heads}/{cfg.num_kv_heads} (group "
+        f"{cfg.num_heads // cfg.num_kv_heads}) head dim {hd}, {cfg.num_experts} experts "
+        f"top-{cfg.num_experts_per_tok} of d_ff {cfg.moe_d_ff} + {cfg.num_shared_experts} "
+        f"shared, vocab {cfg.vocab_size} {cfg.param_dtype}, {n_params} params; random init "
+        f"{init_s:.1f} s; expert capacity {moe._capacity(b * s, cfg)} at prefill, "
+        f"{moe._capacity(b, cfg)} at decode (T = B: a second token routed to a busy expert "
+        f"is dropped, the reference's rule)")
+    # warm-up at full width (cuBLAS handles, kernel loads), then the counted run
+    serve_session(cfg, b, 256, 2, device="cuda", params=params, verbose=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    flash_attention_kernel.launches = 0
+    flash_attention_kernel.launches_by_head_dim = {}
+    res = serve_session(cfg, b, s, g, device="cuda", params=params, prompt=prompt,
+                        verbose=False)
+    torch.cuda.synchronize()
+    launches = flash_attention_kernel.launches
+    by_d = dict(flash_attention_kernel.launches_by_head_dim)
+    _log_serve_run("serve_moe", cfg, res, b, s, g)
+    log(f"[serve_moe] flash_attention launches {launches} (one per layer: "
+        f"{cfg.num_layers}), by head dim {by_d}")
+    if launches != cfg.num_layers or by_d != {hd: cfg.num_layers}:
+        raise AssertionError(f"flash launches {launches} (by head dim {by_d}) != "
+                             f"layers {cfg.num_layers} at D {hd}")
+    _serve_profile(cfg, params, prompt, tag="serve_moe", labels=moe.PROFILE_LABELS)
+    del params, prompt, res
+    torch.cuda.empty_cache()
+
+    cfg32 = full.with_(param_dtype="float32", activation_dtype="float32", **SERVE_MOE_F32)
+    _f32_cross_check("serve_moe", cfg32, b,
+                     f"full width, {cfg32.num_layers} of {full.num_layers} layers and "
+                     f"{cfg32.num_experts} of {full.num_experts} experts (one full layer's "
+                     f"f32 weights are {4 * layer_params / 1e9:.1f} GB), kernel vs plain "
+                     f"attention")
+    return launches
+
+
+def _fingerprint(x: torch.Tensor) -> list[int]:
+    """The sum and the (wrapping) sum of squares of a tensor's raw 16- or
+    32-bit words, in int64, a chunk at a time: equal bits give equal sums,
+    and one changed word changes the first."""
+    words = x.detach().reshape(-1).view(torch.int16 if x.element_size() == 2
+                                        else torch.int32)
+    acc = torch.zeros(2, dtype=torch.int64, device=x.device)
+    for c in words.split(1 << 26):
+        c = c.long()
+        acc[0] += c.sum()
+        acc[1] += (c * c).sum()
+    return acc.tolist()
+
+
+def phase_serve_mla() -> None:
+    """The MLA serving path: ``serve_session`` on deepseek-v3-671b at full
+    width (d_model 7,168, 128 MLA heads, 256 experts of 2,048 top-8 plus a
+    shared one, vocab 129,280), cut to ``SERVE_MLA_LAYERS`` of its 61 layers
+    (its 3 dense layers and the first MoE layer) plus the MTP module, bf16,
+    random weights from a seed, B 1 x 4,096 prompt, 32 tokens.  MLA and the
+    MoE layer are plain PyTorch, as in the reference: no flash and no SSD
+    launch.  One prefill under ``torch.profiler``, MLA's scores and the MoE
+    layer's parts split by their labels.  On the same weights, one
+    FedPart step on the ``mtp`` group at B 1 x ``MTP_STEP_SEQ`` with labels:
+    the loss and the MTP term (loss - main lm_loss - aux) finite and
+    positive, every leaf outside ``mtp/*`` bit for bit unchanged, the step's
+    inputs never written.  Then the f32 decode-consistency check at full
+    width, cut to ``SERVE_MLA_F32`` (no token dropped): the decode logits at
+    position S equal the full forward's over S + 1 tokens within
+    ``DECODE_TOL``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_kernel
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import api, attention, moe, transformer
+    from repro_torch.models.api import InputShape
+    from repro_torch.tree import tree_leaves, tree_paths
+
+    full = get_config("deepseek-v3-671b")
+    cfg = full.with_(num_layers=SERVE_MLA_LAYERS)
+    n_dense, n_moe = transformer.decoder_layout(cfg)
+    b, s, g = SERVE_MLA_BATCH, SERVE_PROMPT, SERVE_GEN
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = api.init(gen, cfg, "cuda")
+    prompt = api.synth_batch(gen, cfg, InputShape("serve", s, b, "prefill"), "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(int(x.numel()) for x in tree_leaves(params))
+    log(f"[serve_mla] {cfg.name} full width, {n_dense} dense + {n_moe} MoE of "
+        f"{full.num_layers} layers + the MTP module: d_model {cfg.d_model}, MLA {cfg.num_heads} "
+        f"heads (q_lora {cfg.q_lora_rank}, kv_lora {cfg.kv_lora_rank}, qk "
+        f"{cfg.qk_nope_head_dim}+{cfg.qk_rope_head_dim}, v {cfg.v_head_dim}), dense d_ff "
+        f"{cfg.d_ff}, {cfg.num_experts} experts top-{cfg.num_experts_per_tok} of d_ff "
+        f"{cfg.moe_d_ff} + {cfg.num_shared_experts} shared ({cfg.router_score}), vocab "
+        f"{cfg.vocab_size} {cfg.param_dtype}, {n_params} params; random init {init_s:.1f} s; "
+        f"expert capacity {moe._capacity(b * s, cfg)} at prefill, {moe._capacity(b, cfg)} "
+        f"at decode")
+    serve.serve_session(cfg, b, 256, 2, device="cuda", params=params, verbose=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    flash_attention_kernel.launches = 0
+    ssd_chunk_kernel.launches = 0
+    res = serve.serve_session(cfg, b, s, g, device="cuda", params=params, prompt=prompt,
+                              verbose=False)
+    torch.cuda.synchronize()
+    flash_n, ssd_n = flash_attention_kernel.launches, ssd_chunk_kernel.launches
+    _log_serve_run("serve_mla", cfg, res, b, s, g)
+    log(f"[serve_mla] flash_attention launches {flash_n}, ssd_chunk launches {ssd_n} "
+        f"(MLA and MoE are plain PyTorch, as in the reference: 0 and 0)")
+    if flash_n or ssd_n:
+        raise AssertionError(f"serve_mla launched flash {flash_n} / ssd {ssd_n} times")
+    _serve_profile(cfg, params, prompt, tag="serve_mla",
+                   labels=(attention.MLA_SCORES,) + moe.PROFILE_LABELS)
+    del prompt, res
+    torch.cuda.empty_cache()
+
+    # the MTP head's FedPart step, on the same weights
+    group = steps.StackedGroup("mtp")
+    step = steps.make_fedpart_train_step(cfg, group)
+    batch = api.synth_batch(gen, cfg, InputShape("train", MTP_STEP_SEQ, b, "train"), "cuda")
+    before = {path: _fingerprint(x) for path, x in tree_paths(params)}
+    opt = steps.init_partial_opt_state(params, group)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    new, opt, loss = step(params, opt, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with torch.inference_mode():
+        logits, _, aux = api.forward(params, cfg, {"tokens": batch["tokens"]}, impl="plain")
+        main = float(transformer.lm_loss(logits, batch["labels"]))
+    del logits
+    loss, aux = float(loss), float(aux)
+    mtp_term = loss - main - aux
+    kept = [p for p, x in tree_paths(new) if p[0] != "mtp" and _fingerprint(x) == before[p]]
+    outside = [p for p, _ in tree_paths(new) if p[0] != "mtp"]
+    moved = [p for p, x in tree_paths(new) if p[0] == "mtp" and _fingerprint(x) != before[p]]
+    inputs_kept = all(_fingerprint(x) == before[p] for p, x in tree_paths(params))
+    n_mtp = sum(int(x.numel()) for x in tree_leaves(new["mtp"]))
+    log(f"[serve_mla] FedPart step on the mtp group ({n_mtp} params) at B{b} x "
+        f"{MTP_STEP_SEQ}: {step_s:.6f} s, peak device memory {peak:.3f} GiB; loss "
+        f"{loss:.6f} = main lm_loss {main:.6f} + MoE aux {aux:.6f} + MTP term "
+        f"{mtp_term:.6f} ({transformer.MTP_WEIGHT} x the head's loss); leaves outside "
+        f"mtp/* bit for bit unchanged: {len(kept)} of {len(outside)}; mtp/* leaves moved: "
+        f"{len(moved)} of {len(tree_leaves(new['mtp']))}; the step's inputs unchanged: "
+        f"{inputs_kept}")
+    if not (math.isfinite(loss) and loss > 0 and math.isfinite(mtp_term) and mtp_term > 0):
+        raise AssertionError(f"mtp step: loss {loss}, MTP term {mtp_term}")
+    if len(kept) != len(outside) or not moved or not inputs_kept:
+        raise AssertionError("mtp step: a leaf outside mtp/* changed, no mtp leaf moved, "
+                             "or an input was written")
+    del params, new, opt, batch, before
+    torch.cuda.empty_cache()
+
+    # decode consistency in f32 at full width
+    cfg32 = full.with_(param_dtype="float32", activation_dtype="float32", **SERVE_MLA_F32)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    params = api.init(gen, cfg32, "cuda")
+    sp = 512
+    tokens = api.synth_batch(gen, cfg32, InputShape("p", sp, b, "prefill"), "cuda")["tokens"]
+    with torch.inference_mode():
+        logits, cache = steps.make_prefill_step(cfg32)(params, {"tokens": tokens})
+        nxt = torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(torch.int32)
+        cache = serve._grow_attention_caches(cache, sp, sp + 1)
+        got, _ = api.decode_step(params, cfg32, nxt, cache, sp)
+        with _recorded_routes() as routes:
+            ref, _, _ = api.forward(params, cfg32,
+                                    {"tokens": torch.cat([tokens, nxt], dim=1)}, impl="plain")
+    got, want = got[:, 0, :], ref[:, -1, :]
+    cap = moe._capacity(b * (sp + 1), cfg32)
+    load = max(int(torch.bincount(r.reshape(-1), minlength=cfg32.num_experts).max())
+               for r in routes)
+    err = (got - want).abs()
+    bad = err > DECODE_TOL + DECODE_TOL * want.abs()
+    log(f"[serve_mla] f32 decode consistency, full width, {cfg32.num_layers} layers "
+        f"({cfg32.first_dense_layers} dense), {cfg32.num_experts} experts, capacity factor "
+        f"{cfg32.capacity_factor:g}: B{b} prompt {sp}, the decode logits at position {sp} vs "
+        f"the forward over {sp + 1} tokens: max abs diff {float(err.max()):.3g} (tolerance "
+        f"{DECODE_TOL:g} abs + rel; max |logit| {float(want.abs().max()):.3g}); largest "
+        f"expert load {load} of capacity {cap} in the forward, {moe._capacity(b, cfg32)} at "
+        f"decode (no token dropped)")
+    if load > cap or bool(bad.any()) or not bool(torch.isfinite(got).all()):
+        raise AssertionError("f32 MLA decode disagrees with the full forward")
+    del params, cache, logits, ref, got, want
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -2756,11 +3032,13 @@ def main() -> int:
     ssd = _timed(phase_ssd)
     ssd_hybrid, flash_hybrid, hybrid_bodies = _timed(phase_serve_hybrid)
     ssd_xlstm, xlstm_bodies = _timed(phase_serve_xlstm)
+    flash_moe = _timed(phase_serve_moe)
+    _timed(phase_serve_mla)
     ssd["launches_by_path"] = {"serve_hybrid": ssd_hybrid, "serve_xlstm": ssd_xlstm}
     ssd["launches"] = ssd_hybrid + ssd_xlstm
     ssd["launches_by_body"] = {"serve_hybrid": hybrid_bodies, "serve_xlstm": xlstm_bodies}
     flash["launches_by_path"] = {"serve": flash_serve, **flash_dense,
-                                 "serve_hybrid": flash_hybrid}
+                                 "serve_hybrid": flash_hybrid, "serve_moe": flash_moe}
     flash["launches"] = sum(flash["launches_by_path"].values())
     _timed(phase_fedtrain_llm)
     sim_seq_n, sim_vmap_n = _timed(phase_fedtrain_sim)

@@ -3,9 +3,11 @@
 ``ModelConfig`` is the reference's dataclass field for field, so a config
 built on either side describes the same model.  The registry holds the
 architectures the port runs: the dense decoders ``tinyllama-1.1b``,
-``llama3.2-1b``, ``gemma-2b`` and ``glm4-9b``, ``zamba2-7b`` (Mamba2 hybrid),
-``xlstm-125m`` (mLSTM / sLSTM pairs) and ``nlp-transformer`` (the paper's text classifier,
-``models/nlp_small.py``), full and smoke.  Every other architecture of
+``llama3.2-1b``, ``gemma-2b`` and ``glm4-9b``, the MoE decoders
+``llama4-maverick-400b-a17b`` and ``deepseek-v3-671b`` (MLA, MTP head),
+``zamba2-7b`` (Mamba2 hybrid), ``xlstm-125m`` (mLSTM / sLSTM pairs) and
+``nlp-transformer`` (the paper's text classifier, ``models/nlp_small.py``),
+full and smoke.  Every other architecture of
 the reference raises ``NotImplementedError`` naming the ROADMAP item that
 ports it.
 """
@@ -114,10 +116,9 @@ class ModelConfig:
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
 _SMOKE: dict[str, Callable[[], ModelConfig]] = {}
 
-# The reference's other architectures, and the ROADMAP item that ports each.
+# The reference's architectures still unported (the encoder-decoder and the
+# VLM), and the ROADMAP item that ports each.
 _UNPORTED = {
-    "deepseek-v3-671b": "Queue 1 item 15 (MLA + MoE decoders)",
-    "llama4-maverick-400b-a17b": "Queue 1 item 15 (MoE decoders)",
     "llava-next-34b": "Queue 1 item 15 (VLM frontends)",
     "whisper-small": "Queue 1 item 15 (encoder-decoder)",
 }
@@ -152,7 +153,7 @@ def _ensure_loaded() -> None:
     if _LOADED:
         return
     from repro_torch.configs import (  # noqa: F401  (register)
-        gemma_2b, glm4_9b, llama3_2_1b, nlp_transformer, resnet, tinyllama_1_1b,
-        xlstm_125m, zamba2_7b)
+        deepseek_v3_671b, gemma_2b, glm4_9b, llama3_2_1b, llama4_maverick_400b_a17b,
+        nlp_transformer, resnet, tinyllama_1_1b, xlstm_125m, zamba2_7b)
 
     _LOADED = True

@@ -2,7 +2,8 @@
 ``repro.launch.serve``).
 
 Runs on the card unless asked for the CPU.  With ``impl="kernel"`` every
-prefill attention goes through the CUDA flash-attention kernel, and every
+GQA prefill attention goes through the CUDA flash-attention kernel (MLA,
+``deepseek-v3-671b``, is plain PyTorch, as in the reference), and every
 Mamba2 prefill scan (``zamba2-7b``) and both scans of every mLSTM layer
 (``xlstm-125m``: values and normaliser) through the CUDA SSD-chunk kernel;
 the sLSTM's loop over time and one-token decode are plain PyTorch, as in
@@ -16,6 +17,8 @@ asserts.
     python -m repro_torch.launch.serve --arch glm4-9b --device cpu
     python -m repro_torch.launch.serve --arch zamba2-7b --device cpu
     python -m repro_torch.launch.serve --arch xlstm-125m --device cpu
+    python -m repro_torch.launch.serve --arch llama4-maverick-400b-a17b --device cpu
+    python -m repro_torch.launch.serve --arch deepseek-v3-671b --device cpu
     python -m repro_torch.launch.serve --arch zamba2-7b --full \\
         --batch 4 --prompt-len 4096 --gen 32          # one H100
     python -m repro_torch.launch.serve --arch gemma-2b --full \\
@@ -102,15 +105,17 @@ def serve_session(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0, *,
     return ServeResult(out, step_logits, prefill_s, decode_s)
 
 
-# The reference also grows MLA ("c_kv", "k_rope") and encoder-decoder
-# ("self_k", "self_v") caches; those models are not ported yet.
-_ATTN_CACHE_KEYS = {"k", "v"}
+# The reference also grows the encoder-decoder's ("self_k", "self_v")
+# caches; that model is not ported yet (ROADMAP Queue 1 item 15.3).
+_ATTN_CACHE_KEYS = {"k", "v", "c_kv", "k_rope"}
 
 
 def _grow_attention_caches(cache: PyTree, prompt_len: int, cache_len: int) -> PyTree:
     """Pad attention caches (stacked (L,B,S,...) layout, seq axis 2: the
-    decoder's ``blocks/{k,v}``, the hybrid's ``chunks/attn_kv/{k,v}``) from
-    the prefill length to prompt+gen with zeros.  Other leaves (the Mamba2
+    decoder's ``blocks/{k,v}`` and ``moe_blocks/{k,v}``, MLA's latent
+    ``{blocks,moe_blocks}/{c_kv,k_rope}``, the hybrid's
+    ``chunks/attn_kv/{k,v}``) from the prefill length to prompt+gen with
+    zeros.  Other leaves (the Mamba2
     ``state`` and ``conv``, the mLSTM states, the sLSTM's ``(c, n, h, m)``)
     are untouched."""
 

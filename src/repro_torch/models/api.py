@@ -8,9 +8,10 @@
     cache_init(cfg, batch, cache_len, dtype, device) -> cache
     synth_batch(gen, cfg, shape, device)            -> batch
 
-``kind == "decoder"`` (dense GQA), ``kind == "xlstm"`` (mLSTM / sLSTM
-pairs) and ``kind == "hybrid"`` (Zamba2) are ported; ``encdec`` raises
-``NotImplementedError`` naming its ROADMAP item.  Randomness comes from an explicit ``torch.Generator`` (the
+``kind == "decoder"`` (dense or MoE blocks, GQA or MLA attention, the MTP
+head), ``kind == "xlstm"`` (mLSTM / sLSTM pairs) and ``kind == "hybrid"``
+(Zamba2) are ported; ``encdec`` raises ``NotImplementedError`` naming its
+ROADMAP item.  Randomness comes from an explicit ``torch.Generator`` (the
 reference's distributions, not its numbers: tests bridge the reference's
 params and batches instead).
 
@@ -117,7 +118,8 @@ def forward(
 def loss(params: PyTree, cfg: ModelConfig, batch: dict, *, impl: str = "plain",
          remat: bool = False) -> torch.Tensor:
     """Next-token cross entropy of ``batch["labels"]`` plus the forward's
-    auxiliary loss; a VLM's media positions carry no labels."""
+    auxiliary loss (the MoE load-balance losses and, for an MTP head, its
+    weighted loss); a VLM's media positions carry no labels."""
     logits, _, aux = forward(params, cfg, batch, impl=impl, remat=remat)
     if cfg.num_media_tokens > 0:
         logits = logits[:, cfg.num_media_tokens:, :]

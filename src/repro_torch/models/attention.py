@@ -1,13 +1,15 @@
-"""GQA/MQA attention, full-sequence and one-token decode (port of the GQA half
-of ``repro.models.attention``; MLA is not ported yet and raises).
+"""GQA/MQA and DeepSeek's MLA (multi-head latent attention), full-sequence
+and one-token decode (port of ``repro.models.attention``).
 
-* ``gqa_full``   — whole-sequence forward (prefill).  Returns the output and
-  the sequence's K/V (prefill writes them to the cache).
-* ``gqa_decode`` — one-token step against an existing cache.  Unlike the
-  reference, which returns new cache arrays, it writes the token's K/V
-  into the given cache tensors in place (a serve step would otherwise copy
-  every layer's whole cache) and returns them.  Sliding-window caches are
-  ring buffers: RoPE is applied at write time with absolute positions.
+* ``gqa_full`` / ``mla_full``   — whole-sequence forward (prefill).  Return
+  the output and the sequence's cache tensors: GQA's K/V, MLA's latent
+  ``c_kv`` (B, S, kv_lora_rank) and ``k_rope`` (B, S, rope).
+* ``gqa_decode`` / ``mla_decode`` — one-token step against an existing
+  cache.  Unlike the reference, which returns new cache arrays, they write
+  the token's entries into the given cache tensors in place (a serve step
+  would otherwise copy every layer's whole cache) and return them.
+  Sliding-window caches are ring buffers: RoPE is applied at write time
+  with absolute positions.
 
 ``_sdpa`` has two implementations:
 
@@ -23,6 +25,15 @@ of ``repro.models.attention``; MLA is not ported yet and raises).
   (scores in the activation dtype, then f32 softmax, probabilities cast
   back to q's dtype).
 
+MLA has no kernel, in the reference or here: it materialises the f32
+(B, H, S, T) scores as the reference does (``impl`` is accepted and
+ignored, as the reference's ``mla_full`` ignores it), and its q·k width
+(nope + rope, 192 at full size) differs from v's (128), which the flash
+kernel refuses.  The scores are masked in place (``masked_fill_``) where
+the reference's ``where`` makes a copy: at DeepSeek-V3's full width one
+(1, 128, 4,096, 4,096) f32 copy is 8.6 GB.  They run under the profiler
+label ``MLA_SCORES``.
+
 ``act_sharding.constrain_scores`` is not ported: it only adds a sharding
 constraint for a device mesh, and the port runs on one device.
 """
@@ -32,25 +43,21 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.models.layers import apply_rope, linear, linear_init, rope_angles
+from repro_torch.models.layers import (apply_rope, linear, linear_init, rmsnorm,
+                                       rmsnorm_init, rope_angles)
 from repro_torch.tree import PyTree
 
 NEG_INF = -1e30
 IMPLS = ("kernel", "plain")
-
-
-def _no_mla(cfg: ModelConfig) -> None:
-    if cfg.use_mla:
-        raise NotImplementedError(
-            "MLA attention is not ported yet: ROADMAP Queue 1 item 15")
+MLA_SCORES = "mla_scores"   # profiler label: MLA's scores, mask, softmax and P·V
 
 
 def gqa_init(gen: torch.Generator, cfg: ModelConfig, dtype, device,
              n: int | None = None) -> PyTree:
-    _no_mla(cfg)
     hd = cfg.resolved_head_dim
     return {
         "wq": linear_init(gen, cfg.d_model, cfg.num_heads * hd, dtype, device, n=n),
@@ -106,7 +113,6 @@ def gqa_full(
     impl: str = "kernel",
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Full-sequence attention.  Returns (y, (k, v)) for the cache."""
-    _no_mla(cfg)
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     q = _split_heads(linear(params["wq"], x), cfg.num_heads, hd)
@@ -139,7 +145,6 @@ def gqa_decode(
     ``window == 0`` means the cache length equals the full context and slot
     index == absolute position.  ``window > 0`` means a ring buffer of W slots.
     """
-    _no_mla(cfg)
     b = x.shape[0]
     hd = cfg.resolved_head_dim
     cache_len = k_cache.shape[1]
@@ -161,3 +166,120 @@ def gqa_decode(
     y = _sdpa(q, k_cache.to(q.dtype), v_cache.to(q.dtype), mask, impl="plain")
     y = linear(params["wo"], y.reshape(b, 1, cfg.num_heads * hd))
     return y, (k_cache, v_cache)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3)
+# ---------------------------------------------------------------------------
+
+def mla_init(gen: torch.Generator, cfg: ModelConfig, dtype, device,
+             n: int | None = None) -> PyTree:
+    h = cfg.num_heads
+    qk_dim = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    p: PyTree = {}
+    if cfg.q_lora_rank > 0:
+        p["wq_a"] = linear_init(gen, cfg.d_model, cfg.q_lora_rank, dtype, device, n=n)
+        p["q_norm"] = rmsnorm_init(cfg.q_lora_rank, dtype, device, n)
+        p["wq_b"] = linear_init(gen, cfg.q_lora_rank, h * qk_dim, dtype, device, n=n)
+    else:
+        p["wq"] = linear_init(gen, cfg.d_model, h * qk_dim, dtype, device, n=n)
+    p["wkv_a"] = linear_init(gen, cfg.d_model, cfg.kv_lora_rank + cfg.qk_rope_head_dim,
+                             dtype, device, n=n)
+    p["kv_norm"] = rmsnorm_init(cfg.kv_lora_rank, dtype, device, n)
+    p["wkv_b"] = linear_init(gen, cfg.kv_lora_rank,
+                             h * (cfg.qk_nope_head_dim + cfg.v_head_dim), dtype, device, n=n)
+    p["wo"] = linear_init(gen, h * cfg.v_head_dim, cfg.d_model, dtype, device, n=n)
+    return p
+
+
+def _mla_q(params: PyTree, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    qk_dim = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    if cfg.q_lora_rank > 0:
+        q = linear(params["wq_b"], rmsnorm(params["q_norm"], linear(params["wq_a"], x)))
+    else:
+        q = linear(params["wq"], x)
+    return q.reshape(*x.shape[:-1], cfg.num_heads, qk_dim)
+
+
+def _mla_scores_and_out(params, cfg, q, c_kv, k_rope, mask):
+    """q: (B,S,H,qk); c_kv: (B,T,rank); k_rope: (B,T,rope), shared across
+    heads; mask: (B,S,T) or (S,T) bool."""
+    h = cfg.num_heads
+    nope, rope_d, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    kv = linear(params["wkv_b"], rmsnorm(params["kv_norm"], c_kv))
+    kv = kv.reshape(*c_kv.shape[:-1], h, nope + vd)
+    k_nope, v = kv[..., :nope], kv[..., nope:]
+    scale = 1.0 / math.sqrt(nope + rope_d)
+    with record_function(MLA_SCORES):
+        logits = (torch.einsum("bshd,bthd->bhst", q_nope, k_nope)
+                  + torch.einsum("bshd,btd->bhst", q_rope, k_rope)).float()
+        # in place from here (neither op's backward reads its output): at full
+        # width each copy of the f32 scores would be B x 8.6 GB at S = T = 4,096
+        logits.mul_(scale)
+        if mask is not None:
+            m = mask if mask.dim() == 3 else mask[None]
+            logits.masked_fill_(~m[:, None, :, :], NEG_INF)
+        probs = torch.softmax(logits, dim=-1)
+        del logits
+        y = torch.einsum("bhst,bthd->bshd", probs.to(q.dtype), v)
+    return linear(params["wo"], y.reshape(*q.shape[:2], h * vd))
+
+
+def _mla_latents(params, cfg, x, positions):
+    """Queries with RoPE on their rope part, and the latent cache entries
+    ``c_kv`` and ``k_rope`` (RoPE applied) of the tokens ``x``."""
+    q = _mla_q(params, cfg, x)
+    ckr = linear(params["wkv_a"], x)
+    c_kv, k_rope_raw = ckr[..., : cfg.kv_lora_rank], ckr[..., cfg.kv_lora_rank:]
+    cos, sin = rope_angles(positions, cfg.qk_rope_head_dim, cfg.rope_theta)
+    nope = cfg.qk_nope_head_dim
+    q = torch.cat([q[..., :nope], apply_rope(q[..., nope:], cos, sin)], dim=-1)
+    k_rope = apply_rope(k_rope_raw[..., None, :], cos, sin)[..., 0, :]
+    return q, c_kv, k_rope
+
+
+def mla_full(
+    params: PyTree,
+    cfg: ModelConfig,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    window: int = 0,
+    impl: str = "kernel",
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """Returns (y, (c_kv, k_rope)): the compressed MLA cache of the
+    sequence.  ``impl`` is checked and otherwise ignored (no kernel)."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    q, c_kv, k_rope = _mla_latents(params, cfg, x, positions)
+    mask = causal_mask(x.shape[1], window, x.device)
+    y = _mla_scores_and_out(params, cfg, q, c_kv, k_rope, mask)
+    return y, (c_kv, k_rope)
+
+
+def mla_decode(
+    params: PyTree,
+    cfg: ModelConfig,
+    x: torch.Tensor,
+    c_cache: torch.Tensor,
+    r_cache: torch.Tensor,
+    pos: int,
+    *,
+    window: int = 0,
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """One-token MLA decode against the latent cache.  x: (B,1,d);
+    c_cache: (B,W,kv_rank), r_cache: (B,W,rope), written in place at the
+    token's slot (``pos % W`` under a window, else ``pos``)."""
+    b = x.shape[0]
+    cache_len = c_cache.shape[1]
+    posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q, c_kv, k_rope = _mla_latents(params, cfg, x, posv)
+    slot = pos % cache_len if window > 0 else pos
+    c_cache[:, slot:slot + 1] = c_kv.to(c_cache.dtype)
+    r_cache[:, slot:slot + 1] = k_rope.to(r_cache.dtype)
+    idx = torch.arange(cache_len, device=x.device)
+    valid = torch.ones_like(idx, dtype=torch.bool) if pos + 1 >= cache_len else idx <= pos
+    mask = valid[None, None, :].expand(b, 1, cache_len)
+    y = _mla_scores_and_out(params, cfg, q, c_cache.to(x.dtype), r_cache.to(x.dtype), mask)
+    return y, (c_cache, r_cache)

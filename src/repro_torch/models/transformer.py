@@ -1,9 +1,12 @@
-"""Decoder-only transformer with dense GQA blocks, the xLSTM and the
-Zamba2 hybrid (port of the decoder, xLSTM and hybrid parts of
+"""Decoder-only transformer (dense or MoE blocks, GQA or MLA attention, the
+multi-token-prediction head), the xLSTM and the Zamba2 hybrid (port of
 ``repro.models.transformer``).
 
 Parameters keep the reference's *stacked* layout: ``params["blocks"]``
-holds every block's leaves with a leading ``num_layers`` axis; the xLSTM's
+holds every dense block's leaves with a leading layer axis,
+``params["moe_blocks"]`` the MoE blocks' (DeepSeek-V3's leading
+``first_dense_layers`` are dense, the rest MoE), ``params["mtp"]`` the
+MTP head (``proj``, ``norm`` and one dense ``block``); the xLSTM's
 ``params["pairs"]`` its (mLSTM, sLSTM) pairs on one axis; the hybrid's
 ``params["chunks"]`` holds its Mamba2 blocks on ``(n_chunks, attn_every)``
 axes and ``params["tail"]`` the leftover ones on one axis.  So the
@@ -15,9 +18,6 @@ of that loop: a decoder block, an xLSTM pair, a hybrid chunk (shared block
 + its Mamba2 blocks), a tail Mamba2 block.  A forward may also be handed a stack as a
 list of per-layer trees (``_layer``): the partial train step does, so that
 only the trained layer's tensors require grad.
-
-Not ported yet, and raising ``NotImplementedError`` with their ROADMAP item:
-MoE blocks, MLA, the multi-token-prediction head.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm
 from repro_torch.models.layers import (embed, embedding_init, linear, linear_init,
                                        mlp_apply, mlp_init, norm_apply, norm_init,
@@ -49,12 +50,6 @@ def _ported(cfg: ModelConfig) -> None:
     if cfg.kind not in ("decoder", "xlstm", "hybrid"):
         raise NotImplementedError(
             f"model kind {cfg.kind!r} is not ported yet: ROADMAP Queue 1 item 15")
-    if cfg.is_moe:
-        raise NotImplementedError(
-            "MoE decoder blocks are not ported yet: ROADMAP Queue 1 item 15")
-    if cfg.mtp_depth > 0:
-        raise NotImplementedError(
-            "the multi-token-prediction head is not ported yet: ROADMAP Queue 1 item 15")
 
 
 # ---------------------------------------------------------------------------
@@ -62,15 +57,24 @@ def _ported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def block_init(gen: torch.Generator, cfg: ModelConfig, device,
-               n: int | None = None) -> PyTree:
-    """One dense block's params, or ``n`` of them stacked on a leading axis."""
+               n: int | None = None, *, use_moe: bool = False) -> PyTree:
+    """One block's params (GQA or MLA attention; a dense MLP or, with
+    ``use_moe``, the MoE layer), or ``n`` of them stacked on a leading
+    axis."""
     dt = _dtype(cfg)
-    return {
+    p: PyTree = {
         "attn_norm": norm_init(cfg.norm_kind, cfg.d_model, dt, device, n),
         "mlp_norm": norm_init(cfg.norm_kind, cfg.d_model, dt, device, n),
-        "attn": attn.gqa_init(gen, cfg, dt, device, n),
-        "mlp": mlp_init(gen, cfg.mlp_kind, cfg.d_model, cfg.d_ff, dt, device, n),
     }
+    if cfg.use_mla:
+        p["attn"] = attn.mla_init(gen, cfg, dt, device, n)
+    else:
+        p["attn"] = attn.gqa_init(gen, cfg, dt, device, n)
+    if use_moe:
+        p["moe"] = moe_lib.moe_init(gen, cfg, dt, device, n)
+    else:
+        p["mlp"] = mlp_init(gen, cfg.mlp_kind, cfg.d_model, cfg.d_ff, dt, device, n)
+    return p
 
 
 def block_forward(
@@ -81,12 +85,25 @@ def block_forward(
     *,
     window: int,
     impl: str,
-) -> tuple[torch.Tensor, PyTree]:
+    use_moe: bool = False,
+) -> tuple[torch.Tensor, PyTree, torch.Tensor]:
+    """Returns (x, the block's cache entries, its MoE aux loss or 0)."""
     h = norm_apply(cfg.norm_kind, p["attn_norm"], x)
-    y, (ck, cv) = attn.gqa_full(p["attn"], cfg, h, positions, window=window, impl=impl)
+    if cfg.use_mla:
+        y, (c0, c1) = attn.mla_full(p["attn"], cfg, h, positions, window=window, impl=impl)
+        kv = {"c_kv": c0, "k_rope": c1}
+    else:
+        y, (ck, cv) = attn.gqa_full(p["attn"], cfg, h, positions, window=window,
+                                    impl=impl)
+        kv = {"k": ck, "v": cv}
     x = x + y
     h = norm_apply(cfg.norm_kind, p["mlp_norm"], x)
-    return x + mlp_apply(p["mlp"], cfg.mlp_kind, h), {"k": ck, "v": cv}
+    if use_moe:
+        y, aux = moe_lib.moe_apply(p["moe"], cfg, h)
+    else:
+        y = mlp_apply(p["mlp"], cfg.mlp_kind, h)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + y, kv, aux
 
 
 def block_decode(
@@ -97,13 +114,25 @@ def block_decode(
     pos: int,
     *,
     window: int,
+    use_moe: bool = False,
 ) -> tuple[torch.Tensor, PyTree]:
+    """One token through a block; its cache entries are written in place."""
     h = norm_apply(cfg.norm_kind, p["attn_norm"], x)
-    y, (ck, cv) = attn.gqa_decode(p["attn"], cfg, h, cache["k"], cache["v"], pos,
-                                  window=window)
+    if cfg.use_mla:
+        y, (c0, c1) = attn.mla_decode(p["attn"], cfg, h, cache["c_kv"], cache["k_rope"],
+                                      pos, window=window)
+        new_cache = {"c_kv": c0, "k_rope": c1}
+    else:
+        y, (ck, cv) = attn.gqa_decode(p["attn"], cfg, h, cache["k"], cache["v"], pos,
+                                      window=window)
+        new_cache = {"k": ck, "v": cv}
     x = x + y
     h = norm_apply(cfg.norm_kind, p["mlp_norm"], x)
-    return x + mlp_apply(p["mlp"], cfg.mlp_kind, h), {"k": ck, "v": cv}
+    if use_moe:
+        y, _ = moe_lib.moe_apply(p["moe"], cfg, h)
+    else:
+        y = mlp_apply(p["mlp"], cfg.mlp_kind, h)
+    return x + y, new_cache
 
 
 def _layer(stack: PyTree | list[PyTree], i: int) -> PyTree:
@@ -133,6 +162,21 @@ def _stack(trees: list[PyTree], lead: tuple[int, ...]) -> PyTree:
 # Decoder-only model
 # ---------------------------------------------------------------------------
 
+def decoder_layout(cfg: ModelConfig) -> tuple[int, int]:
+    """(dense blocks, MoE blocks): an MoE config's first
+    ``first_dense_layers`` blocks are dense, the rest MoE."""
+    n_moe = cfg.num_layers - cfg.first_dense_layers if cfg.is_moe else 0
+    return cfg.num_layers - n_moe, n_moe
+
+
+def _stacks(cfg: ModelConfig) -> list[tuple[str, int, bool]]:
+    """(params key, layers, use_moe) of each non-empty block stack, in
+    forward order."""
+    n_dense, n_moe = decoder_layout(cfg)
+    return [(key, n, use_moe) for key, n, use_moe in
+            (("blocks", n_dense, False), ("moe_blocks", n_moe, True)) if n > 0]
+
+
 def decoder_init(gen: torch.Generator, cfg: ModelConfig, device) -> PyTree:
     """Random params from ``gen`` (the reference's distributions; not its
     numbers), on ``device``."""
@@ -141,10 +185,17 @@ def decoder_init(gen: torch.Generator, cfg: ModelConfig, device) -> PyTree:
     params: PyTree = {
         "embed": embedding_init(gen, cfg.vocab_size, cfg.d_model, dt, device),
         "final_norm": norm_init(cfg.norm_kind, cfg.d_model, dt, device),
-        "blocks": block_init(gen, cfg, device, n=cfg.num_layers),
     }
+    for key, n, use_moe in _stacks(cfg):
+        params[key] = block_init(gen, cfg, device, n=n, use_moe=use_moe)
     if not cfg.tie_embeddings:
         params["head"] = linear_init(gen, cfg.d_model, cfg.vocab_size, dt, device)
+    if cfg.mtp_depth > 0:   # deepseek-v3 multi-token prediction head
+        params["mtp"] = {
+            "proj": linear_init(gen, 2 * cfg.d_model, cfg.d_model, dt, device),
+            "norm": norm_init(cfg.norm_kind, cfg.d_model, dt, device),
+            "block": block_init(gen, cfg, device),
+        }
     return params
 
 
@@ -161,11 +212,7 @@ def _logits(params, cfg, x):
     return linear(params["head"], x.float())
 
 
-def _check_params(params: PyTree) -> None:
-    for key in ("moe_blocks", "mtp"):
-        if key in params:
-            raise NotImplementedError(
-                f"params[{key!r}] is not ported yet: ROADMAP Queue 1 item 15")
+MTP_WEIGHT = 0.3   # deepseek-v3 MTP loss weight (lambda in the paper)
 
 
 def decoder_forward(
@@ -182,30 +229,52 @@ def decoder_forward(
 ) -> tuple[torch.Tensor, PyTree | None, torch.Tensor]:
     """Full-sequence forward (prefill, or the training loss's forward).
 
-    Returns (logits, caches | None, aux_loss); the caches are stacked
-    ``(L, B, S, Hkv, D)``.  ``window`` > 0 applies sliding-window attention.
-    ``labels`` only feed the reference's MTP head, which is not ported.
-    ``remat`` recomputes each block's activations in the backward.
+    Returns (logits, caches | None, aux_loss): the caches stacked per block
+    stack, ``(L, B, S, Hkv, D)`` K/V or MLA's ``(L, B, S, kv_lora_rank)``
+    ``c_kv`` and ``(L, B, S, rope)`` ``k_rope``; aux the MoE blocks' summed
+    load-balance losses, plus, with ``labels`` and an ``mtp`` head,
+    ``MTP_WEIGHT`` × the head's next-next-token loss.  ``window`` > 0
+    applies sliding-window attention.  ``remat`` recomputes each block's
+    activations in the backward.
     """
     _ported(cfg)
-    _check_params(params)
-    del labels
     x = _embed_inputs(params, cfg, tokens, media_embeds)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    caches = {}
 
-    def body(p, x):
-        return block_forward(p, cfg, x, positions, window=window, impl=impl)
+    for key, n, use_moe in _stacks(cfg):
+        def body(p, x, use_moe=use_moe):
+            return block_forward(p, cfg, x, positions, window=window, impl=impl,
+                                 use_moe=use_moe)
 
-    kvs = []
-    for i in range(cfg.num_layers):
-        x, kv = _call(body, remat, _layer(params["blocks"], i), x)
+        kvs = []
+        for i in range(n):
+            x, kv, aux = _call(body, remat, _layer(params[key], i), x)
+            aux_total = aux_total + aux
+            if collect_cache:
+                kvs.append(kv)
         if collect_cache:
-            kvs.append(kv)
+            caches[key] = _stack(kvs, (n,))
+
     x = norm_apply(cfg.norm_kind, params["final_norm"], x)
     logits = _logits(params, cfg, x)
-    caches = {"blocks": _stack(kvs, (cfg.num_layers,))} if collect_cache else None
-    return logits, caches, torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.mtp_depth > 0 and "mtp" in params and labels is not None:
+        # deepseek-v3 multi-token prediction (training aux objective):
+        # combine position t's hidden state with the embedding of token t+1,
+        # run one extra dense block, predict the t+1 position's label.
+        st = tokens.shape[1]
+        x_tok = x[:, -st:]                       # token positions (skip media)
+        mtp = params["mtp"]
+        nxt = embed(params["embed"], tokens[:, 1:], x_tok.dtype)
+        h = torch.cat([x_tok[:, :-1], nxt], dim=-1)
+        h = norm_apply(cfg.norm_kind, mtp["norm"], linear(mtp["proj"], h))
+        h, _, _ = block_forward(mtp["block"], cfg, h, positions[:, : st - 1],
+                                window=window, impl=impl)
+        mtp_logits = _logits(params, cfg, h)
+        aux_total = aux_total + MTP_WEIGHT * lm_loss(mtp_logits, labels[:, 1:])
+    return logits, (caches if collect_cache else None), aux_total
 
 
 def decoder_decode_step(
@@ -217,26 +286,31 @@ def decoder_decode_step(
     *,
     window: int = 0,
 ) -> tuple[torch.Tensor, PyTree]:
-    """One-token serve step against the KV cache, which it updates in place
-    (the returned cache is the same tensors)."""
+    """One-token serve step against the KV (or MLA latent) cache, which it
+    updates in place (the returned cache is the same tensors)."""
     _ported(cfg)
-    _check_params(params)
     x = embed(params["embed"], token, _act_dtype(cfg))
-    stack = cache["blocks"]
-    for i in range(cfg.num_layers):
-        x, _ = block_decode(_layer(params["blocks"], i), cfg, x, _layer(stack, i), pos,
-                            window=window)
+    for key, n, use_moe in _stacks(cfg):
+        for i in range(n):
+            x, _ = block_decode(_layer(params[key], i), cfg, x, _layer(cache[key], i), pos,
+                                window=window, use_moe=use_moe)
     x = norm_apply(cfg.norm_kind, params["final_norm"], x)
     return _logits(params, cfg, x), cache
 
 
 def decoder_cache_init(cfg: ModelConfig, batch: int, cache_len: int, dtype,
                        device) -> PyTree:
+    """Zero caches per block stack: K/V ``(L, B, W, Hkv, D)``, or MLA's
+    latent ``c_kv (L, B, W, kv_lora_rank)`` and ``k_rope (L, B, W, rope)``."""
     _ported(cfg)
-    hd = cfg.resolved_head_dim
-    shape = (cfg.num_layers, batch, cache_len, cfg.num_kv_heads, hd)
-    return {"blocks": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                       "v": torch.zeros(shape, dtype=dtype, device=device)}}
+    if cfg.use_mla:
+        widths = {"c_kv": (cfg.kv_lora_rank,), "k_rope": (cfg.qk_rope_head_dim,)}
+    else:
+        kv = (cfg.num_kv_heads, cfg.resolved_head_dim)
+        widths = {"k": kv, "v": kv}
+    return {key: {name: torch.zeros((n, batch, cache_len) + w, dtype=dtype, device=device)
+                  for name, w in widths.items()}
+            for key, n, _ in _stacks(cfg)}
 
 
 # ---------------------------------------------------------------------------
@@ -422,8 +496,8 @@ def hybrid_forward(
 
     def chunk_body(chunk, x):
         h = linear(shared["in_proj"], torch.cat([x, x0], dim=-1))
-        y, kv = block_forward(shared["block"], cfg, h, positions, window=window,
-                              impl=impl)
+        y, kv, _ = block_forward(shared["block"], cfg, h, positions, window=window,
+                                 impl=impl)
         x = x + y
         mcs = []
         for j in range(per):

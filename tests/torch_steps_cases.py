@@ -1,9 +1,11 @@
 """Cases shared by ``test_torch_steps.py`` (``tinyllama-1.1b``),
-``test_torch_steps_hybrid.py`` (``zamba2-7b``) and
-``test_torch_steps_xlstm.py`` (``xlstm-125m``): each file imports them and
-provides the fixtures ``setup`` (``make_setup(arch)``), ``expected_groups``
-and ``group_kind``.  What they hold and at which tolerance is in those
-files' docstrings."""
+``test_torch_steps_hybrid.py`` (``zamba2-7b``), ``test_torch_steps_xlstm.py``
+(``xlstm-125m``), ``test_torch_steps_moe.py`` (``llama4-maverick-400b-a17b``)
+and ``test_torch_steps_mtp.py`` (``deepseek-v3-671b`` with its MTP head):
+each file imports them and provides the fixtures ``setup``
+(``make_setup(arch)``), ``expected_groups`` and ``group_kind``; the MoE
+files also call ``check_mesh_trainer_rounds``.  What they hold and at which
+tolerance is in those files' docstrings."""
 
 import jax
 import numpy as np
@@ -11,12 +13,15 @@ import pytest
 import torch
 
 from repro.configs import get_config as j_get_config
+from repro.core.schedule import RoundSpec as JRoundSpec
+from repro.launch import fedtrain as jfedtrain
 from repro.launch import steps as jsteps
 from repro.models import api as japi
 from repro.optim.adam import AdamConfig as JAdamConfig
 from repro_torch import bridge
 from repro_torch.configs import get_config
-from repro_torch.launch import steps
+from repro_torch.core.schedule import FULL_NETWORK, RoundSpec
+from repro_torch.launch import fedtrain, steps
 from repro_torch.models import api
 from repro_torch.optim.adam import AdamConfig
 from repro_torch.tree import tree_leaves, tree_paths
@@ -28,9 +33,11 @@ EPS = 1e-3
 LR = 1e-3    # AdamConfig and FLRunConfig default
 
 
-def make_setup(arch: str):
-    """``(arch, ref cfg, port cfg, ref params as numpy, numpy batch)``."""
-    jcfg, cfg = j_get_config(arch, smoke=True), get_config(arch, smoke=True)
+def make_setup(arch: str, **overrides):
+    """``(arch, ref cfg, port cfg, ref params as numpy, numpy batch)``;
+    ``overrides`` go to both configs' ``with_``."""
+    jcfg = j_get_config(arch, smoke=True).with_(**overrides)
+    cfg = get_config(arch, smoke=True).with_(**overrides)
     jparams = jax.tree.map(np.asarray, japi.init(jax.random.key(0), jcfg))
     rng = np.random.default_rng(7)
     batch = {k: rng.integers(0, jcfg.vocab_size, (4, 32)).astype(np.int32)
@@ -51,7 +58,8 @@ def _close(jtree, ttree, tol=TOL):
 
 def test_loss_and_grads_match_reference(setup):
     _, jcfg, cfg, jparams, batch = setup
-    jl, jg = jax.value_and_grad(lambda p: japi.loss(p, jcfg, batch, remat=False))(jparams)
+    jl, jg = jax.jit(jax.value_and_grad(
+        lambda p: japi.loss(p, jcfg, batch, remat=False)))(jparams)
     params = bridge.from_numpy_tree(jparams)
     leaves = [x.requires_grad_(True) for x in tree_leaves(params)]
     loss = api.loss(params, cfg, bridge.from_numpy_tree(batch))
@@ -145,3 +153,27 @@ def test_partial_step_matches_reference(setup, group_kind):
             for layer in range(old.shape[0]):
                 same = torch.equal(new[layer], old[layer])
                 assert same == (layer != index), (path, layer)
+
+
+def check_mesh_trainer_rounds(setup, group: int):
+    """``FedPartMeshTrainer``: an FNU round, then a partial round of group
+    ``group`` (two steps each, the same numpy batches) against the
+    reference's trainer: per-round loss, the transmitted parameter counts,
+    the final params."""
+    _, jcfg, cfg, jparams, _ = setup
+    jtrainer = jfedtrain.FedPartMeshTrainer(jcfg, JAdamConfig(lr=LR, eps=EPS))
+    trainer = fedtrain.FedPartMeshTrainer(cfg, AdamConfig(lr=LR, eps=EPS))
+    params, jp = bridge.from_numpy_tree(jparams), jparams
+    assert len(trainer.groups(params)) == len(jtrainer.groups(jparams))
+    rng = np.random.default_rng(3)
+    for spec in (RoundSpec(0, "warmup", -1, FULL_NETWORK), RoundSpec(1, "partial", 0, group)):
+        jspec = JRoundSpec(spec.index, spec.phase, spec.cycle, spec.group)
+        assert trainer.transmitted_params(params, spec) == \
+            jtrainer.transmitted_params(jp, jspec), spec
+        batches = [{k: rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
+                    for k in ("tokens", "labels")} for _ in range(2)]
+        jp, jl = jtrainer.run_round(jp, jspec, batches)
+        params, loss = trainer.run_round(params, spec,
+                                         [bridge.from_numpy_tree(b) for b in batches])
+        assert abs(loss - jl) <= TOL, spec
+    _close(jp, params)
