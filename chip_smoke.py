@@ -106,12 +106,16 @@ Phases, in order; any failure raises and the script exits non-zero:
               bf16) causal and with a 1,024 window, Zamba2's
               shared-attention layer (B 4, H 32, Hkv 32, S 4,096, D 112,
               bf16, causal), Gemma's (B 4, H 8, Hkv 1, S 4,096, D 256,
-              bf16, causal) and Llama-4-Maverick's (B 4, H 40, Hkv 8: a GQA
-              group of 5, S 4,096, D 128, bf16, causal), each element and
-              each output row held to its limit.  The bf16 bodies'
+              bf16, causal), Llama-4-Maverick's (B 4, H 40, Hkv 8: a GQA
+              group of 5, S 4,096, D 128, bf16, causal), whisper-small's
+              encoder layer (B 32, H 12 = Hkv 12, S 1,500, D 64, bf16,
+              non-causal), decoder layer (S 416, causal) and cross layer
+              (Sq 416, Skv 1,500, non-causal) and LLaVA-NeXT-34B's (B 4, H 56, Hkv 8: a GQA group of 7, S
+              4,096, D 128, bf16, causal), each element and each output row
+              held to its limit.  The bf16 bodies'
               ``HGMMA`` / ``UTMALDG`` / ``HMMA`` instruction counts from
               ``cuobjdump -sass``, registers and spills from nvcc.  Times
-              (CUDA events) at the four layers, achieved TFLOP/s, their
+              (CUDA events) at those eight layers, achieved TFLOP/s, their
               bounds, and ``F.scaled_dot_product_attention`` as a
               yardstick.
 7. serve    — the serving path: ``serve_session`` on tinyllama-1.1b at full
@@ -197,6 +201,27 @@ Phases, in order; any failure raises and the script exits non-zero:
               (1 dense), 16 experts and capacity factor 8.0 (no token
               dropped): the decode logits at position 512 equal the
               forward's over 513 tokens within 2e-4 (abs + rel).
+   serve_encdec — ``serve_session`` on whisper-small at full width (12
+              encoder and 12 decoder layers, d_model 768, 12 heads of 64,
+              vocab 51,865, tied), bf16, random weights from a seed, B 32 x
+              1,500 stub frames with a 416-token prompt, 32 tokens (448
+              positions, the ``dec_pos`` table's size): every attention of
+              the prefill through the flash kernel at D 64, 36 launches (12
+              encoder self-attentions, non-causal; 12 decoder
+              self-attentions, causal; 12 cross-attentions, non-causal, Sq
+              416, Skv 1,500).  One prefill under ``torch.profiler``.  Then
+              the f32 cross-check at full width (B 4 x 1,500 frames, the
+              416-token prompt, 4 tokens): every step's logits within 1e-3
+              and the same tokens.
+   serve_vlm — ``serve_session`` on llava-next-34b at full width (d_model
+              7,168, 56 / 8 heads of 128: a GQA group of 7, d_ff 20,480),
+              cut to 50 of its 60 layers, which leaves 8 GiB of the card
+              free at the run's peak with a layer to spare, bf16, B 4 x 4,096 prompt
+              positions (576 stub media embeddings, then 3,520 tokens), 32
+              tokens: one flash launch per layer at D 128; the peak memory
+              and the layers kept.  One prefill under ``torch.profiler``.
+              Then the f32 cross-check at full width, 4 layers, B 4 x (576
+              + 512), 4 tokens.
 10. fedtrain_llm — ``launch.fedtrain``'s default, mesh-trainer path on
               tinyllama-1.1b at full width (bf16; 24 groups: embed, 22
               blocks, final_norm|head): ``--full-size --batch 4 --seq 512
@@ -212,6 +237,11 @@ Phases, in order; any failure raises and the script exits non-zero:
               backward pruned: the profiler's GEMM count is the head's input
               gradient, 14 blocks without weight GEMMs, one full block and
               nothing for blocks 0-6.
+   fedtrain_encdec — ``FedPartMeshTrainer`` on whisper-small at full
+              width (bf16): an FNU round, then a partial round on
+              ``dec_blocks/0``, B 8 x 1,500 frames and 416 tokens, 2 steps
+              each; seconds and peak memory of each; every leaf outside the
+              group bit for bit unchanged by the partial round.
 11. fedtrain_sim — ``fedtrain --sim-clients 8 --rounds 12 --batch 32
               --fused-adam`` on the vmap engine (cohort launches == bucket-steps
               recomputed from the data) and the sequential engine (one-client
@@ -237,8 +267,9 @@ one-client launches, ``fedpart_vmap``, ``fedpart_shard``, ``nlp``,
 ``compress``, ``async`` and ``fedtrain_sim`` for the cohort launches; the
 SSD entry by path, ``serve_hybrid`` and ``serve_xlstm``, and by body within
 each, with the xLSTM layer's two scans beside Zamba2's layer; the flash
-entry by path, ``serve_moe`` among them, with Zamba2's, Gemma's and
-Llama-4's layers beside TinyLlama's); the last line is the ``ok`` JSON.
+entry by path, ``serve_moe``, ``serve_encdec`` and ``serve_vlm`` among
+them, with Zamba2's, Gemma's, Llama-4's, whisper's encoder, decoder and cross
+and LLaVA's layers beside TinyLlama's); the last line is the ``ok`` JSON.
 """
 
 from __future__ import annotations
@@ -326,6 +357,36 @@ SERVE_DENSE = [("gemma-2b", 0), ("llama3.2-1b", 0), ("glm4-9b", 4)]
 # llama4-maverick-400b-a17b's prefill attention at the serve prompt: B 4, H 40,
 # Hkv 8 (a GQA group of 5, the first odd one of a served config), S 4,096, D 128
 LLAMA4_ATTN = (SERVE_BATCH, 40, 8, SERVE_PROMPT, SERVE_PROMPT, 128)
+# whisper-small served at the reference's prefill_32k batch, B 32, over its
+# 1,500 stub encoder frames, with a 416-token decoder prompt and 32 generated
+# tokens: 448 positions, the dec_pos table's size, so no position wraps
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_GEN = 32, 416, 32
+WHISPER_FRAMES = 1500
+# its attentions (H 12 = Hkv 12, D 64): the encoder's self-attention over the
+# frames (non-causal) and the cross-attention of the decoder's prompt over
+# them (non-causal, Sq != Skv); the decoder's own is causal at S 416, which is
+# 3 x 128 + 32, so its last query and key tiles are both partial under the mask
+WHISPER_ENC_ATTN = (WHISPER_BATCH, 12, 12, WHISPER_FRAMES, WHISPER_FRAMES, 64)
+WHISPER_DEC_ATTN = (WHISPER_BATCH, 12, 12, WHISPER_PROMPT, WHISPER_PROMPT, 64)
+WHISPER_CROSS_ATTN = (WHISPER_BATCH, 12, 12, WHISPER_PROMPT, WHISPER_FRAMES, 64)
+# its f32 cross-check: B 4 x 1,500 frames, the 416-token prompt, 4 tokens
+WHISPER_F32 = (4, WHISPER_PROMPT, 4)
+# its FedPart rounds at full width: B 8 x 1,500 frames and 416 tokens, 2 steps
+WHISPER_TRAIN = (8, WHISPER_PROMPT, 2)
+# llava-next-34b's prefill attention at the serve prompt: B 4, H 56, Hkv 8 (a
+# GQA group of 7), S 4,096 (576 media positions and 3,520 tokens), D 128
+LLAVA_ATTN = (SERVE_BATCH, 56, 8, SERVE_PROMPT, SERVE_PROMPT, 128)
+# llava-next-34b at full width, cut in depth to what one card holds with 8 GiB
+# free at the serve run's peak: a layer is 557.8 M params (1.116 GB in bf16),
+# and its K / V caches at B 4 x 4,128 67 MB, held twice while they are stacked;
+# on an H100 80GB HBM3 (700 W) 52 layers left 8.716 and 8.444 GiB outside the
+# allocator's reserved peak in two runs (1.102 GiB a layer); 51 left 9.501
+# there but 8.555 by the driver's count, the CUDA context and what lies outside
+# the allocator taking 0.946, so 50 keeps 8 GiB free with a layer to spare
+SERVE_VLM_LAYERS = 50
+VLM_FREE_GIB = 8.0
+# its f32 cross-check: 4 layers at full width, B 4 x (576 media + 512 tokens)
+SERVE_VLM_F32_LAYERS = 4
 # The MoE decoders at full width, cut in depth to what one card holds.
 # Llama-4: one MoE layer is 16.30 G params (32.6 GB in bf16) and the embedding
 # and head 2.07 G; beside them a prefill of B 4 x 4,096 holds 13.2 GB of f32
@@ -970,25 +1031,28 @@ def _flash_bound_ms(b, h, hkv, sq, skv, d, causal, window, dtype) -> tuple[float
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def _flash_layer(name: str, shape, gen) -> dict:
-    """Times one bf16 causal layer in the model's (B, S, H, D) layout: the
-    kernel, the plain version, ``F.scaled_dot_product_attention`` as the
-    library yardstick, and the bound."""
+def _flash_layer(name: str, shape, gen, causal: bool = True) -> dict:
+    """Times one bf16 layer (``shape`` = (B, H, Hkv, Sq, Skv, D)) in the
+    model's (B, S, H, D) layout: the kernel, the plain version,
+    ``F.scaled_dot_product_attention`` as the library yardstick (its causal
+    flag to match), and the bound."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops
-    b, h, hkv, s, _, d = shape
-    q, k, v = _flash_qkv(b, h, hkv, s, s, d, torch.bfloat16, gen)
+    b, h, hkv, sq, skv, d = shape
+    q, k, v = _flash_qkv(b, h, hkv, sq, skv, d, torch.bfloat16, gen)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    out = {"ms": cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True), 5),
-           "plain_ms": cuda_ms(lambda: ops.attention_reference(q, k, v, causal=True),
+    out = {"ms": cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal), 5),
+           "plain_ms": cuda_ms(lambda: ops.attention_reference(q, k, v, causal=causal),
                                2, 3)}
     torch.cuda.empty_cache()
     out["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), 10)
-    out["bound_ms"], out["bound_by"] = _flash_bound_ms(b, h, hkv, s, s, d, True, 0,
+        qt, kt, vt, is_causal=causal, enable_gqa=True), 10)
+    out["bound_ms"], out["bound_by"] = _flash_bound_ms(b, h, hkv, sq, skv, d, causal, 0,
                                                        torch.bfloat16)
-    out["tflops"] = _flash_flops(b, h, s, s, d, True, 0) / out["ms"] / 1e9
-    log(f"[flash] {name} layer B{b} H{h} Hkv{hkv} S{s} D{d} bf16 causal: "
+    out["tflops"] = _flash_flops(b, h, sq, skv, d, causal, 0) / out["ms"] / 1e9
+    mask = "causal" if causal else "non-causal"
+    seq = f"S{sq}" if sq == skv else f"Sq{sq} Skv{skv}"
+    log(f"[flash] {name} layer B{b} H{h} Hkv{hkv} {seq} D{d} bf16 {mask}: "
         f"kernel {out['ms']:.6f} ms plain {out['plain_ms']:.6f} ms "
         f"F.scaled_dot_product_attention {out['library_ms']:.6f} ms bound "
         f"{out['bound_ms']:.6f} ms ({out['bound_by']}; "
@@ -1004,7 +1068,10 @@ def phase_flash() -> dict:
     cases and four ragged ones in f32 and bf16, ragged cases at each width
     of the bf16 body (D 32 to 256), TinyLlama's prefill layer causal and
     with a 1,024 window, Zamba2's shared-attention layer (D 112), Gemma's
-    (D 256), Llama-4's (GQA group 5, D 128); then times at the four layers
+    (D 256), Llama-4's (GQA group 5, D 128), whisper's encoder layer
+    (non-causal, S 1,500), decoder layer (causal, S 416) and cross layer
+    (non-causal, Sq 416, Skv 1,500) and LLaVA's (GQA group 7, D 128); then
+    times at those eight layers
     (kernel, plain version, ``F.scaled_dot_product_attention`` as the
     library yardstick)."""
     from repro_torch.kernels import build
@@ -1034,14 +1101,21 @@ def phase_flash() -> dict:
     for line in nvcc.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"[flash] nvcc: {line.strip()}")
-    layers = [("tinyllama", TINYLLAMA_ATTN, 0), ("tinyllama", TINYLLAMA_ATTN, 1024),
-              ("zamba2", ZAMBA2_ATTN, 0), ("gemma", GEMMA_ATTN, 0),
-              ("llama4", LLAMA4_ATTN, 0)]
-    for name, (b, h, hkv, s, _, d), window in layers:
-        err, row = _flash_check((b, h, hkv, s, s, d, True, window), torch.bfloat16, gen)
+    layers = [("tinyllama", TINYLLAMA_ATTN, 0, True),
+              ("tinyllama", TINYLLAMA_ATTN, 1024, True), ("zamba2", ZAMBA2_ATTN, 0, True),
+              ("gemma", GEMMA_ATTN, 0, True), ("llama4", LLAMA4_ATTN, 0, True),
+              ("whisper encoder", WHISPER_ENC_ATTN, 0, False),
+              ("whisper decoder", WHISPER_DEC_ATTN, 0, True),
+              ("whisper cross", WHISPER_CROSS_ATTN, 0, False),
+              ("llava", LLAVA_ATTN, 0, True)]
+    for name, (b, h, hkv, sq, skv, d), window, causal in layers:
+        err, row = _flash_check((b, h, hkv, sq, skv, d, causal, window), torch.bfloat16,
+                                gen)
         worst = max(worst, err)
-        log(f"[flash] {name} layer B{b} H{h} Hkv{hkv} S{s} D{d} bf16 causal "
-            f"window {window}: max abs err {err:.3g} (tolerance "
+        seq = f"S{sq}" if sq == skv else f"Sq{sq} Skv{skv}"
+        log(f"[flash] {name} layer B{b} H{h} Hkv{hkv} {seq} D{d} bf16 "
+            f"{'causal' if causal else 'non-causal'} window {window}: max abs err "
+            f"{err:.3g} (tolerance "
             f"{FLASH_TOL[torch.bfloat16]:g} abs + rel), max row err {row:.3g} of the "
             f"row's norm (limit {FLASH_ROW_TOL[torch.bfloat16]:g})")
         torch.cuda.empty_cache()
@@ -1050,11 +1124,18 @@ def phase_flash() -> dict:
     zamba2 = _flash_layer("zamba2", ZAMBA2_ATTN, gen)
     gemma = _flash_layer("gemma", GEMMA_ATTN, gen)
     llama4 = _flash_layer("llama4", LLAMA4_ATTN, gen)
+    whisper_enc = _flash_layer("whisper encoder", WHISPER_ENC_ATTN, gen, causal=False)
+    whisper_dec = _flash_layer("whisper decoder", WHISPER_DEC_ATTN, gen)
+    whisper_cross = _flash_layer("whisper cross", WHISPER_CROSS_ATTN, gen, causal=False)
+    llava = _flash_layer("llava", LLAVA_ATTN, gen)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:99",
             "launches": None, "max_abs_err": worst, **main,
-            "zamba2_layer": zamba2, "gemma_layer": gemma, "llama4_layer": llama4}
+            "zamba2_layer": zamba2, "gemma_layer": gemma, "llama4_layer": llama4,
+            "whisper_encoder_layer": whisper_enc, "whisper_decoder_layer": whisper_dec,
+            "whisper_cross_layer": whisper_cross,
+            "llava_layer": llava}
 
 
 # ---------------------------------------------------------------------------
@@ -2065,6 +2146,31 @@ def _profile_fl_round(cfg, tag: str, setup=None) -> None:
                 f"{100 * e.self_device_time_total / dev_us:.2f}% of device busy")
 
 
+def _log_kernel_table(tag: str, events, what: str, wall_us: float, n: int = 1,
+                      top: int = 12, skip: tuple[str, ...] = ()) -> float:
+    """Logs one profile's device time by kernel (``events`` from
+    ``key_averages()``, the keys in ``skip`` left out), over ``n`` runs of
+    ``what`` that took ``wall_us`` each: wall and device busy per run, the
+    launches and the ``top`` kernels.  Returns the device busy time per run
+    in us, 0 (logged as not measured) when the profiler recorded none."""
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in skip]
+    dev_us = sum(getattr(e, "self_device_time_total", 0.0) for e in kernels) / n
+    if dev_us <= 0:
+        log(f"[{tag}] the profiler recorded no device time: not measured")
+        return 0.0
+    each = "" if n == 1 else " a step"
+    log(f"[{tag}] profile of {what}: wall {wall_us / 1e3:.3f} ms{each} (under the "
+        f"profiler), device busy {dev_us / 1e3:.3f} ms{each} "
+        f"({100 * dev_us / wall_us:.1f}%), {sum(e.count for e in kernels) // n} kernel "
+        f"launches{each}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        ms = e.self_device_time_total / n / 1e3
+        log(f"[{tag}]   {ms:9.3f} ms{each} ({100 * ms * 1e3 / dev_us:5.1f}%) "
+            f"{e.count // n:5d}x {e.key[:90]}")
+    return dev_us
+
+
 def _serve_profile(cfg, params, prompt, tag: str = "serve",
                    labels: tuple[str, ...] = ()) -> None:
     """Device time by kernel over one warm prefill (under torch.profiler);
@@ -2085,18 +2191,9 @@ def _serve_profile(cfg, params, prompt, tag: str = "serve",
             wall_us = (time.perf_counter() - t0) * 1e6
     del logits, cache
     events = prof.key_averages()
-    kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in labels]
-    dev_us = sum(getattr(e, "self_device_time_total", 0.0) for e in kernels)
+    dev_us = _log_kernel_table(tag, events, "one prefill", wall_us, skip=labels)
     if dev_us <= 0:
-        log(f"[{tag}] the profiler recorded no device time: not measured")
         return
-    log(f"[{tag}] profile of one prefill: wall {wall_us / 1e3:.3f} ms (under the "
-        f"profiler), device busy {dev_us / 1e3:.3f} ms ({100 * dev_us / wall_us:.1f}%), "
-        f"{sum(e.count for e in kernels)} kernel launches")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        log(f"[{tag}]   {e.self_device_time_total / 1e3:9.3f} ms "
-            f"({100 * e.self_device_time_total / dev_us:5.1f}%) {e.count:5d}x {e.key[:90]}")
     for label in labels:
         ranges = [e for e in events if e.key == label
                   and e.device_type == torch.autograd.DeviceType.CPU]
@@ -2114,6 +2211,33 @@ def _serve_profile(cfg, params, prompt, tag: str = "serve",
             f"its span on the card's timeline {span_us / 1e3:.3f} ms")
     log(f"[{tag}] the profiled prefill and its tables took "
         f"{time.perf_counter() - t_prof:.1f} s")
+
+
+def _decode_profile(cfg, params, prompt, s: int, tag: str) -> None:
+    """Device time by kernel over three warm decode steps (under
+    torch.profiler), after a prefill of ``prompt`` (``s`` positions) and
+    its cache growth: wall and device busy per step, launches per step, the
+    top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import serve, steps
+    n_steps = 3
+    step = steps.make_serve_step(cfg)
+    with torch.inference_mode():
+        logits, cache = steps.make_prefill_step(cfg)(params, prompt)
+        cache = serve._grow_attention_caches(cache, s, s + n_steps + 1)
+        tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(torch.int32)
+        del logits
+        step(params, tok, cache, s)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(n_steps):
+                step(params, tok, cache, s + 1 + i)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6 / n_steps
+    del cache
+    _log_kernel_table(tag, prof.key_averages(), f"{n_steps} decode steps", wall_us,
+                      n=n_steps, top=8)
 
 
 def _log_serve_run(tag: str, cfg, res, b: int, s: int, g: int) -> None:
@@ -2156,30 +2280,34 @@ def _recorded_routes():
         moe.route = real
 
 
-def _f32_cross_check(tag: str, cfg32, b: int, what: str) -> None:
-    """``cfg32`` (f32, TF32 off) served at prompt 512, 4 tokens, from random
-    weights (seed 1): the kernel path against plain PyTorch, every step's
-    logits within ``SERVE_CROSS_TOL``, the same tokens and, in a model with
-    MoE layers, the same router choices (routing is discontinuous: a flip
-    would change a token's expert, not move its logits by a rounding)."""
+def _f32_cross_check(tag: str, cfg32, b: int, what: str, prompt_len: int = 512,
+                     gen: int = 4) -> None:
+    """``cfg32`` (f32, TF32 off) served at ``prompt_len`` (512; a VLM's counts
+    its media), ``gen`` tokens (4), from random weights (seed 1): the kernel
+    path against plain PyTorch, every step's logits within
+    ``SERVE_CROSS_TOL``, the same tokens and, in a model with MoE layers,
+    the same router choices (routing is discontinuous: a flip would change
+    a token's expert, not move its logits by a rounding)."""
     from repro_torch.launch.serve import serve_session
     from repro_torch.models import api
     from repro_torch.models.api import InputShape
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    params = api.init(gen, cfg32, "cuda")
-    prompt = api.synth_batch(gen, cfg32, InputShape("serve", 512, b, "prefill"), "cuda")
+    rng = torch.Generator(device="cuda").manual_seed(1)
+    params = api.init(rng, cfg32, "cuda")
+    prompt = api.synth_batch(rng, cfg32, InputShape("serve", prompt_len, b, "prefill"),
+                             "cuda")
     out, routes = {}, {}
     for impl in ("kernel", "plain"):
         with _recorded_routes() as routes[impl]:
-            out[impl] = serve_session(cfg32, b, 512, 4, device="cuda", params=params,
-                                      prompt=prompt, impl=impl, verbose=False)
+            out[impl] = serve_session(cfg32, b, prompt_len, gen, device="cuda",
+                                      params=params, prompt=prompt, impl=impl,
+                                      verbose=False)
     diffs = [float((k - p).abs().max())
              for k, p in zip(out["kernel"].logits, out["plain"].logits)]
     scale = max(float(x.abs().max()) for x in out["plain"].logits)
     same = torch.equal(out["kernel"].tokens, out["plain"].tokens)
-    msg = (f"[{tag}] f32 cross-check B{b} prompt 512 gen 4, {what}: max abs logit diff "
-           f"per step {[f'{d:.3g}' for d in diffs]} (tolerance {SERVE_CROSS_TOL:g}; max "
-           f"|logit| {scale:.3g}); tokens equal: {same}")
+    msg = (f"[{tag}] f32 cross-check B{b} prompt {prompt_len} gen {gen}, {what}: max abs "
+           f"logit diff per step {[f'{d:.3g}' for d in diffs]} (tolerance "
+           f"{SERVE_CROSS_TOL:g}; max |logit| {scale:.3g}); tokens equal: {same}")
     flips = 0
     if routes["plain"]:
         if len(routes["kernel"]) != len(routes["plain"]):
@@ -2195,6 +2323,25 @@ def _f32_cross_check(tag: str, cfg32, b: int, what: str) -> None:
     torch.cuda.empty_cache()
 
 
+def _count_flash(cfg, params, prompt, b: int, s: int, g: int, tag: str):
+    """One counted ``serve_session`` run (the flash counters set to 0 just
+    before it, read just after), peak memory reset first; returns the run,
+    its flash launches and their split by head dim."""
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.launch.serve import serve_session
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_kernel.launches = 0
+    flash_attention_kernel.launches_by_head_dim = {}
+    res = serve_session(cfg, b, s, g, device="cuda", params=params, prompt=prompt,
+                        verbose=False)
+    torch.cuda.synchronize()
+    launches = flash_attention_kernel.launches
+    by_d = dict(flash_attention_kernel.launches_by_head_dim)
+    _log_serve_run(tag, cfg, res, b, s, g)
+    return res, launches, by_d
+
+
 def _serve_dense(arch: str, tag: str, f32_layers: int = 0) -> int:
     """``serve_session`` on the dense decoder ``arch`` at full width, bf16,
     random weights from a seed, B 4 × 4,096 prompt, 32 tokens, every prefill
@@ -2205,7 +2352,6 @@ def _serve_dense(arch: str, tag: str, f32_layers: int = 0) -> int:
     attention, every step's logits within ``SERVE_CROSS_TOL`` and the same
     tokens.  Returns the counted run's flash launches."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import flash_attention_kernel
     from repro_torch.launch.serve import serve_session
     from repro_torch.models import api
     from repro_torch.models.api import InputShape
@@ -2224,18 +2370,7 @@ def _serve_dense(arch: str, tag: str, f32_layers: int = 0) -> int:
         f"{cfg.param_dtype}, {n_params} params")
     # warm-up at full width (cuBLAS handles, kernel loads), then the counted run
     serve_session(cfg, b, 256, 2, device="cuda", params=params, verbose=False)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-
-    flash_attention_kernel.launches = 0
-    flash_attention_kernel.launches_by_head_dim = {}
-    res = serve_session(cfg, b, s, g, device="cuda", params=params, prompt=prompt,
-                        verbose=False)
-    torch.cuda.synchronize()
-    launches = flash_attention_kernel.launches
-    by_d = dict(flash_attention_kernel.launches_by_head_dim)
-
-    _log_serve_run(tag, cfg, res, b, s, g)
+    res, launches, by_d = _count_flash(cfg, params, prompt, b, s, g, tag)
     log(f"[{tag}] flash_attention launches {launches} (one per layer: "
         f"{cfg.num_layers}), by head dim {by_d}")
     if launches != cfg.num_layers or by_d != {hd: cfg.num_layers}:
@@ -2410,7 +2545,6 @@ def phase_serve_moe() -> int:
     ``SERVE_CROSS_TOL``, the same tokens and router choices.  Returns the
     counted run's flash launches."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import flash_attention_kernel
     from repro_torch.launch.serve import serve_session
     from repro_torch.models import api, moe
     from repro_torch.models.api import InputShape
@@ -2439,17 +2573,7 @@ def phase_serve_moe() -> int:
         f"is dropped, the reference's rule)")
     # warm-up at full width (cuBLAS handles, kernel loads), then the counted run
     serve_session(cfg, b, 256, 2, device="cuda", params=params, verbose=False)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-
-    flash_attention_kernel.launches = 0
-    flash_attention_kernel.launches_by_head_dim = {}
-    res = serve_session(cfg, b, s, g, device="cuda", params=params, prompt=prompt,
-                        verbose=False)
-    torch.cuda.synchronize()
-    launches = flash_attention_kernel.launches
-    by_d = dict(flash_attention_kernel.launches_by_head_dim)
-    _log_serve_run("serve_moe", cfg, res, b, s, g)
+    res, launches, by_d = _count_flash(cfg, params, prompt, b, s, g, "serve_moe")
     log(f"[serve_moe] flash_attention launches {launches} (one per layer: "
         f"{cfg.num_layers}), by head dim {by_d}")
     if launches != cfg.num_layers or by_d != {hd: cfg.num_layers}:
@@ -2616,6 +2740,140 @@ def phase_serve_mla() -> None:
         raise AssertionError("f32 MLA decode disagrees with the full forward")
     del params, cache, logits, ref, got, want
     torch.cuda.empty_cache()
+
+
+def phase_serve_encdec() -> int:
+    """The encoder-decoder serving path: ``serve_session`` on whisper-small
+    at full width (12 encoder and 12 decoder layers, d_model 768, 12 heads
+    of 64, vocab 51,865, tied embedding), bf16, random weights from a seed,
+    B 32 x 1,500 stub frames with a 416-token prompt, 32 tokens; every
+    attention of the prefill through the flash kernel at D 64: 12 encoder
+    self-attentions (non-causal, S 1,500), 12 decoder self-attentions
+    (causal, S 416) and 12 cross-attentions (non-causal, Sq 416, Skv 1,500),
+    36 launches.  One prefill under ``torch.profiler``.  Then the f32
+    cross-check at full width (B 4 x 1,500 frames, the 416-token prompt, 4
+    tokens, TF32 off): kernel against plain attention, every step's logits
+    within ``SERVE_CROSS_TOL`` and the same tokens.  Returns the counted
+    run's flash launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_session
+    from repro_torch.models import api
+    from repro_torch.models.api import InputShape
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("whisper-small")
+    hd = cfg.resolved_head_dim
+    b, s, g = WHISPER_BATCH, WHISPER_PROMPT, WHISPER_GEN
+    per_prefill = cfg.encoder_layers + 2 * cfg.num_layers
+    if cfg.encoder_seq != WHISPER_FRAMES or s + g > cfg.max_position_embeddings:
+        raise AssertionError("serve_encdec's shapes no longer match whisper-small's")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = api.init(gen, cfg, "cuda")
+    prompt = api.synth_batch(gen, cfg, InputShape("serve", s, b, "prefill"), "cuda")
+    n_params = sum(int(x.numel()) for x in tree_leaves(params))
+    log(f"[serve_encdec] {cfg.name} full: {cfg.encoder_layers} encoder + {cfg.num_layers} "
+        f"decoder layers, d_model {cfg.d_model} heads {cfg.num_heads}/{cfg.num_kv_heads} "
+        f"head dim {hd} d_ff {cfg.d_ff} ({cfg.mlp_kind}, {cfg.norm_kind}) vocab "
+        f"{cfg.vocab_size} tied {cfg.tie_embeddings} {cfg.param_dtype}, {n_params} params; "
+        f"frames {tuple(prompt['frames'].shape)}, tokens {tuple(prompt['tokens'].shape)}")
+    # warm-up at the counted run's shapes (cuBLAS handles and heuristics, kernel
+    # loads; the first prefill at a new shape took 0.199 s against 0.115 s in
+    # two runs on an H100 80GB HBM3, 700 W), then the counted run
+    serve_session(cfg, b, s, 2, device="cuda", params=params, verbose=False)
+    res, launches, by_d = _count_flash(cfg, params, prompt, b, s, g, "serve_encdec")
+    log(f"[serve_encdec] flash_attention launches {launches} (three per layer pair: "
+        f"{cfg.encoder_layers} encoder + {cfg.num_layers} decoder self + {cfg.num_layers} "
+        f"cross = {per_prefill}), by head dim {by_d}")
+    if launches != per_prefill or by_d != {hd: per_prefill}:
+        raise AssertionError(f"flash launches {launches} (by head dim {by_d}) != "
+                             f"{per_prefill} at D {hd}")
+    _serve_profile(cfg, params, prompt, tag="serve_encdec")
+    _decode_profile(cfg, params, prompt, s, "serve_encdec")
+    del params, prompt, res
+    torch.cuda.empty_cache()
+
+    fb, fs, fg = WHISPER_F32
+    _f32_cross_check("serve_encdec", cfg.with_(param_dtype="float32",
+                                               activation_dtype="float32"), fb,
+                     f"full depth and width, {cfg.encoder_seq} frames, kernel vs plain "
+                     f"(encoder, decoder and cross attention)", prompt_len=fs, gen=fg)
+    return launches
+
+
+def phase_serve_vlm() -> int:
+    """The VLM serving path: ``serve_session`` on llava-next-34b at full width
+    (d_model 7,168, 56 query heads over 8 kv heads of 128: a GQA group of 7,
+    SwiGLU d_ff 20,480, vocab 64,000), cut in depth to ``SERVE_VLM_LAYERS``
+    of its 60 layers, bf16, random weights from a seed, B 4 x 4,096 prompt
+    positions (576 stub media embeddings, then 3,520 tokens), 32 tokens;
+    every prefill attention through the flash kernel at D 128 (one launch
+    per layer).  Fails unless ``VLM_FREE_GIB`` of the card stay free at the
+    run's peak: the free memory the driver reports after the run, less what
+    the allocator released since its reserved peak.  One prefill under ``torch.profiler``.  Then the
+    f32 cross-check at full width, cut to ``SERVE_VLM_F32_LAYERS`` layers
+    (B 4 x (576 + 512), 4 tokens, TF32 off): kernel against plain
+    attention, every step's logits within ``SERVE_CROSS_TOL`` and the same
+    tokens.  Returns the counted run's flash launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_session
+    from repro_torch.models import api
+    from repro_torch.models.api import InputShape
+    from repro_torch.tree import tree_leaves
+
+    full = get_config("llava-next-34b")
+    cfg = full.with_(num_layers=SERVE_VLM_LAYERS)
+    hd, m = cfg.resolved_head_dim, cfg.num_media_tokens
+    b, s, g = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    torch.cuda.empty_cache()   # the free-memory check reads this phase's peak only
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = api.init(gen, cfg, "cuda")
+    prompt = api.synth_batch(gen, cfg, InputShape("serve", s, b, "prefill"), "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(int(x.numel()) for x in tree_leaves(params))
+    layer_params = sum(int(x.numel()) for x in tree_leaves(params["blocks"])) // cfg.num_layers
+    log(f"[serve_vlm] {cfg.name} full width, {cfg.num_layers} of {full.num_layers} layers "
+        f"(one layer: {layer_params} params, {2 * layer_params / 1e9:.3f} GB in bf16): "
+        f"d_model {cfg.d_model} heads {cfg.num_heads}/{cfg.num_kv_heads} (group "
+        f"{cfg.num_heads // cfg.num_kv_heads}) head dim {hd} d_ff {cfg.d_ff} "
+        f"({cfg.mlp_kind}) vocab {cfg.vocab_size} {cfg.param_dtype}, {n_params} params; "
+        f"random init {init_s:.1f} s; media {tuple(prompt['media'].shape)}, tokens "
+        f"{tuple(prompt['tokens'].shape)}")
+    # warm-up at full width (cuBLAS handles, kernel loads), then the counted run
+    serve_session(cfg, b, m + 64, 2, device="cuda", params=params, verbose=False)
+    res, launches, by_d = _count_flash(cfg, params, prompt, b, s, g, "serve_vlm")
+    free_now, total = torch.cuda.mem_get_info()
+    peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
+    free = (free_now - (reserved - torch.cuda.memory_reserved())) / 2**30
+    layer_bytes = 2 * layer_params + 2 * 2 * b * (s + g) * cfg.num_kv_heads * hd
+    log(f"[serve_vlm] flash_attention launches {launches} (one per layer: "
+        f"{cfg.num_layers}), by head dim {by_d}; decode started at position {s} "
+        f"({m} media + {s - m} tokens)")
+    log(f"[serve_vlm] {cfg.num_layers} layers kept: peak device memory "
+        f"{peak / 2**30:.3f} GiB allocated, {reserved / 2**30:.3f} GiB reserved, of "
+        f"{total / 2**30:.3f} GiB: {free:.3f} GiB free at the peak by the driver's count "
+        f"(CUDA context and all; {(total - reserved) / 2**30:.3f} GiB outside the reserved "
+        f"peak) (limit "
+        f"{VLM_FREE_GIB:g}); a layer's weights and K / V caches are "
+        f"{layer_bytes / 2**30:.3f} GiB")
+    if launches != cfg.num_layers or by_d != {hd: cfg.num_layers}:
+        raise AssertionError(f"flash launches {launches} (by head dim {by_d}) != "
+                             f"layers {cfg.num_layers} at D {hd}")
+    if free < VLM_FREE_GIB:
+        raise AssertionError(f"serve_vlm leaves {free:.3f} GiB free at its peak")
+    del res
+    _serve_profile(cfg, params, prompt, tag="serve_vlm")
+    _decode_profile(cfg, params, prompt, s, "serve_vlm")
+    del params, prompt
+    torch.cuda.empty_cache()
+
+    cfg32 = full.with_(param_dtype="float32", activation_dtype="float32",
+                       num_layers=SERVE_VLM_F32_LAYERS)
+    _f32_cross_check("serve_vlm", cfg32, b,
+                     f"full width, {cfg32.num_layers} of {full.num_layers} layers, {m} media "
+                     f"positions, kernel vs plain attention", prompt_len=m + 512)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2856,6 +3114,73 @@ def phase_fedtrain_llm() -> None:
     torch.cuda.empty_cache()
 
 
+def phase_fedtrain_encdec() -> None:
+    """FedPart training of whisper-small at full width on the card, through
+    ``FedPartMeshTrainer`` (bf16, random weights from a seed): an FNU round,
+    then a partial round on ``dec_blocks/0``, ``WHISPER_TRAIN`` (B 8 x
+    1,500 frames and 416 tokens with labels, 2 steps a round; training
+    differentiates ``impl="plain"``).  Seconds and peak memory of each; the
+    loss finite; every leaf outside the group bit for bit unchanged by the
+    partial round (the other 11 decoder layers of each ``dec_blocks`` leaf
+    included) and some leaf of the group moved."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.schedule import FULL_NETWORK, RoundSpec
+    from repro_torch.launch import fedtrain, steps
+    from repro_torch.models import api
+    from repro_torch.models.api import InputShape
+    from repro_torch.optim.adam import AdamConfig
+    from repro_torch.tree import tree_leaves, tree_paths
+
+    cfg = get_config("whisper-small")
+    b, s, n_steps = WHISPER_TRAIN
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    params = api.init(gen, cfg, "cuda")
+    trainer = fedtrain.FedPartMeshTrainer(cfg, AdamConfig())
+    groups = trainer.groups(params)
+    g = groups.index(steps.StackedGroup("dec_blocks", 0))
+    shape = InputShape("t", s, b, "train")
+    total = sum(int(x.numel()) for x in tree_leaves(params))
+    log(f"[fedtrain_encdec] {cfg.name} full, {total} params, {len(groups)} groups "
+        f"({', '.join(f'{x.key}/{x.index}' if x.index is not None else x.key for x in groups[:2])}, "
+        f"..., {groups[-1].key}); B {b} x {cfg.encoder_seq} frames and {s} tokens, "
+        f"{n_steps} steps a round")
+    for spec in (RoundSpec(0, "warmup", -1, FULL_NETWORK), RoundSpec(1, "partial", 0, g)):
+        batches = [api.synth_batch(gen, cfg, shape, "cuda") for _ in range(n_steps)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        new, loss = trainer.run_round(params, spec, batches)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        tx = trainer.transmitted_params(new, spec)
+        name = "FNU" if spec.is_full else "dec_blocks/0"
+        changed, outside = [], 0
+        for (path, a), (_, old) in zip(tree_paths(new), tree_paths(params)):
+            if spec.is_full:
+                changed.append(not torch.equal(a, old))
+            elif path[0] == "dec_blocks":
+                if not torch.equal(a[1:], old[1:]):
+                    raise AssertionError(f"{'/'.join(path)}: frozen decoder layers changed")
+                changed.append(not torch.equal(a[0], old[0]))
+            elif not torch.equal(a, old):
+                raise AssertionError(f"{'/'.join(path)} changed outside dec_blocks/0")
+            else:
+                outside += 1
+        log(f"[fedtrain_encdec] round {spec.index} {name}: loss {loss:.6f}, {secs:.6f} s, "
+            f"peak device memory {peak:.3f} GiB, tx {tx} params; leaves moved "
+            f"{sum(changed)} of {len(changed)}"
+            + ("" if spec.is_full else
+               f" (layer 0 of each dec_blocks leaf); bit for bit unchanged: the other "
+               f"{cfg.num_layers - 1} layers of each and all {outside} leaves outside "
+               f"dec_blocks"))
+        if not math.isfinite(loss) or not any(changed):
+            raise AssertionError(f"round {spec.index}: loss {loss}, nothing moved")
+        params = new
+    del params, new, batches, trainer
+    torch.cuda.empty_cache()
+
+
 def phase_fedtrain_sim() -> tuple[int, int]:
     """``fedtrain --sim-clients 8 --rounds 12 --batch 32 --fused-adam`` on the
     vmap engine, then the sequential one: cohort launches equal the
@@ -3034,13 +3359,17 @@ def main() -> int:
     ssd_xlstm, xlstm_bodies = _timed(phase_serve_xlstm)
     flash_moe = _timed(phase_serve_moe)
     _timed(phase_serve_mla)
+    flash_encdec = _timed(phase_serve_encdec)
+    flash_vlm = _timed(phase_serve_vlm)
     ssd["launches_by_path"] = {"serve_hybrid": ssd_hybrid, "serve_xlstm": ssd_xlstm}
     ssd["launches"] = ssd_hybrid + ssd_xlstm
     ssd["launches_by_body"] = {"serve_hybrid": hybrid_bodies, "serve_xlstm": xlstm_bodies}
     flash["launches_by_path"] = {"serve": flash_serve, **flash_dense,
-                                 "serve_hybrid": flash_hybrid, "serve_moe": flash_moe}
+                                 "serve_hybrid": flash_hybrid, "serve_moe": flash_moe,
+                                 "serve_encdec": flash_encdec, "serve_vlm": flash_vlm}
     flash["launches"] = sum(flash["launches_by_path"].values())
     _timed(phase_fedtrain_llm)
+    _timed(phase_fedtrain_encdec)
     sim_seq_n, sim_vmap_n = _timed(phase_fedtrain_sim)
     _timed(phase_train_cli)
     _timed(phase_dlg)

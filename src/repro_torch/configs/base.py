@@ -1,15 +1,15 @@
 """Model configuration dataclass + registry (port of ``repro.configs.base``).
 
 ``ModelConfig`` is the reference's dataclass field for field, so a config
-built on either side describes the same model.  The registry holds the
-architectures the port runs: the dense decoders ``tinyllama-1.1b``,
-``llama3.2-1b``, ``gemma-2b`` and ``glm4-9b``, the MoE decoders
-``llama4-maverick-400b-a17b`` and ``deepseek-v3-671b`` (MLA, MTP head),
-``zamba2-7b`` (Mamba2 hybrid), ``xlstm-125m`` (mLSTM / sLSTM pairs) and
-``nlp-transformer`` (the paper's text classifier, ``models/nlp_small.py``),
-full and smoke.  Every other architecture of
-the reference raises ``NotImplementedError`` naming the ROADMAP item that
-ports it.
+built on either side describes the same model.  The registry holds every
+architecture the reference registers, full and smoke: the dense decoders
+``tinyllama-1.1b``, ``llama3.2-1b``, ``gemma-2b`` and ``glm4-9b``, the MoE
+decoders ``llama4-maverick-400b-a17b`` and ``deepseek-v3-671b`` (MLA, MTP
+head), the VLM ``llava-next-34b`` (a decoder behind stub media
+embeddings), the encoder-decoder ``whisper-small``, ``zamba2-7b`` (Mamba2
+hybrid), ``xlstm-125m`` (mLSTM / sLSTM pairs), ``nlp-transformer`` (the
+paper's text classifier, ``models/nlp_small.py``) and the ResNet
+placeholder records.
 """
 
 from __future__ import annotations
@@ -116,13 +116,6 @@ class ModelConfig:
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
 _SMOKE: dict[str, Callable[[], ModelConfig]] = {}
 
-# The reference's architectures still unported (the encoder-decoder and the
-# VLM), and the ROADMAP item that ports each.
-_UNPORTED = {
-    "llava-next-34b": "Queue 1 item 15 (VLM frontends)",
-    "whisper-small": "Queue 1 item 15 (encoder-decoder)",
-}
-
 
 def register(name: str, full: Callable[[], ModelConfig], smoke: Callable[[], ModelConfig]):
     _REGISTRY[name] = full
@@ -133,9 +126,6 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
     _ensure_loaded()
     table = _SMOKE if smoke else _REGISTRY
     if name not in table:
-        if name in _UNPORTED:
-            raise NotImplementedError(
-                f"arch {name!r} is not ported yet: ROADMAP {_UNPORTED[name]}")
         raise KeyError(f"unknown arch {name!r}; available: {sorted(table)}")
     return table[name]()
 
@@ -154,6 +144,7 @@ def _ensure_loaded() -> None:
         return
     from repro_torch.configs import (  # noqa: F401  (register)
         deepseek_v3_671b, gemma_2b, glm4_9b, llama3_2_1b, llama4_maverick_400b_a17b,
-        nlp_transformer, resnet, tinyllama_1_1b, xlstm_125m, zamba2_7b)
+        llava_next_34b, nlp_transformer, resnet, tinyllama_1_1b, whisper_small,
+        xlstm_125m, zamba2_7b)
 
     _LOADED = True

@@ -2,14 +2,20 @@
 ``repro.launch.serve``).
 
 Runs on the card unless asked for the CPU.  With ``impl="kernel"`` every
-GQA prefill attention goes through the CUDA flash-attention kernel (MLA,
+GQA prefill attention goes through the CUDA flash-attention kernel
+(whisper's three: the encoder's, non-causal, the decoder's, causal, and
+the cross-attention, non-causal over the 1,500 encoder frames; MLA,
 ``deepseek-v3-671b``, is plain PyTorch, as in the reference), and every
 Mamba2 prefill scan (``zamba2-7b``) and both scans of every mLSTM layer
 (``xlstm-125m``: values and normaliser) through the CUDA SSD-chunk kernel;
 the sLSTM's loop over time and one-token decode are plain PyTorch, as in
 the reference.  A hybrid's or an xLSTM's prompt length must be a multiple
 of its scan chunk (``ssm_chunk``) or shorter than it, as the reference
-asserts.
+asserts.  A VLM's prompt length counts its media positions
+(``llava-next-34b``: 576 stub patch embeddings, then ``prompt_len - 576``
+tokens); whisper's prompt is its decoder tokens, beside 1,500 stub frames,
+and its prompt plus generated tokens should stay within the 448 learned
+decoder positions (past them, positions wrap, as in the reference).
 
     python -m repro_torch.launch.serve --arch tinyllama-1.1b --device cpu   # smoke size
     python -m repro_torch.launch.serve --arch gemma-2b --device cpu
@@ -19,12 +25,16 @@ asserts.
     python -m repro_torch.launch.serve --arch xlstm-125m --device cpu
     python -m repro_torch.launch.serve --arch llama4-maverick-400b-a17b --device cpu
     python -m repro_torch.launch.serve --arch deepseek-v3-671b --device cpu
+    python -m repro_torch.launch.serve --arch whisper-small --device cpu
+    python -m repro_torch.launch.serve --arch llava-next-34b --device cpu
     python -m repro_torch.launch.serve --arch zamba2-7b --full \\
         --batch 4 --prompt-len 4096 --gen 32          # one H100
     python -m repro_torch.launch.serve --arch gemma-2b --full \\
         --batch 4 --prompt-len 4096 --gen 32          # one H100 (head dim 256)
     python -m repro_torch.launch.serve --arch xlstm-125m --full \\
         --batch 4 --prompt-len 4096 --gen 32          # one H100 (N = P = 192)
+    python -m repro_torch.launch.serve --arch whisper-small --full \\
+        --batch 32 --prompt-len 416 --gen 32          # one H100 (1,500 frames)
 """
 
 from __future__ import annotations
@@ -65,7 +75,9 @@ def serve_session(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0, *,
 
     Without ``params`` / ``prompt`` both are drawn from one generator seeded
     with ``seed`` on ``device`` (params first); tests pass the reference's
-    instead, bridged onto ``device``.
+    instead, bridged onto ``device``.  ``prompt_len`` is the prefill's
+    sequence length, a VLM's media positions included, so decode starts at
+    position ``prompt_len``.
     """
     dev = resolve_device(device)
     rng = torch.Generator(device=dev).manual_seed(seed)
@@ -105,17 +117,16 @@ def serve_session(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0, *,
     return ServeResult(out, step_logits, prefill_s, decode_s)
 
 
-# The reference also grows the encoder-decoder's ("self_k", "self_v")
-# caches; that model is not ported yet (ROADMAP Queue 1 item 15.3).
-_ATTN_CACHE_KEYS = {"k", "v", "c_kv", "k_rope"}
+_ATTN_CACHE_KEYS = {"k", "v", "c_kv", "k_rope", "self_k", "self_v"}
 
 
 def _grow_attention_caches(cache: PyTree, prompt_len: int, cache_len: int) -> PyTree:
     """Pad attention caches (stacked (L,B,S,...) layout, seq axis 2: the
     decoder's ``blocks/{k,v}`` and ``moe_blocks/{k,v}``, MLA's latent
     ``{blocks,moe_blocks}/{c_kv,k_rope}``, the hybrid's
-    ``chunks/attn_kv/{k,v}``) from the prefill length to prompt+gen with
-    zeros.  Other leaves (the Mamba2
+    ``chunks/attn_kv/{k,v}``, the encoder-decoder's ``self_k`` /
+    ``self_v``) from the prefill length to prompt+gen with zeros.  Other
+    leaves (the encoder-decoder's ``cross_k`` / ``cross_v``, the Mamba2
     ``state`` and ``conv``, the mLSTM states, the sLSTM's ``(c, n, h, m)``)
     are untouched."""
 

@@ -20,7 +20,7 @@ here: only the group's tensors require grad, so layers after the group
 get only activation gradients, layers before it no backward at all, and
 the optimizer state covers the group's subtree.  A stacked group's layer
 is handed to the forward as a list of per-layer views with the trained
-layer's tensors in its slot (``transformer._layer``): putting it back into
+layer's tensors in its slot (``layers.layer_slice``): putting it back into
 the stacked tensor for the forward would make every layer's slice require
 grad and bring the whole weight backward back.  The updated layer goes
 into a new stacked tensor at the end (cast to the stack's dtype, as the
@@ -61,7 +61,7 @@ def _layers(stack: PyTree) -> list[PyTree]:
 
 def _view_map(fn, view: PyTree) -> PyTree:
     """``tree_map`` over a tree whose top-level values may be lists of
-    per-layer trees (``transformer._layer`` reads either form)."""
+    per-layer trees (``layers.layer_slice`` reads either form)."""
     return {k: [tree_map(fn, t) for t in v] if isinstance(v, list) else tree_map(fn, v)
             for k, v in sorted(view.items())}
 

@@ -22,8 +22,44 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.tree import PyTree
+from repro_torch.tree import PyTree, tree_map
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def param_dtype(cfg) -> torch.dtype:
+    """The dtype of a model config's parameters."""
+    return _DTYPES[cfg.param_dtype]
+
+
+def act_dtype(cfg) -> torch.dtype:
+    """The dtype of a model config's activations."""
+    return _DTYPES[cfg.activation_dtype]
+
+
+def layer_slice(stack: PyTree | list[PyTree], i: int) -> PyTree:
+    """Layer ``i`` of a stack: the ``[i]`` slices of a stacked tree, or item
+    ``i`` of a list of per-layer trees."""
+    if isinstance(stack, list):
+        return stack[i]
+    return tree_map(lambda a: a[i], stack)
+
+
+def maybe_remat(fn, remat: bool, *args):
+    """``fn(*args)``; with ``remat`` its activations are recomputed in the
+    backward instead of kept (non-reentrant ``torch.utils.checkpoint``; the
+    recomputation repeats the same ops, so values and gradients are
+    unchanged)."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def stack_layers(trees: list[PyTree], lead: tuple[int, ...]) -> PyTree:
+    """Stack same-structure trees on new leading axes ``lead``."""
+    return tree_map(lambda *xs: torch.stack(xs).reshape(*lead, *xs[0].shape), *trees)
 
 
 def _lead(n: int | tuple[int, ...] | None) -> tuple[int, ...]:
@@ -32,9 +68,17 @@ def _lead(n: int | tuple[int, ...] | None) -> tuple[int, ...]:
     return n if isinstance(n, tuple) else (n,)
 
 
-def _normal(gen: torch.Generator, shape, std: float, dtype, device) -> torch.Tensor:
-    x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-    return x.mul_(std).to(dtype)
+def normal_init(gen: torch.Generator, shape, std: float, dtype, device) -> torch.Tensor:
+    """N(0, std²) of ``shape`` in ``dtype``, drawn one matrix (the last two
+    axes) at a time, so the f32 draw never holds more than one layer's or
+    one expert's matrix: a whole f32 draw of LLaVA-NeXT-34B's stacked
+    (60, 7,168, 20,480) ``w_gate`` would be 35.2 GB."""
+    shape = tuple(shape)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for sub in out.reshape(-1, *shape[-2:]):
+        sub.copy_(torch.randn(shape[-2:], generator=gen, device=device,
+                              dtype=torch.float32).mul_(std))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -84,7 +128,7 @@ def norm_apply(kind: str, params: PyTree, x: torch.Tensor) -> torch.Tensor:
 
 def linear_init(gen: torch.Generator, d_in: int, d_out: int, dtype, device,
                 bias: bool = False, n: int | None = None) -> PyTree:
-    p = {"w": _normal(gen, _lead(n) + (d_in, d_out), 1.0 / math.sqrt(d_in),
+    p = {"w": normal_init(gen, _lead(n) + (d_in, d_out), 1.0 / math.sqrt(d_in),
                       dtype, device)}
     if bias:
         p["b"] = torch.zeros(_lead(n) + (d_out,), dtype=dtype, device=device)
@@ -100,7 +144,7 @@ def linear(params: PyTree, x: torch.Tensor) -> torch.Tensor:
 
 def embedding_init(gen: torch.Generator, vocab: int, d: int, dtype,
                    device) -> PyTree:
-    return {"table": _normal(gen, (vocab, d), 0.02, dtype, device)}
+    return {"table": normal_init(gen, (vocab, d), 0.02, dtype, device)}
 
 
 def embed(params: PyTree, ids: torch.Tensor, dtype=None) -> torch.Tensor:

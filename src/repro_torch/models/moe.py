@@ -41,7 +41,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import _lead, linear_init, mlp_apply, mlp_init
+from repro_torch.models.layers import _lead, linear_init, mlp_apply, mlp_init, normal_init
 from repro_torch.tree import PyTree
 
 # profiler labels of an MoE layer's parts, in the order they run
@@ -51,19 +51,6 @@ MOE_EXPERTS = "moe_experts"       # the three batched expert GEMMs and SwiGLU
 MOE_COMBINE = "moe_combine"       # gather, gate weighting, sum over k
 MOE_SHARED = "moe_shared"         # the shared expert's MLP
 PROFILE_LABELS = (MOE_ROUTE, MOE_DISPATCH, MOE_EXPERTS, MOE_COMBINE, MOE_SHARED)
-
-
-def _normal_per_expert(gen: torch.Generator, shape: tuple[int, ...], std: float,
-                       dtype, device) -> torch.Tensor:
-    """N(0, std²) of ``shape`` in ``dtype``, drawn one expert (the axis
-    before the last two) at a time, so the f32 draw never holds more than
-    one expert's matrix: an f32 copy of Llama-4's (128, 5,120, 8,192) would
-    be 21.5 GB beside its 10.7 GB of bf16."""
-    out = torch.empty(shape, dtype=dtype, device=device)
-    for sub in out.reshape(-1, *shape[-2:]):
-        sub.copy_(torch.randn(shape[-2:], generator=gen, device=device,
-                              dtype=torch.float32).mul_(std))
-    return out
 
 
 def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype, device,
@@ -77,12 +64,11 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype, device,
     p: PyTree = {
         "router": linear_init(gen, d, e, dtype, device, n=n),
         "experts": {
-            "w_gate": _normal_per_expert(gen, lead + (e, d, f), 1.0 / math.sqrt(d),
-                                         dtype, device),
-            "w_up": _normal_per_expert(gen, lead + (e, d, f), 1.0 / math.sqrt(d),
-                                       dtype, device),
-            "w_down": _normal_per_expert(gen, lead + (e, f, d), 1.0 / math.sqrt(f),
-                                         dtype, device),
+            # drawn one expert at a time (``normal_init``): a whole f32 draw of
+            # Llama-4's (128, 5,120, 8,192) would be 21.5 GB beside its 10.7 GB
+            "w_gate": normal_init(gen, lead + (e, d, f), 1.0 / math.sqrt(d), dtype, device),
+            "w_up": normal_init(gen, lead + (e, d, f), 1.0 / math.sqrt(d), dtype, device),
+            "w_down": normal_init(gen, lead + (e, f, d), 1.0 / math.sqrt(f), dtype, device),
         },
     }
     if cfg.num_shared_experts > 0:

@@ -20,9 +20,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (_normal, embed, embedding_init, linear,
-                                       linear_init, mlp_apply, mlp_init,
-                                       norm_apply, norm_init)
+from repro_torch.models.layers import (embed, embedding_init, linear, linear_init,
+                                       mlp_apply, mlp_init, norm_apply, norm_init,
+                                       normal_init)
 from repro_torch.tree import PyTree
 
 
@@ -35,7 +35,7 @@ def nlp_init(gen: torch.Generator, cfg: ModelConfig, num_classes: int,
     params: PyTree = {
         "embed": {
             **embedding_init(gen, cfg.vocab_size, d, dt, device),
-            "pos": _normal(gen, (cfg.max_position_embeddings, d), 0.01, dt, device),
+            "pos": normal_init(gen, (cfg.max_position_embeddings, d), 0.01, dt, device),
         },
         "blocks": {},
         "head": {

@@ -16,41 +16,23 @@ eagerly; there is nothing to trace), and its ``remat`` (``jax.checkpoint``
 around the scan body) is ``torch.utils.checkpoint`` around each iteration
 of that loop: a decoder block, an xLSTM pair, a hybrid chunk (shared block
 + its Mamba2 blocks), a tail Mamba2 block.  A forward may also be handed a stack as a
-list of per-layer trees (``_layer``): the partial train step does, so that
+list of per-layer trees (``layers.layer_slice``): the partial train step does, so that
 only the trained layer's tensors require grad.
 """
 
 from __future__ import annotations
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm
-from repro_torch.models.layers import (embed, embedding_init, linear, linear_init,
-                                       mlp_apply, mlp_init, norm_apply, norm_init,
-                                       unembed)
+from repro_torch.models.layers import (act_dtype, embed, embedding_init, layer_slice,
+                                       linear, linear_init, maybe_remat, mlp_apply,
+                                       mlp_init, norm_apply, norm_init, param_dtype,
+                                       stack_layers, unembed)
 from repro_torch.tree import PyTree, tree_map
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def _dtype(cfg: ModelConfig) -> torch.dtype:
-    return _DTYPES[cfg.param_dtype]
-
-
-def _act_dtype(cfg: ModelConfig) -> torch.dtype:
-    return _DTYPES[cfg.activation_dtype]
-
-
-def _ported(cfg: ModelConfig) -> None:
-    """Raises for what the port does not run yet."""
-    if cfg.kind not in ("decoder", "xlstm", "hybrid"):
-        raise NotImplementedError(
-            f"model kind {cfg.kind!r} is not ported yet: ROADMAP Queue 1 item 15")
-
 
 # ---------------------------------------------------------------------------
 # Decoder block
@@ -61,7 +43,7 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, device,
     """One block's params (GQA or MLA attention; a dense MLP or, with
     ``use_moe``, the MoE layer), or ``n`` of them stacked on a leading
     axis."""
-    dt = _dtype(cfg)
+    dt = param_dtype(cfg)
     p: PyTree = {
         "attn_norm": norm_init(cfg.norm_kind, cfg.d_model, dt, device, n),
         "mlp_norm": norm_init(cfg.norm_kind, cfg.d_model, dt, device, n),
@@ -135,29 +117,6 @@ def block_decode(
     return x + y, new_cache
 
 
-def _layer(stack: PyTree | list[PyTree], i: int) -> PyTree:
-    """Layer ``i`` of a stack: the ``[i]`` slices of a stacked tree, or item
-    ``i`` of a list of per-layer trees."""
-    if isinstance(stack, list):
-        return stack[i]
-    return tree_map(lambda a: a[i], stack)
-
-
-def _call(fn, remat: bool, *args):
-    """``fn(*args)``; with ``remat`` its activations are recomputed in the
-    backward instead of kept (non-reentrant ``torch.utils.checkpoint``; the
-    recomputation repeats the same ops, so values and gradients are
-    unchanged)."""
-    if remat:
-        return checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
-
-
-def _stack(trees: list[PyTree], lead: tuple[int, ...]) -> PyTree:
-    """Stack same-structure trees on new leading axes ``lead``."""
-    return tree_map(lambda *xs: torch.stack(xs).reshape(*lead, *xs[0].shape), *trees)
-
-
 # ---------------------------------------------------------------------------
 # Decoder-only model
 # ---------------------------------------------------------------------------
@@ -180,8 +139,7 @@ def _stacks(cfg: ModelConfig) -> list[tuple[str, int, bool]]:
 def decoder_init(gen: torch.Generator, cfg: ModelConfig, device) -> PyTree:
     """Random params from ``gen`` (the reference's distributions; not its
     numbers), on ``device``."""
-    _ported(cfg)
-    dt = _dtype(cfg)
+    dt = param_dtype(cfg)
     params: PyTree = {
         "embed": embedding_init(gen, cfg.vocab_size, cfg.d_model, dt, device),
         "final_norm": norm_init(cfg.norm_kind, cfg.d_model, dt, device),
@@ -200,7 +158,7 @@ def decoder_init(gen: torch.Generator, cfg: ModelConfig, device) -> PyTree:
 
 
 def _embed_inputs(params, cfg, tokens, media_embeds):
-    x = embed(params["embed"], tokens, _act_dtype(cfg))
+    x = embed(params["embed"], tokens, act_dtype(cfg))
     if media_embeds is not None:
         x = torch.cat([media_embeds.to(x.dtype), x], dim=1)
     return x
@@ -233,11 +191,12 @@ def decoder_forward(
     stack, ``(L, B, S, Hkv, D)`` K/V or MLA's ``(L, B, S, kv_lora_rank)``
     ``c_kv`` and ``(L, B, S, rope)`` ``k_rope``; aux the MoE blocks' summed
     load-balance losses, plus, with ``labels`` and an ``mtp`` head,
-    ``MTP_WEIGHT`` × the head's next-next-token loss.  ``window`` > 0
+    ``MTP_WEIGHT`` × the head's next-next-token loss.  A VLM's
+    ``media_embeds`` (B, num_media_tokens, d_model) take the sequence's
+    leading positions, so logits and caches cover media + tokens.  ``window`` > 0
     applies sliding-window attention.  ``remat`` recomputes each block's
     activations in the backward.
     """
-    _ported(cfg)
     x = _embed_inputs(params, cfg, tokens, media_embeds)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
@@ -251,12 +210,15 @@ def decoder_forward(
 
         kvs = []
         for i in range(n):
-            x, kv, aux = _call(body, remat, _layer(params[key], i), x)
+            x, kv, aux = maybe_remat(body, remat, layer_slice(params[key], i), x)
             aux_total = aux_total + aux
             if collect_cache:
                 kvs.append(kv)
         if collect_cache:
-            caches[key] = _stack(kvs, (n,))
+            caches[key] = stack_layers(kvs, (n,))
+        # the stack holds copies: free the per-layer K / V before the logits
+        # head (LLaVA-NeXT-34B at B 4 x 4,096: 67 MB a layer)
+        del kvs
 
     x = norm_apply(cfg.norm_kind, params["final_norm"], x)
     logits = _logits(params, cfg, x)
@@ -288,12 +250,12 @@ def decoder_decode_step(
 ) -> tuple[torch.Tensor, PyTree]:
     """One-token serve step against the KV (or MLA latent) cache, which it
     updates in place (the returned cache is the same tensors)."""
-    _ported(cfg)
-    x = embed(params["embed"], token, _act_dtype(cfg))
+    x = embed(params["embed"], token, act_dtype(cfg))
     for key, n, use_moe in _stacks(cfg):
         for i in range(n):
-            x, _ = block_decode(_layer(params[key], i), cfg, x, _layer(cache[key], i), pos,
-                                window=window, use_moe=use_moe)
+            x, _ = block_decode(layer_slice(params[key], i), cfg, x,
+                                layer_slice(cache[key], i), pos, window=window,
+                                use_moe=use_moe)
     x = norm_apply(cfg.norm_kind, params["final_norm"], x)
     return _logits(params, cfg, x), cache
 
@@ -302,7 +264,6 @@ def decoder_cache_init(cfg: ModelConfig, batch: int, cache_len: int, dtype,
                        device) -> PyTree:
     """Zero caches per block stack: K/V ``(L, B, W, Hkv, D)``, or MLA's
     latent ``c_kv (L, B, W, kv_lora_rank)`` and ``k_rope (L, B, W, rope)``."""
-    _ported(cfg)
     if cfg.use_mla:
         widths = {"c_kv": (cfg.kv_lora_rank,), "k_rope": (cfg.qk_rope_head_dim,)}
     else:
@@ -327,8 +288,7 @@ def _n_pairs(cfg: ModelConfig) -> int:
 def xlstm_init(gen: torch.Generator, cfg: ModelConfig, device) -> PyTree:
     """Random params from ``gen`` (the reference's distributions), on
     ``device``; the pairs stacked on one leading axis."""
-    _ported(cfg)
-    dt = _dtype(cfg)
+    dt = param_dtype(cfg)
     n = _n_pairs(cfg)
     return {
         "embed": embedding_init(gen, cfg.vocab_size, cfg.d_model, dt, device),
@@ -361,8 +321,7 @@ def xlstm_forward(
     reference's stacked layout: ``mlstm/{state,n_state}`` (pairs, B, H, P,
     ·) and ``slstm`` the tuple (c, n, h, m) of (pairs, B, heads, hdim).
     """
-    _ported(cfg)
-    x = embed(params["embed"], tokens, _act_dtype(cfg))
+    x = embed(params["embed"], tokens, act_dtype(cfg))
 
     def pair(p, x):
         h, m_cache = ssm.mlstm_forward(p["mlstm"], cfg,
@@ -375,12 +334,12 @@ def xlstm_forward(
     n = _n_pairs(cfg)
     caches = []
     for i in range(n):
-        x, c = _call(pair, remat, _layer(params["pairs"], i), x)
+        x, c = maybe_remat(pair, remat, layer_slice(params["pairs"], i), x)
         if collect_cache:
             caches.append(c)
     x = norm_apply(cfg.norm_kind, params["final_norm"], x)
     logits = _logits(params, cfg, x)
-    return (logits, _stack(caches, (n,)) if collect_cache else None,
+    return (logits, stack_layers(caches, (n,)) if collect_cache else None,
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 
@@ -394,11 +353,10 @@ def xlstm_decode_step(
     """One-token serve step; writes each pair's new mLSTM states and sLSTM
     (c, n, h, m) into ``cache`` in place (the returned cache is the same
     tensors).  ``pos`` is unused: the recurrent state carries it."""
-    _ported(cfg)
     del pos
-    x = embed(params["embed"], token, _act_dtype(cfg))
+    x = embed(params["embed"], token, act_dtype(cfg))
     for i in range(_n_pairs(cfg)):
-        p, c = _layer(params["pairs"], i), _layer(cache, i)
+        p, c = layer_slice(params["pairs"], i), layer_slice(cache, i)
         h, mc = ssm.mlstm_decode(p["mlstm"], cfg, norm_apply(cfg.norm_kind, p["m_norm"], x),
                                  c["mlstm"])
         x = x + h
@@ -413,7 +371,6 @@ def xlstm_decode_step(
 def xlstm_cache_init(cfg: ModelConfig, batch: int, dtype, device) -> PyTree:
     """A fresh cache, the pairs stacked: mLSTM states zero in ``dtype``,
     the sLSTM's (c, n, h) zero in ``dtype`` and m at ``ssm.M_INIT`` in f32."""
-    _ported(cfg)
     n = _n_pairs(cfg)
     return {"mlstm": ssm.mlstm_cache_init(cfg, batch, dtype, device, n),
             "slstm": ssm.slstm_cache_init(cfg, batch, dtype, device, n)}
@@ -432,7 +389,7 @@ def hybrid_layout(cfg: ModelConfig) -> tuple[int, int]:
 
 
 def _mamba_layers_init(gen, cfg: ModelConfig, device, n) -> PyTree:
-    dt = _dtype(cfg)
+    dt = param_dtype(cfg)
     return {"norm": norm_init(cfg.norm_kind, cfg.d_model, dt, device, n),
             "mamba": ssm.mamba2_init(gen, cfg, dt, device, n)}
 
@@ -440,8 +397,7 @@ def _mamba_layers_init(gen, cfg: ModelConfig, device, n) -> PyTree:
 def hybrid_init(gen: torch.Generator, cfg: ModelConfig, device) -> PyTree:
     """Random params from ``gen`` (the reference's distributions), on
     ``device``; ``"tail"`` only when there are leftover mamba blocks."""
-    _ported(cfg)
-    dt = _dtype(cfg)
+    dt = param_dtype(cfg)
     n_chunks, tail = hybrid_layout(cfg)
     params: PyTree = {
         "embed": embedding_init(gen, cfg.vocab_size, cfg.d_model, dt, device),
@@ -479,8 +435,7 @@ def hybrid_forward(
     Hkv, D), ``chunks/mamba/{state,conv}`` (n_chunks, attn_every, B, ...),
     ``tail/{state,conv}`` (tail, B, ...) where the model has a tail.
     """
-    _ported(cfg)
-    x = embed(params["embed"], tokens, _act_dtype(cfg))
+    x = embed(params["embed"], tokens, act_dtype(cfg))
     x0 = x
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
@@ -501,27 +456,27 @@ def hybrid_forward(
         x = x + y
         mcs = []
         for j in range(per):
-            x, mc = mamba(_layer(chunk, j), x)
+            x, mc = mamba(layer_slice(chunk, j), x)
             mcs.append(mc)
         return x, kv, mcs
 
     for c in range(n_chunks):
-        x, kv, mcs = _call(chunk_body, remat, _layer(params["chunks"], c), x)
+        x, kv, mcs = maybe_remat(chunk_body, remat, layer_slice(params["chunks"], c), x)
         if collect_cache:
             chunk_mc.extend(mcs)
             kvs.append(kv)
     for j in range(tail):
-        x, mc = _call(mamba, remat, _layer(params["tail"], j), x)
+        x, mc = maybe_remat(mamba, remat, layer_slice(params["tail"], j), x)
         if collect_cache:
             tail_mc.append(mc)
     x = norm_apply(cfg.norm_kind, params["final_norm"], x)
     logits = _logits(params, cfg, x)
     caches = None
     if collect_cache:
-        caches = {"chunks": {"attn_kv": _stack(kvs, (n_chunks,)),
-                             "mamba": _stack(chunk_mc, (n_chunks, per))}}
+        caches = {"chunks": {"attn_kv": stack_layers(kvs, (n_chunks,)),
+                             "mamba": stack_layers(chunk_mc, (n_chunks, per))}}
         if tail > 0:
-            caches["tail"] = _stack(tail_mc, (tail,))
+            caches["tail"] = stack_layers(tail_mc, (tail,))
     return logits, caches, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -547,29 +502,29 @@ def hybrid_decode_step(
 ) -> tuple[torch.Tensor, PyTree]:
     """One-token serve step; updates the KV caches and the Mamba2 states in
     place (the returned cache is the same tensors)."""
-    _ported(cfg)
-    x = embed(params["embed"], token, _act_dtype(cfg))
+    x = embed(params["embed"], token, act_dtype(cfg))
     x0 = x
     n_chunks, tail = hybrid_layout(cfg)
     per = max(cfg.attn_every, 1)
     shared = params["shared_attn"]
     for c in range(n_chunks):
         h = linear(shared["in_proj"], torch.cat([x, x0], dim=-1))
-        y, _ = block_decode(shared["block"], cfg, h, _layer(cache["chunks"]["attn_kv"], c),
-                            pos, window=window)
+        y, _ = block_decode(shared["block"], cfg, h,
+                            layer_slice(cache["chunks"]["attn_kv"], c), pos, window=window)
         x = x + y
-        chunk, mcache = _layer(params["chunks"], c), _layer(cache["chunks"]["mamba"], c)
+        chunk = layer_slice(params["chunks"], c)
+        mcache = layer_slice(cache["chunks"]["mamba"], c)
         for j in range(per):
-            x = _mamba_decode_into(_layer(chunk, j), cfg, x, _layer(mcache, j))
+            x = _mamba_decode_into(layer_slice(chunk, j), cfg, x, layer_slice(mcache, j))
     for j in range(tail):
-        x = _mamba_decode_into(_layer(params["tail"], j), cfg, x, _layer(cache["tail"], j))
+        x = _mamba_decode_into(layer_slice(params["tail"], j), cfg, x,
+                               layer_slice(cache["tail"], j))
     x = norm_apply(cfg.norm_kind, params["final_norm"], x)
     return _logits(params, cfg, x), cache
 
 
 def hybrid_cache_init(cfg: ModelConfig, batch: int, cache_len: int, dtype,
                       device) -> PyTree:
-    _ported(cfg)
     n_chunks, tail = hybrid_layout(cfg)
     per = max(cfg.attn_every, 1)
     shape = (n_chunks, batch, cache_len, cfg.num_kv_heads, cfg.resolved_head_dim)

@@ -1,9 +1,9 @@
 """The port's Zamba2 hybrid against the JAX package's, on bridged
 ``zamba2-7b`` smoke params in f32 on the CPU.
 
-* configs: the port's ``zamba2-7b`` equals the reference's, field for field;
-  ``whisper-small`` (encoder-decoder, not ported) still raises naming its
-  ROADMAP item;
+* configs: the port's ``zamba2-7b`` equals the reference's, field for field,
+  and so does ``whisper-small``; a model kind neither package knows raises
+  ``ValueError`` in both;
 * ``hybrid_forward`` logits and stacked caches (``impl="kernel"``, which on
   the CPU runs the kernels' plain versions, and ``impl="plain"``) against
   the reference's ``impl="xla"`` forward; ``hybrid_decode_step`` against
@@ -87,8 +87,8 @@ def test_configs_equal_the_reference():
         assert dataclasses.asdict(j_get_config("zamba2-7b", smoke=smoke)) == \
             dataclasses.asdict(get_config("zamba2-7b", smoke=smoke))
     assert "zamba2-7b" in available_archs()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 15"):
-        get_config("whisper-small")
+    assert dataclasses.asdict(get_config("whisper-small")) == \
+        dataclasses.asdict(j_get_config("whisper-small"))
 
 
 @pytest.mark.parametrize("impl", ["kernel", "plain"])
@@ -200,10 +200,17 @@ def test_serve_draws_its_own_weights_and_runs_from_the_cli(capsys):
 
 
 def test_unported_kinds_still_raise():
-    cfg = j_get_config("whisper-small", smoke=True)
-    assert cfg.kind == "encdec"
+    """Every kind the reference runs is ported; a kind neither package knows
+    raises ``ValueError`` from each dispatch in both."""
+    cfg = j_get_config("whisper-small", smoke=True).with_(kind="seq2seq")
+    tok = np.zeros((1, 1), np.int32)
     for call in (lambda: api.init(torch.Generator(), cfg, "cpu"),
                  lambda: api.cache_init(cfg, 1, 4, torch.float32, "cpu"),
-                 lambda: transformer.hybrid_init(torch.Generator(), cfg, "cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+                 lambda: api.forward({}, cfg, {"tokens": torch.from_numpy(tok)}),
+                 lambda: api.decode_step({}, cfg, torch.from_numpy(tok), {}, 0),
+                 lambda: japi.init(jax.random.key(0), cfg),
+                 lambda: japi.cache_init(cfg, 1, 4, jnp.float32),
+                 lambda: japi.forward({}, cfg, {"tokens": tok}),
+                 lambda: japi.decode_step({}, cfg, tok, {}, jnp.int32(0))):
+        with pytest.raises(ValueError):
             call()

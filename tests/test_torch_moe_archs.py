@@ -7,8 +7,8 @@ On the smoke configs in f32 with the reference's params
 (``api.init(jax.random.key(seed))``) bridged, and DeepSeek also with
 ``with_(mtp_depth=1)`` in both packages:
 
-* the configs equal the reference's, full and smoke; whisper-small and
-  llava-next-34b still raise naming ROADMAP item 15;
+* the configs equal the reference's, full and smoke (whisper-small's and
+  llava-next-34b's too);
 * the port's own init has the reference's tree, shapes and dtypes (f32
   and bf16), and so has its decode cache (MLA's latent ``c_kv`` /
   ``k_rope``);
@@ -90,8 +90,8 @@ def test_configs_equal_the_reference(arch):
             dataclasses.asdict(j_get_config(arch, smoke=smoke))
     assert arch in available_archs()
     for name in ("whisper-small", "llava-next-34b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 15"):
-            get_config(name)
+        assert dataclasses.asdict(get_config(name)) == \
+            dataclasses.asdict(j_get_config(name))
 
 
 def test_full_sizes_are_the_served_ones():

@@ -61,8 +61,8 @@ def test_configs_equal_the_reference():
         a = dataclasses.asdict(j_get_config("tinyllama-1.1b", smoke=smoke_))
         b = dataclasses.asdict(get_config("tinyllama-1.1b", smoke=smoke_))
         assert a == b
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("whisper-small")
+    assert dataclasses.asdict(get_config("whisper-small")) == \
+        dataclasses.asdict(j_get_config("whisper-small"))
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 

@@ -1,11 +1,13 @@
 """Cases shared by ``test_torch_steps.py`` (``tinyllama-1.1b``),
 ``test_torch_steps_hybrid.py`` (``zamba2-7b``), ``test_torch_steps_xlstm.py``
-(``xlstm-125m``), ``test_torch_steps_moe.py`` (``llama4-maverick-400b-a17b``)
-and ``test_torch_steps_mtp.py`` (``deepseek-v3-671b`` with its MTP head):
+(``xlstm-125m``), ``test_torch_steps_moe.py`` (``llama4-maverick-400b-a17b``),
+``test_torch_steps_mtp.py`` (``deepseek-v3-671b`` with its MTP head),
+``test_torch_steps_encdec.py`` (``whisper-small``: batches carry frames)
+and ``test_torch_steps_vlm.py`` (``llava-next-34b``: batches carry media):
 each file imports them and provides the fixtures ``setup``
-(``make_setup(arch)``), ``expected_groups`` and ``group_kind``; the MoE
-files also call ``check_mesh_trainer_rounds``.  What they hold and at which
-tolerance is in those files' docstrings."""
+(``make_setup(arch)``), ``expected_groups`` and ``group_kind``; the MoE,
+encoder-decoder and VLM files also call ``check_mesh_trainer_rounds``.
+What they hold and at which tolerance is in those files' docstrings."""
 
 import jax
 import numpy as np
@@ -33,15 +35,28 @@ EPS = 1e-3
 LR = 1e-3    # AdamConfig and FLRunConfig default
 
 
+def numpy_batch(cfg, rng: np.random.Generator, b: int, s: int) -> dict:
+    """Tokens and labels (b, s), and the stub frontend's inputs the config
+    takes: whisper's frames (b, encoder_seq, d), a VLM's media (b, n_media,
+    d), ahead of the s tokens."""
+    batch = {k: rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    if cfg.kind == "encdec":
+        batch["frames"] = rng.standard_normal(
+            (b, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    if cfg.num_media_tokens > 0:
+        batch["media"] = rng.standard_normal(
+            (b, cfg.num_media_tokens, cfg.d_model)).astype(np.float32)
+    return batch
+
+
 def make_setup(arch: str, **overrides):
     """``(arch, ref cfg, port cfg, ref params as numpy, numpy batch)``;
     ``overrides`` go to both configs' ``with_``."""
     jcfg = j_get_config(arch, smoke=True).with_(**overrides)
     cfg = get_config(arch, smoke=True).with_(**overrides)
     jparams = jax.tree.map(np.asarray, japi.init(jax.random.key(0), jcfg))
-    rng = np.random.default_rng(7)
-    batch = {k: rng.integers(0, jcfg.vocab_size, (4, 32)).astype(np.int32)
-             for k in ("tokens", "labels")}
+    batch = numpy_batch(jcfg, np.random.default_rng(7), 4, 32)
     return arch, jcfg, cfg, jparams, batch
 
 
@@ -170,8 +185,7 @@ def check_mesh_trainer_rounds(setup, group: int):
         jspec = JRoundSpec(spec.index, spec.phase, spec.cycle, spec.group)
         assert trainer.transmitted_params(params, spec) == \
             jtrainer.transmitted_params(jp, jspec), spec
-        batches = [{k: rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
-                    for k in ("tokens", "labels")} for _ in range(2)]
+        batches = [numpy_batch(cfg, rng, 2, 16) for _ in range(2)]
         jp, jl = jtrainer.run_round(jp, jspec, batches)
         params, loss = trainer.run_round(params, spec,
                                          [bridge.from_numpy_tree(b) for b in batches])
