@@ -174,7 +174,11 @@ Phases, in order; any failure raises and the script exits non-zero:
               against plain PyTorch, every step's logits within 1e-3 and the
               same tokens.  Not held against the reference, whose mLSTM
               returns NaN at chunk 128 (``ROADMAP.md`` Queue 3).
-   serve_moe — ``serve_session`` on llama4-maverick-400b-a17b at full width
+   serve_moe — the f32 cross-check first (full width, cut to 2 layers and
+              8 experts, B 4 x 512, 4 tokens, TF32 off: kernel vs plain
+              attention, every step's logits within 1e-3, the same tokens
+              and no router choice differing), then
+              ``serve_session`` on llama4-maverick-400b-a17b at full width
               (d_model 5,120, 40 / 8 heads of 128, 128 experts of 8,192
               top-1 plus a shared one, vocab 202,048), cut to 1 of its 48
               layers (one MoE layer is 32.6 GB in bf16), bf16, random
@@ -183,17 +187,27 @@ Phases, in order; any failure raises and the script exits non-zero:
               128; the expert products are cuBLAS batched GEMMs.  One
               prefill under ``torch.profiler``, split by the MoE layer's
               labelled parts (router, dispatch, experts, combine, shared
-              expert).  Then the f32 cross-check at full width, cut to 2
-              layers and 8 experts (B 4 x 512, 4 tokens, TF32 off): kernel
-              vs plain attention, every step's logits within 1e-3, the same
-              tokens and no router choice differing.
+              expert).
+   serve_moe_ep — expert parallelism (``models.moe_ep``) on serve_moe's
+              weights and prompt at mesh (1, 1) over a one-rank NCCL group:
+              one flash launch per layer at D 128; the prefill logits and
+              every step's logits and tokens equal serve_moe's (bit-equal
+              expected; fails past 1e-3 or on a token); one all-reduce per
+              MoE layer per prefill, 167,772,160 B; prefill seconds beside
+              serve_moe's; the dry run's activation peak beside the card's
+              (B 4 with flash, B 1 plain); then at 2 layers / 8 experts in
+              f32 ``api.loss``'s gradients with and without expert
+              parallelism, each leaf within 1e-5 of its largest |gradient|.
    serve_mla — ``serve_session`` on deepseek-v3-671b at full width (MLA,
               256 experts of 2,048 top-8 plus a shared one), cut to its 3
               dense layers and the first MoE layer of 61, plus the MTP
               module, bf16, B 1 x 4,096 prompt (MLA's f32 scores are 8.6 GB
               a copy), 32 tokens: no flash and no SSD launch (MLA has no
               kernel, in the reference or here).  One prefill under
-              ``torch.profiler``.  On the same weights one FedPart step on
+              ``torch.profiler``.  The prefill under FSDP expert
+              parallelism at (1, 1) (the weight all-gathers run) equals the
+              non-EP prefill; the dry run's activation peak beside the
+              card's.  On the same weights one FedPart step on
               the ``mtp`` group (B 1 x 1,024 with labels): the loss and its
               MTP term finite and positive, every leaf outside ``mtp/*``
               bit for bit unchanged (word sums), seconds and peak memory.
@@ -259,6 +273,14 @@ Phases, in order; any failure raises and the script exits non-zero:
               the full observation and group 0's; PSNR and ms per iteration;
               fails on NaN.
 
+Every serve phase checks the dry run's per-device parameter residency at
+mesh (1, 1) (``launch.dryrun.param_residency``) against the bytes of the
+params on the card, equal to the byte.  At (1, 1) every placement is
+whole, so this shows only that the fake init's shapes and dtypes are the
+card's; the placements themselves are held on the CPU
+(``tests/test_torch_sharding.py``, ``per_device_bytes`` against the
+reference's specs).
+
 Each phase logs its host seconds (``[time]``).  The line before the last
 carries ``nvidia-smi``'s name and power limit, the
 one before it the ``kernels`` JSON (the masked-Adam entries count their
@@ -267,8 +289,8 @@ one-client launches, ``fedpart_vmap``, ``fedpart_shard``, ``nlp``,
 ``compress``, ``async`` and ``fedtrain_sim`` for the cohort launches; the
 SSD entry by path, ``serve_hybrid`` and ``serve_xlstm``, and by body within
 each, with the xLSTM layer's two scans beside Zamba2's layer; the flash
-entry by path, ``serve_moe``, ``serve_encdec`` and ``serve_vlm`` among
-them, with Zamba2's, Gemma's, Llama-4's, whisper's encoder, decoder and cross
+entry by path, ``serve_moe``, ``serve_moe_ep``, ``serve_encdec`` and
+``serve_vlm`` among them, with Zamba2's, Gemma's, Llama-4's, whisper's encoder, decoder and cross
 and LLaVA's layers beside TinyLlama's); the last line is the ``ok`` JSON.
 """
 
@@ -394,6 +416,14 @@ SERVE_VLM_F32_LAYERS = 4
 SERVE_MOE_LAYERS = 1
 # its f32 cross-check: one full layer's f32 weights are 65 GB
 SERVE_MOE_F32 = {"num_layers": 2, "num_experts": 8}
+# The sharded-model layer on one card (a one-rank NCCL group, mesh (1, 1)):
+# expert parallelism's f32 gradients at SERVE_MOE_F32, B 2 x 256 with labels,
+# each leaf within EP_GRAD_TOL of its largest |gradient| without EP; the
+# dry run's activation peak beside the card's for a plain-attention prefill
+# at B PEAK_BATCH x 4,096 (at B 4 Llama-4's plain f32 scores would pass 80 GB)
+EP_GRAD_TOL = 1e-5
+EP_GRAD_BATCH = (2, 256)
+PEAK_BATCH = 1
 # DeepSeek-V3: the 3 dense layers and the first MoE layer, plus the MTP module
 # (15.8 G params, 31.6 GB in bf16); B 1, since MLA's f32 (B, 128, S, S)
 # scores are 8.6 GB a copy at B 1 x 4,096
@@ -1498,6 +1528,26 @@ def phase_fedpart_vmap(seq_medians: dict) -> tuple[int, dict]:
                       for name, res in results.items()}
 
 
+@contextlib.contextmanager
+def _one_rank_group():
+    """A one-rank NCCL default process group on card 0 (its store in a
+    temporary directory), destroyed on exit."""
+    import shutil
+    import tempfile
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                            rank=0, world_size=1, timeout=timedelta(seconds=120),
+                            device_id=torch.device("cuda", 0))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def phase_fedpart_shard(vmap_secs: dict) -> int:
     """``fedpart``'s runs through ``engine="shard_map"`` at world size 1,
     over a one-rank NCCL group initialised here: each bucket-step one
@@ -1511,9 +1561,6 @@ def phase_fedpart_shard(vmap_secs: dict) -> int:
     rounds in turns, and one FNU round of each under the profiler.
     Returns the counted run's cohort launches."""
     import dataclasses
-    import shutil
-    import tempfile
-    from datetime import timedelta
 
     import torch.distributed as dist
     from repro_torch.core.partition import group_param_bytes
@@ -1523,11 +1570,7 @@ def phase_fedpart_shard(vmap_secs: dict) -> int:
     from repro_torch.fl.batched import ShardMapEngine, _transmitted_rows
     from repro_torch.kernels.masked_adam import MaskedAdamCohort
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_store_")   # the group's store lives
-    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
-                            rank=0, world_size=1, timeout=timedelta(seconds=120),
-                            device_id=torch.device("cuda", 0))
-    try:
+    with _one_rank_group():
         clients, eval_set = _vision_setup()
         adapter = resnet_task("resnet8", num_classes=20)
         sched = FedPartSchedule(num_groups=10, warmup_rounds=2, rounds_per_layer=1,
@@ -1623,9 +1666,6 @@ def phase_fedpart_shard(vmap_secs: dict) -> int:
         for engine in ("vmap", "shard_map"):
             _profile_fl_round(dataclasses.replace(cfg, engine=engine), "fedpart_shard",
                               (adapter, clients, eval_set))
-    finally:
-        dist.destroy_process_group()
-        shutil.rmtree(tmp, ignore_errors=True)
     return launches
 
 
@@ -2363,6 +2403,7 @@ def _serve_dense(arch: str, tag: str, f32_layers: int = 0) -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = api.init(gen, cfg, "cuda")
     prompt = api.synth_batch(gen, cfg, InputShape("serve", s, b, "prefill"), "cuda")
+    _check_residency(tag, cfg, params)
     n_params = sum(int(x.numel()) for x in tree_leaves(params))
     log(f"[{tag}] {cfg.name} full: {cfg.num_layers} layers d_model {cfg.d_model} "
         f"heads {cfg.num_heads}/{cfg.num_kv_heads} head dim {hd} d_ff {cfg.d_ff} "
@@ -2428,6 +2469,7 @@ def phase_serve_hybrid() -> tuple[int, int, dict]:
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = api.init(gen, cfg, "cuda")
     prompt = api.synth_batch(gen, cfg, InputShape("serve", s, b, "prefill"), "cuda")
+    _check_residency("serve_hybrid", cfg, params)
     n_params = sum(int(x.numel()) for x in tree_leaves(params))
     log(f"[serve_hybrid] {cfg.name} full: {n_chunks} chunks of (shared attention, "
         f"{cfg.attn_every} Mamba2) + {tail} tail Mamba2, d_model {cfg.d_model} heads "
@@ -2495,6 +2537,7 @@ def phase_serve_xlstm() -> tuple[int, dict]:
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = api.init(gen, cfg, "cuda")
     prompt = api.synth_batch(gen, cfg, InputShape("serve", s, b, "prefill"), "cuda")
+    _check_residency("serve_xlstm", cfg, params)
     n_params = sum(int(x.numel()) for x in tree_leaves(params))
     d_inner = cfg.ssm_expand * cfg.d_model
     log(f"[serve_xlstm] {cfg.name} full: {pairs} (mLSTM, sLSTM) pairs, d_model "
@@ -2532,18 +2575,70 @@ def phase_serve_xlstm() -> tuple[int, dict]:
     return ssd_n, by_body
 
 
-def phase_serve_moe() -> int:
-    """The MoE serving path: ``serve_session`` on llama4-maverick-400b-a17b
-    at full width (d_model 5,120, 40 query heads over 8 kv heads of 128, 128
-    experts of 8,192 top-1 plus a shared one, vocab 202,048), cut to
-    ``SERVE_MOE_LAYERS`` of its 48 layers, bf16, random weights from a seed,
-    B 4 x 4,096 prompt, 32 tokens; every prefill attention through the flash
-    kernel at D 128 (one launch per layer), the expert products through
-    cuBLAS.  One prefill under ``torch.profiler``, split by the MoE layer's
-    parts.  Then the f32 cross-check at full width, cut to
+def _check_residency(tag: str, cfg, params) -> None:
+    """The dry run's per-device parameter bytes of ``cfg`` at mesh (1, 1)
+    (fake tensors, their placements) against the params on the card;
+    fails on any difference.  Every placement is whole at (1, 1): this
+    holds the fake init's shapes and dtypes to the card's, not the
+    placements."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.tree import tree_leaves
+    on_card = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+    predicted = dryrun.param_residency(cfg, MeshShape((1, 1)))
+    log(f"[{tag}] residency: the dry run's params per device at (1, 1) {predicted} B, "
+        f"on the card {on_card} B: {'equal' if predicted == on_card else 'DIFFERENT'}")
+    if predicted != on_card:
+        raise AssertionError(f"{cfg.name}: dry-run residency {predicted} != {on_card}")
+
+
+def _prefill_peak(cfg, params, batch: dict, impl: str) -> int:
+    """Bytes the card's allocator held at the peak of one prefill
+    (``steps.make_prefill_step``), above what was allocated before it."""
+    from repro_torch.launch import steps
+    step = steps.make_prefill_step(cfg, impl=impl)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        out = step(params, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    torch.cuda.empty_cache()
+    return peak
+
+
+def _log_peaks(tag: str, cfg, params, batch: dict, impl: str, what: str) -> None:
+    """The dry run's predicted activation peak of a prefill of ``batch``
+    (fake tensors, plain attention, mesh (1, 1)) beside the card's."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models.api import InputShape
+    b, s = batch["tokens"].shape
+    trace, _ = dryrun.trace_step(cfg, InputShape("serve", s, b, "prefill"), MeshShape((1, 1)))
+    measured = _prefill_peak(cfg, params, batch, impl)
+    log(f"[{tag}] activation peak of a B{b} x {s} prefill ({what}): dry run "
+        f"{int(trace.act_peak_bytes)} B ({trace.act_peak_bytes / 2**30:.3f} GiB, plain "
+        f"attention), the card's allocator {measured} B ({measured / 2**30:.3f} GiB, "
+        f"impl={impl}); card / dry run {measured / trace.act_peak_bytes:.4f}")
+
+
+def phase_serve_moe():
+    """The MoE serving path: first the f32 cross-check at full width, cut to
     ``SERVE_MOE_F32``: kernel against plain attention, the logits within
-    ``SERVE_CROSS_TOL``, the same tokens and router choices.  Returns the
-    counted run's flash launches."""
+    ``SERVE_CROSS_TOL``, the same tokens and router choices.  Then
+    ``serve_session`` on llama4-maverick-400b-a17b at full width (d_model
+    5,120, 40 query heads over 8 kv heads of 128, 128 experts of 8,192 top-1
+    plus a shared one, vocab 202,048), cut to ``SERVE_MOE_LAYERS`` of its 48
+    layers, bf16, random weights from a seed, B 4 x 4,096 prompt, 32
+    tokens; every prefill attention through the flash kernel at D 128 (one
+    launch per layer), the expert products through cuBLAS.  One prefill
+    under ``torch.profiler``, split by the MoE layer's parts.  Returns the
+    counted run's flash launches, and the config, weights, prompt and run
+    that ``phase_serve_moe_ep`` reuses (a list, which that phase empties so
+    that the weights are freed before its f32 check)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve_session
     from repro_torch.models import api, moe
@@ -2554,12 +2649,20 @@ def phase_serve_moe() -> int:
     cfg = full.with_(num_layers=SERVE_MOE_LAYERS)
     hd = cfg.resolved_head_dim
     b, s, g = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    cfg32 = full.with_(param_dtype="float32", activation_dtype="float32", **SERVE_MOE_F32)
+    layer_gb = 4 * 3 * full.num_experts * full.d_model * full.moe_d_ff / 1e9
+    _f32_cross_check("serve_moe", cfg32, b,
+                     f"full width, {cfg32.num_layers} of {full.num_layers} layers and "
+                     f"{cfg32.num_experts} of {full.num_experts} experts (one full layer's "
+                     f"f32 experts are {layer_gb:.1f} GB), kernel vs plain attention")
+
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     params = api.init(gen, cfg, "cuda")
     prompt = api.synth_batch(gen, cfg, InputShape("serve", s, b, "prefill"), "cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    _check_residency("serve_moe", cfg, params)
     n_params = sum(int(x.numel()) for x in tree_leaves(params))
     layer_params = sum(int(x.numel()) for x in tree_leaves(params["moe_blocks"]))
     log(f"[serve_moe] {cfg.name} full width, {cfg.num_layers} of {full.num_layers} layers "
@@ -2580,15 +2683,117 @@ def phase_serve_moe() -> int:
         raise AssertionError(f"flash launches {launches} (by head dim {by_d}) != "
                              f"layers {cfg.num_layers} at D {hd}")
     _serve_profile(cfg, params, prompt, tag="serve_moe", labels=moe.PROFILE_LABELS)
-    del params, prompt, res
+    return launches, [cfg, params, prompt, res]
+
+
+def phase_serve_moe_ep(state) -> int:
+    """Expert parallelism (``models.moe_ep``) on ``serve_moe``'s weights and
+    prompt, at mesh (1, 1) (``make_host_mesh``) over a one-rank NCCL group:
+    ``serve_session`` under ``expert_parallel(mesh)``, its flash launches
+    counted (one per layer at D 128), its prefill logits and every step's
+    logits and tokens held to ``serve_moe``'s run (bit-equal expected at
+    world size 1; fails past ``SERVE_CROSS_TOL`` or on any token), the
+    layer's traffic per prefill (one all-reduce per MoE layer of B x S x
+    d_model x 2 bytes: 167,772,160) and the prefill seconds beside
+    ``serve_moe``'s.  The dry run's parameter residency equals the params
+    on the card, and its predicted activation peak is printed beside the
+    card's: at B 4 with the flash kernel, and at B ``PEAK_BATCH`` with plain
+    attention, the dry run's own path.  Then the f32 check at
+    ``SERVE_MOE_F32``: ``api.loss``'s gradients with and without expert
+    parallelism, each leaf within ``EP_GRAD_TOL`` of its largest |gradient|.
+    At one rank every all-reduce is an identity, so this holds the masked
+    combine and shows that the autograd functions' collectives run on NCCL,
+    not their reductions: those are held on the CPU over gloo at (1, 2) and
+    (2, 2) (``tests/test_torch_moe_ep.py``) and wait for a four-card run.
+    Returns the counted run's flash launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import serve_session
+    from repro_torch.models import api, moe_ep
+    from repro_torch.models.api import InputShape
+    from repro_torch.models.layers import act_dtype
+    from repro_torch.tree import tree_paths
+
+    cfg, params, prompt, base = state
+    state.clear()
+    hd = cfg.resolved_head_dim
+    b, s, g = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    n_moe = cfg.num_layers - cfg.first_dense_layers
+    with _one_rank_group():
+        mesh = make_host_mesh(1, 1, "cuda")
+        with moe_ep.expert_parallel(mesh) as ep:
+            serve_session(cfg, b, 256, 2, device="cuda", params=params, verbose=False)
+            ep.traffic.clear()
+            res, launches, by_d = _count_flash(cfg, params, prompt, b, s, g, "serve_moe_ep")
+    log(f"[serve_moe_ep] mesh (1, 1) over a one-rank NCCL group; flash_attention launches "
+        f"{launches} (one per layer: {cfg.num_layers}), by head dim {by_d}")
+    if launches != cfg.num_layers or by_d != {hd: cfg.num_layers}:
+        raise AssertionError(f"EP flash launches {launches} (by head dim {by_d}) != "
+                             f"layers {cfg.num_layers} at D {hd}")
+    diffs = [float((x.float() - y.float()).abs().max())
+             for x, y in zip(res.logits, base.logits)]
+    bit_equal = all(torch.equal(x, y) for x, y in zip(res.logits, base.logits))
+    same = torch.equal(res.tokens, base.tokens)
+    log(f"[serve_moe_ep] against serve_moe's run: prefill logits max abs diff {diffs[0]:.3g}, "
+        f"every step's {max(diffs):.3g} (tolerance {SERVE_CROSS_TOL:g}); logits bit-equal "
+        f"{bit_equal}; tokens equal {same}")
+    if max(diffs) > SERVE_CROSS_TOL or not same:
+        raise AssertionError("expert-parallel serving differs from serve_moe's")
+    want = b * s * cfg.d_model * act_dtype(cfg).itemsize
+    pre = [r for r in ep.traffic if r["tokens"] == b * s]
+    log(f"[serve_moe_ep] per prefill: {len(pre)} MoE layer calls, all-reduce calls "
+        f"{[r['all_reduce_calls'] for r in pre]} of {[r['all_reduce_bytes'] for r in pre]} B "
+        f"(expected one per MoE layer: {n_moe} of {want} B); all-gathers "
+        f"{sum(r['all_gather_calls'] for r in pre)}; decode steps {len(ep.traffic) - len(pre)} "
+        f"calls of {b} tokens")
+    if len(pre) != n_moe or any(r["all_reduce_calls"] != 1 or r["all_reduce_bytes"] != want
+                                for r in pre):
+        raise AssertionError("expert-parallel traffic is not one all-reduce per MoE layer")
+    log(f"[serve_moe_ep] prefill {b}x{s}: {res.prefill_seconds:.6f} s with expert "
+        f"parallelism, {base.prefill_seconds:.6f} s in serve_moe "
+        f"(EP / serve_moe {res.prefill_seconds / base.prefill_seconds:.4f}); decode "
+        f"{res.decode_seconds:.6f} s vs {base.decode_seconds:.6f} s")
+    # each run's first logits are a view of its prefill's (B, S, V) f32 logits
+    del res, base
+    torch.cuda.empty_cache()
+    _log_peaks("serve_moe_ep", cfg, params, prompt, "kernel",
+               "the card's flash kernel against the dry run's plain scores")
+    one = {"tokens": prompt["tokens"][:PEAK_BATCH]}
+    _log_peaks("serve_moe_ep", cfg, params, one, "plain", "plain attention on both")
+    del params, prompt
     torch.cuda.empty_cache()
 
+    full = get_config("llama4-maverick-400b-a17b")
     cfg32 = full.with_(param_dtype="float32", activation_dtype="float32", **SERVE_MOE_F32)
-    _f32_cross_check("serve_moe", cfg32, b,
-                     f"full width, {cfg32.num_layers} of {full.num_layers} layers and "
-                     f"{cfg32.num_experts} of {full.num_experts} experts (one full layer's "
-                     f"f32 weights are {4 * layer_params / 1e9:.1f} GB), kernel vs plain "
-                     f"attention")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = api.init(gen, cfg32, "cuda")
+    gb, gs = EP_GRAD_BATCH
+    batch = api.synth_batch(gen, cfg32, InputShape("train", gs, gb, "train"), "cuda")
+    loss0, g0 = steps.loss_and_grads(cfg32, params, batch, remat=False)
+    with _one_rank_group():
+        with moe_ep.expert_parallel(make_host_mesh(1, 1, "cuda")) as ep:
+            loss1, g1 = steps.loss_and_grads(cfg32, params, batch, remat=False)
+    torch.cuda.synchronize()
+    worst, worst_path, equal = 0.0, "", 0
+    for (path, a), (_, c) in zip(tree_paths(g0), tree_paths(g1)):
+        rel = float((a - c).abs().max()) / max(float(a.abs().max()), 1e-30)
+        equal += bool(torch.equal(a, c))
+        if rel >= worst:
+            worst, worst_path = rel, "/".join(path)
+    n = len(tree_paths(g0))
+    calls = {k: sum(r[k] for r in ep.traffic) for k in ("all_reduce_calls",
+                                                       "grad_all_reduce_calls",
+                                                       "aux_all_reduce_calls")}
+    log(f"[serve_moe_ep] f32 gradients at full width, {cfg32.num_layers} layers, "
+        f"{cfg32.num_experts} experts, B{gb} x {gs}: loss {float(loss0):.6f} without EP, "
+        f"{float(loss1):.6f} with; worst leaf {worst_path} at {worst:.3g} of its largest "
+        f"|gradient| (tolerance {EP_GRAD_TOL:g}); {equal} of {n} leaves bit-equal; "
+        f"collectives {calls}")
+    if worst > EP_GRAD_TOL or not math.isfinite(float(loss1)):
+        raise AssertionError("expert-parallel gradients differ from the non-EP ones")
+    del params, batch, g0, g1
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -2626,7 +2831,8 @@ def phase_serve_mla() -> None:
     from repro_torch.kernels.flash_attention import flash_attention_kernel
     from repro_torch.kernels.ssd_chunk import ssd_chunk_kernel
     from repro_torch.launch import serve, steps
-    from repro_torch.models import api, attention, moe, transformer
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import api, attention, moe, moe_ep, transformer
     from repro_torch.models.api import InputShape
     from repro_torch.tree import tree_leaves, tree_paths
 
@@ -2640,6 +2846,7 @@ def phase_serve_mla() -> None:
     prompt = api.synth_batch(gen, cfg, InputShape("serve", s, b, "prefill"), "cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    _check_residency("serve_mla", cfg, params)
     n_params = sum(int(x.numel()) for x in tree_leaves(params))
     log(f"[serve_mla] {cfg.name} full width, {n_dense} dense + {n_moe} MoE of "
         f"{full.num_layers} layers + the MTP module: d_model {cfg.d_model}, MLA {cfg.num_heads} "
@@ -2667,7 +2874,31 @@ def phase_serve_mla() -> None:
         raise AssertionError(f"serve_mla launched flash {flash_n} / ssd {ssd_n} times")
     _serve_profile(cfg, params, prompt, tag="serve_mla",
                    labels=(attention.MLA_SCORES,) + moe.PROFILE_LABELS)
-    del prompt, res
+    del res
+    torch.cuda.empty_cache()
+
+    # the MoE layer under FSDP expert parallelism at mesh (1, 1): the weight
+    # all-gathers over "data" run, and the prefill equals the non-EP one
+    prefill = steps.make_prefill_step(cfg)
+    with _one_rank_group():
+        with torch.inference_mode():
+            want, _ = prefill(params, prompt)
+            with moe_ep.expert_parallel(make_host_mesh(1, 1, "cuda"), fsdp=True) as ep:
+                got, _ = prefill(params, prompt)
+        torch.cuda.synchronize()
+    diff = float((got.float() - want.float()).abs().max())
+    calls = [(r["all_gather_calls"], r["all_reduce_calls"]) for r in ep.traffic]
+    log(f"[serve_mla] FSDP expert parallelism at (1, 1), prefill B{b} x {s}: last-position "
+        f"logits max abs diff {diff:.3g} against the non-EP prefill (tolerance "
+        f"{SERVE_CROSS_TOL:g}), bit-equal {torch.equal(got, want)}; per MoE layer "
+        f"(all-gathers, all-reduces) {calls}, all-gathered "
+        f"{sum(r['all_gather_bytes'] for r in ep.traffic)} B")
+    if diff > SERVE_CROSS_TOL or calls != [(3, 1)] * n_moe:
+        raise AssertionError("FSDP expert-parallel prefill differs from the non-EP one")
+    del got, want
+    _log_peaks("serve_mla", cfg, params, prompt, "plain",
+               "MLA has no kernel: its plain scores on both")
+    del prompt
     torch.cuda.empty_cache()
 
     # the MTP head's FedPart step, on the same weights
@@ -2770,6 +3001,7 @@ def phase_serve_encdec() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = api.init(gen, cfg, "cuda")
     prompt = api.synth_batch(gen, cfg, InputShape("serve", s, b, "prefill"), "cuda")
+    _check_residency("serve_encdec", cfg, params)
     n_params = sum(int(x.numel()) for x in tree_leaves(params))
     log(f"[serve_encdec] {cfg.name} full: {cfg.encoder_layers} encoder + {cfg.num_layers} "
         f"decoder layers, d_model {cfg.d_model} heads {cfg.num_heads}/{cfg.num_kv_heads} "
@@ -2831,6 +3063,7 @@ def phase_serve_vlm() -> int:
     prompt = api.synth_batch(gen, cfg, InputShape("serve", s, b, "prefill"), "cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    _check_residency("serve_vlm", cfg, params)
     n_params = sum(int(x.numel()) for x in tree_leaves(params))
     layer_params = sum(int(x.numel()) for x in tree_leaves(params["blocks"])) // cfg.num_layers
     log(f"[serve_vlm] {cfg.name} full width, {cfg.num_layers} of {full.num_layers} layers "
@@ -3357,7 +3590,8 @@ def main() -> int:
     ssd = _timed(phase_ssd)
     ssd_hybrid, flash_hybrid, hybrid_bodies = _timed(phase_serve_hybrid)
     ssd_xlstm, xlstm_bodies = _timed(phase_serve_xlstm)
-    flash_moe = _timed(phase_serve_moe)
+    flash_moe, moe_state = _timed(phase_serve_moe)
+    flash_moe_ep = _timed(phase_serve_moe_ep, moe_state)
     _timed(phase_serve_mla)
     flash_encdec = _timed(phase_serve_encdec)
     flash_vlm = _timed(phase_serve_vlm)
@@ -3366,6 +3600,7 @@ def main() -> int:
     ssd["launches_by_body"] = {"serve_hybrid": hybrid_bodies, "serve_xlstm": xlstm_bodies}
     flash["launches_by_path"] = {"serve": flash_serve, **flash_dense,
                                  "serve_hybrid": flash_hybrid, "serve_moe": flash_moe,
+                                 "serve_moe_ep": flash_moe_ep,
                                  "serve_encdec": flash_encdec, "serve_vlm": flash_vlm}
     flash["launches"] = sum(flash["launches_by_path"].values())
     _timed(phase_fedtrain_llm)

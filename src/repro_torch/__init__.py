@@ -15,7 +15,16 @@ and Zamba2 (``launch/serve.py``), whose prefill attention and Mamba2 scans
 are two more (``kernels/flash_attention``, ``kernels/ssd_chunk``); and the
 launchers (``launch/fedtrain.py``: FedPart training of a served model and
 the simulation's command line; ``launch/train.py``; ``checkpoint``).  The
-kernels are built with nvcc at first use.  Entry points (``fl``, ``launch``)
+kernels are built with nvcc at first use.  The sharded-model layer:
+``launch/mesh.py``'s data x model meshes, ``launch/sharding.py``'s
+placements, ``models/moe_ep.py`` (expert parallelism over
+``torch.distributed``), ``models/act_sharding.py`` and the dry run
+(``launch/dryrun.py``, ``cost_probes.py``, ``hlo_analysis.py``: fake
+tensors, no card).  Two JAX shims have no counterpart:
+``core/compat.py`` (jax's ``shard_map`` symbol and keyword churn: torch has
+no ``shard_map``) and ``launch/_simdev.py`` (an XLA flag for simulated host
+devices: ``torchrun`` sets the world size, and the dry run makes a
+``"fake"`` process group of any size).  Entry points (``fl``, ``launch``)
 run on the card unless the caller asks for the CPU (``device="cpu"``, as the
 tests do); the model builders under them (``models.api.init``,
 ``cache_init``, ``synth_batch``) take the device as a required argument.

@@ -17,15 +17,20 @@ async runtime (port of ``repro.launch.mesh``).
   wait in the runtime's launch queue, as the reference's do on one device.
   ``RankPool`` is the shard_map engine's: one width-1 slot per rank of its
   mesh.
-
-Not ported: ``make_production_mesh`` and ``make_host_mesh``, the
-XLA-sharded training meshes (ROADMAP Queue 1 item 15.5).
+* ``make_production_mesh`` / ``make_host_mesh`` / ``make_mesh_override``
+  are the sharded-model meshes: a ``DeviceMesh`` named ``("data",
+  "model")``, or ``("pod", "data", "model")``, over every rank of the
+  default group (row-major: rank ``d * model + m``, as the reference's
+  ``jax.make_mesh``).  ``MeshShape`` carries only a mesh's names and
+  sizes, which is all the sharding rules (``launch.sharding``) and the
+  dry run's reckoning read.
 """
 
 from __future__ import annotations
 
 import atexit
 import dataclasses
+import math
 import os
 import shutil
 import tempfile
@@ -37,7 +42,10 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 CLIENT_AXIS = "clients"        # the mesh's one dimension
+MESH_AXES = ("data", "model")                   # the sharded-model mesh
+MULTI_POD_AXES = ("pod", "data", "model")
 BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
+FAKE_BACKEND = "fake"          # the dry run's in-process group of N ranks
 # how long a collective may wait for the other ranks before it fails
 COLLECTIVE_TIMEOUT = timedelta(minutes=10)
 
@@ -102,17 +110,97 @@ def make_client_mesh(devices: int = 0, device_type: str = "cuda") -> DeviceMesh:
     return DeviceMesh(device_type, list(range(world)), mesh_dim_names=(CLIENT_AXIS,))
 
 
-def dp_axes(mesh: DeviceMesh) -> tuple[str, ...]:
+@dataclasses.dataclass(frozen=True)
+class MeshShape:
+    """A mesh's dimension names and sizes, without devices or a process
+    group: what ``dp_axes``, ``axis_size`` and the sharding rules read, with
+    ``DeviceMesh``'s ``mesh_dim_names`` / ``size(dim)`` / ``shape``."""
+
+    shape: tuple[int, ...]
+    mesh_dim_names: tuple[str, ...] = MESH_AXES
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.mesh_dim_names):
+            raise ValueError(f"mesh shape {self.shape} for axes {self.mesh_dim_names}")
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def size(self, mesh_dim: int | None = None) -> int:
+        return math.prod(self.shape) if mesh_dim is None else self.shape[mesh_dim]
+
+
+def _sharded_mesh(dims: tuple[int, ...], names: tuple[str, ...],
+                  device_type: str) -> DeviceMesh:
+    """A ``DeviceMesh`` of ``dims`` named ``names`` over every rank of the
+    default group (initialised here when it is not, as ``make_client_mesh``
+    does).  The group's backend is the device's (NCCL, gloo) or the dry
+    run's ``"fake"``; its world size must be the product of ``dims``."""
+    if device_type not in BACKENDS:
+        raise ValueError(f"unsupported device type {device_type!r}; expected cuda or cpu")
+    if not dist.is_initialized():
+        _init_default_group(device_type)
+    n, world = math.prod(dims), dist.get_world_size()
+    shape = "x".join(map(str, dims))
+    if n != world:
+        raise ValueError(
+            f"a {shape} mesh needs {n} ranks but the process group has {world}; start "
+            f"one process per device, e.g. torchrun --nproc-per-node {n} ...")
+    backend = dist.get_backend()
+    if BACKENDS[device_type] not in backend and backend != FAKE_BACKEND:
+        raise ValueError(f"a {device_type} mesh needs a {BACKENDS[device_type]} process "
+                         f"group, the default group's backend is {backend!r}")
+    return DeviceMesh(device_type, torch.arange(n).reshape(dims), mesh_dim_names=names)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda") -> DeviceMesh:
+    """The reference's production mesh: 16 x 16 ``("data", "model")``, or
+    2 x 16 x 16 ``("pod", "data", "model")`` (256 / 512 ranks)."""
+    if multi_pod:
+        return _sharded_mesh((2, 16, 16), MULTI_POD_AXES, device_type)
+    return _sharded_mesh((16, 16), MESH_AXES, device_type)
+
+
+def make_host_mesh(data: int = 1, model: int = 1, device_type: str = "cuda") -> DeviceMesh:
+    """A small ``("data", "model")`` mesh over the group's ranks (tests,
+    local runs; ``(1, 1)`` over a one-rank group on one card)."""
+    return _sharded_mesh((data, model), MESH_AXES, device_type)
+
+
+def mesh_override_shape(shape_str: str) -> MeshShape:
+    """``"32,8"`` -> 32 x 8 ``("data", "model")``; ``"2,16,16"`` adds
+    ``"pod"`` in front."""
+    dims = tuple(int(x) for x in shape_str.split(","))
+    if not 1 <= len(dims) <= 3 or min(dims) < 1:
+        raise ValueError(f"mesh {shape_str!r}: one to three positive sizes, e.g. 32,8")
+    return MeshShape(dims, MULTI_POD_AXES[-len(dims):])
+
+
+def make_mesh_override(shape_str: str, device_type: str = "cuda") -> DeviceMesh:
+    """The dry run's ``--mesh``: ``mesh_override_shape``'s mesh over the
+    group's ranks."""
+    m = mesh_override_shape(shape_str)
+    return _sharded_mesh(m.shape, m.mesh_dim_names, device_type)
+
+
+def dp_axes(mesh: DeviceMesh | MeshShape) -> tuple[str, ...]:
     """The data-parallel axes (FL-client axes): ("pod", "data") when present."""
     names = mesh.mesh_dim_names or ()
     return tuple(a for a in ("pod", "data") if a in names)
 
 
-def axis_size(mesh: DeviceMesh, name: str) -> int:
+def axis_size(mesh: DeviceMesh | MeshShape, name: str) -> int:
     names = mesh.mesh_dim_names or ()
     if name not in names:
         return 1
     return mesh.size(names.index(name))
+
+
+def dp_size(mesh: DeviceMesh | MeshShape) -> int:
+    """The number of data-parallel ranks: the product of the DP axes' sizes."""
+    return math.prod(axis_size(mesh, a) for a in dp_axes(mesh))
 
 
 def visible_devices(device_type: str = "cuda") -> tuple[torch.device, ...]:

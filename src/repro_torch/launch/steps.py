@@ -82,28 +82,17 @@ def make_train_step(cfg: ModelConfig, adam: AdamConfig = AdamConfig(), *,
                     impl: str = "plain", remat: bool = True, accum: int = 1):
     """FNU step.  ``accum`` > 1 accumulates the gradients of ``accum``
     microbatches in f32 and applies their mean once, as the reference's
-    ``lax.scan``; the loss is the microbatches' mean.
-
-    Each stack is differentiated layer by layer (a list of per-layer views)
-    and its gradient stacked once: slicing one stacked leaf that requires
-    grad would have autograd build a stack-sized zero gradient per layer."""
-
-    def value_and_grad(params, b):
-        view = {k: _layers(v) if k in STACK_KEYS else v for k, v in params.items()}
-        loss, g = _value_and_grad(
-            lambda v: api.loss(v, cfg, b, impl=impl, remat=remat), view)
-        return loss, {k: tree_map(lambda *xs: torch.stack(xs), *v)
-                      if isinstance(v, list) else v for k, v in g.items()}
+    ``lax.scan``; the loss is the microbatches' mean."""
 
     def train_step(params: PyTree, opt_state: AdamState, batch: dict):
         if accum <= 1:
-            loss, grads = value_and_grad(params, batch)
+            loss, grads = loss_and_grads(cfg, params, batch, impl=impl, remat=remat)
         else:
             grads = tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
                                                    device=x.device), params)
             loss = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
             for mb in _microbatches(batch, accum):
-                lv, g = value_and_grad(params, mb)
+                lv, g = loss_and_grads(cfg, params, mb, impl=impl, remat=remat)
                 grads = tree_map(torch.add, grads, g)
                 loss = loss + lv
             grads = tree_map(lambda g: g / accum, grads)
@@ -116,6 +105,25 @@ def make_train_step(cfg: ModelConfig, adam: AdamConfig = AdamConfig(), *,
 
 def init_opt_state(params: PyTree) -> AdamState:
     return adam_init(params)
+
+
+def loss_and_grads(cfg: ModelConfig, params: PyTree, batch: dict,
+                   group: "StackedGroup | None" = None, *, impl: str = "plain",
+                   remat: bool = True) -> tuple[torch.Tensor, PyTree]:
+    """``api.loss`` and its gradient: over every leaf (each stack
+    differentiated layer by layer and its gradient stacked once: slicing one
+    stacked leaf that requires grad would have autograd build a stack-sized
+    zero gradient per layer), or over ``group``'s subtree only (the
+    partial step's)."""
+    if group is not None:
+        return _value_and_grad(
+            lambda sub: api.loss(_forward_view(params, group, sub), cfg, batch,
+                                 impl=impl, remat=remat), _select_group(params, group))
+    view = {k: _layers(v) if k in STACK_KEYS else v for k, v in params.items()}
+    loss, g = _value_and_grad(lambda v: api.loss(v, cfg, batch, impl=impl, remat=remat),
+                              view)
+    return loss, {k: tree_map(lambda *xs: torch.stack(xs), *v)
+                  if isinstance(v, list) else v for k, v in g.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -197,10 +205,7 @@ def make_fedpart_train_step(
 
     def train_step(params: PyTree, opt_state: AdamState, batch: dict):
         trainable = _select_group(params, group)
-
-        loss, grads = _value_and_grad(
-            lambda sub: api.loss(_forward_view(params, group, sub), cfg, batch,
-                                 impl=impl, remat=remat), trainable)
+        loss, grads = loss_and_grads(cfg, params, batch, group, impl=impl, remat=remat)
         new_sub, new_state = adam_update(grads, opt_state, trainable, adam)
         with torch.no_grad():
             return _inject_group(params, group, new_sub), new_state, loss

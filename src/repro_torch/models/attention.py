@@ -34,8 +34,9 @@ the reference's ``where`` makes a copy: at DeepSeek-V3's full width one
 (1, 128, 4,096, 4,096) f32 copy is 8.6 GB.  They run under the profiler
 label ``MLA_SCORES``.
 
-``act_sharding.constrain_scores`` is not ported: it only adds a sharding
-constraint for a device mesh, and the port runs on one device.
+The plain paths' scores and probabilities pass through
+``act_sharding.constrain_scores`` where the reference's do (a layout for a
+DTensor under ``activation_sharding(mesh)``; a plain tensor unchanged).
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.models import act_sharding
 from repro_torch.models.layers import (apply_rope, linear, linear_init, rmsnorm,
                                        rmsnorm_init, rope_angles)
 from repro_torch.tree import PyTree
@@ -85,11 +87,13 @@ def _sdpa(q, k, v, mask, impl: str = "kernel", *, causal: bool = True,
     vr = torch.repeat_interleave(v, rep, dim=2) if rep > 1 else v
     scale = 1.0 / math.sqrt(d)
     logits = torch.einsum("bshd,bthd->bhst", q, kr).float() * scale
+    logits = act_sharding.constrain_scores(logits)
     if mask is not None:
         m = mask if mask.dim() == 3 else mask[None]
         logits = torch.where(m[:, None, :, :], logits,
                              torch.tensor(NEG_INF, device=logits.device))
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    probs = act_sharding.constrain_scores(probs)
     return torch.einsum("bhst,bthd->bshd", probs, vr)
 
 
@@ -217,12 +221,14 @@ def _mla_scores_and_out(params, cfg, q, c_kv, k_rope, mask):
         # in place from here (neither op's backward reads its output): at full
         # width each copy of the f32 scores would be B x 8.6 GB at S = T = 4,096
         logits.mul_(scale)
+        logits = act_sharding.constrain_scores(logits)
         if mask is not None:
             m = mask if mask.dim() == 3 else mask[None]
             logits.masked_fill_(~m[:, None, :, :], NEG_INF)
         probs = torch.softmax(logits, dim=-1)
         del logits
-        y = torch.einsum("bhst,bthd->bshd", probs.to(q.dtype), v)
+        probs = act_sharding.constrain_scores(probs.to(q.dtype))
+        y = torch.einsum("bhst,bthd->bshd", probs, v)
     return linear(params["wo"], y.reshape(*q.shape[:2], h * vd))
 
 

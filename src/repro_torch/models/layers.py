@@ -22,6 +22,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.tree import PyTree, tree_map
@@ -72,9 +73,13 @@ def normal_init(gen: torch.Generator, shape, std: float, dtype, device) -> torch
     """N(0, std²) of ``shape`` in ``dtype``, drawn one matrix (the last two
     axes) at a time, so the f32 draw never holds more than one layer's or
     one expert's matrix: a whole f32 draw of LLaVA-NeXT-34B's stacked
-    (60, 7,168, 20,480) ``w_gate`` would be 35.2 GB."""
+    (60, 7,168, 20,480) ``w_gate`` would be 35.2 GB.  A tensor without
+    storage (the ``meta`` device, or a fake tensor: the dry run's shapes)
+    is returned undrawn."""
     shape = tuple(shape)
     out = torch.empty(shape, dtype=dtype, device=device)
+    if out.is_meta or is_fake(out):
+        return out
     for sub in out.reshape(-1, *shape[-2:]):
         sub.copy_(torch.randn(shape[-2:], generator=gen, device=device,
                               dtype=torch.float32).mul_(std))

@@ -28,8 +28,10 @@ Each part runs under a profiler label (``PROFILE_LABELS``: the router,
 the dispatch's sort / counts / scatter with the aux loss, the expert
 products, the combine and the shared expert), so a profile can split an MoE layer's device time.
 
-The reference's ``moe_ep.ep_enabled()`` branch (explicit expert
-parallelism over a device mesh) is not ported: ROADMAP Queue 1 item 15.5.
+Under ``moe_ep.expert_parallel(mesh)`` ``moe_apply`` dispatches to
+``moe_ep.moe_apply_ep`` (explicit expert parallelism over the mesh's
+"model" axis on ``torch.distributed``), as the reference's does; both run
+the same router (``route``) and sort dispatch (``dispatch``).
 """
 
 from __future__ import annotations
@@ -105,9 +107,54 @@ def route(params: PyTree, cfg: ModelConfig,
     return logits, gate_vals, expert_idx
 
 
+def dispatch(cfg: ModelConfig, logits: torch.Tensor, expert_idx: torch.Tensor,
+             cap: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The sort dispatch of T tokens' (T, k) chosen experts: returns each
+    (token, choice) entry's slot in the flat ``(E * cap + 1)`` buffer
+    (token-major, (T*k,); ``E * cap`` is the dropped entries' sentinel), the
+    entries' token ids and the load-balance auxiliary loss (Switch/GShard
+    form, from the f32 ``logits``)."""
+    t, k = expert_idx.shape
+    e = cfg.num_experts
+    dev = logits.device
+    flat_expert = expert_idx.reshape(-1)                                   # (T*k,)
+    order = torch.argsort(flat_expert, stable=True)
+    sorted_expert = flat_expert[order]
+    # each expert's start offset and count in the sorted entries (not
+    # bincount: on the card it reads the largest id back to the host)
+    bounds = torch.searchsorted(sorted_expert, torch.arange(e + 1, device=dev))
+    start, counts = bounds[:-1], bounds[1:] - bounds[:-1]
+    # the softmax of the logits, whatever the router's scores
+    probs_mean = torch.mean(torch.softmax(logits, dim=-1), dim=0)          # (E,)
+    frac = counts.float() / (t * k)
+    aux_loss = e * torch.sum(frac * probs_mean) * cfg.aux_loss_weight
+    # rank within expert = index-in-sorted - start offset of that expert
+    rank_sorted = torch.arange(t * k, device=dev) - start[sorted_expert]
+    slot_sorted = torch.where(rank_sorted < cap, sorted_expert * cap + rank_sorted,
+                              torch.full_like(rank_sorted, e * cap))      # dropped: sentinel
+    slots = torch.empty_like(slot_sorted).scatter_(0, order, slot_sorted)
+    token_idx = torch.arange(t, device=dev).repeat_interleave(k)
+    return slots, token_idx, aux_loss
+
+
+def experts_apply(ew: PyTree, expert_in: torch.Tensor) -> torch.Tensor:
+    """SwiGLU of each expert's (E, C, d) slots, batched over the expert axis."""
+    dt = expert_in.dtype
+    g = F.silu(torch.bmm(expert_in, ew["w_gate"].to(dt)))
+    u = torch.bmm(expert_in, ew["w_up"].to(dt))
+    return torch.bmm(g * u, ew["w_down"].to(dt))
+
+
 def moe_apply(params: PyTree, cfg: ModelConfig,
               x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) -> (y, aux_loss)."""
+    """x: (B, S, d) -> (y, aux_loss).
+
+    Under ``moe_ep.expert_parallel(mesh)`` this dispatches to the explicit
+    expert-parallel path (``moe_ep.moe_apply_ep``)."""
+    from repro_torch.models import moe_ep
+
+    if moe_ep.ep_enabled():
+        return moe_ep.moe_apply_ep(params, cfg, x)
     b, s, d = x.shape
     t = b * s
     k = cfg.num_experts_per_tok
@@ -119,35 +166,14 @@ def moe_apply(params: PyTree, cfg: ModelConfig,
         logits, gate_vals, expert_idx = route(params, cfg, xf)
 
     with record_function(MOE_DISPATCH):
-        flat_expert = expert_idx.reshape(-1)                               # (T*k,)
-        order = torch.argsort(flat_expert, stable=True)
-        sorted_expert = flat_expert[order]
-        # each expert's start offset and count in the sorted entries (not
-        # bincount: on the card it reads the largest id back to the host)
-        bounds = torch.searchsorted(sorted_expert,
-                                    torch.arange(e + 1, device=x.device))
-        start, counts = bounds[:-1], bounds[1:] - bounds[:-1]
-        # load-balance auxiliary loss (Switch/GShard form): the softmax of
-        # the logits, whatever the router's scores
-        probs_mean = torch.mean(torch.softmax(logits, dim=-1), dim=0)      # (E,)
-        frac = counts.float() / (t * k)
-        aux_loss = e * torch.sum(frac * probs_mean) * cfg.aux_loss_weight
-        # rank within expert = index-in-sorted - start offset of that expert
-        rank_sorted = torch.arange(t * k, device=x.device) - start[sorted_expert]
-        slot_sorted = torch.where(rank_sorted < cap, sorted_expert * cap + rank_sorted,
-                                  torch.full_like(rank_sorted, e * cap))  # dropped: sentinel
-        slots = torch.empty_like(slot_sorted).scatter_(0, order, slot_sorted)
-        token_idx = torch.arange(t, device=x.device).repeat_interleave(k)
+        slots, token_idx, aux_loss = dispatch(cfg, logits, expert_idx, cap)
         # many dropped entries write the sentinel row; it is discarded
         buf = torch.zeros(e * cap + 1, d, dtype=dt, device=x.device).index_put(
             (slots,), xf[token_idx])
         expert_in = buf[: e * cap].reshape(e, cap, d)
 
-    with record_function(MOE_EXPERTS):   # SwiGLU, batched over the expert axis
-        ew = params["experts"]
-        g = F.silu(torch.bmm(expert_in, ew["w_gate"].to(dt)))
-        u = torch.bmm(expert_in, ew["w_up"].to(dt))
-        expert_out = torch.bmm(g * u, ew["w_down"].to(dt))
+    with record_function(MOE_EXPERTS):
+        expert_out = experts_apply(params["experts"], expert_in)
 
     with record_function(MOE_COMBINE):
         out_buf = torch.cat([expert_out.reshape(e * cap, d),
