@@ -236,6 +236,20 @@ Phases, in order; any failure raises and the script exits non-zero:
               and the layers kept.  One prefill under ``torch.profiler``.
               Then the f32 cross-check at full width, 4 layers, B 4 x (576
               + 512), 4 tokens.
+   sharded_step — the DTensor-propagated steps (``launch.steps``
+              ``make_sharded_*``) at mesh (1, 1) over a one-rank NCCL group:
+              TinyLlama-1.1B served at full width through
+              ``serve_session(..., mesh=...)`` (22 flash launches a prefill
+              on each rank's heads through ``models.sharded_heads``; logits
+              and 32 tokens held to the plain session's), an f32 FedPart
+              step on blocks/7 against the plain step, Zamba2-7B cut to 13
+              layers (13 SSD launches, all wgmma, and 2 flash; logits
+              against the plain prefill).  Then what each model rank's
+              attention region runs for Gemma's MQA, LLaVA's GQA 7 (kv
+              heads sharded, copied per query head, heads replicated) and
+              TinyLlama's 4 kv heads at model 8, B 4 x 4,096: the flash
+              wrapper on every rank's heads, joined, against the plain
+              version.
 10. fedtrain_llm — ``launch.fedtrain``'s default, mesh-trainer path on
               tinyllama-1.1b at full width (bf16; 24 groups: embed, 22
               blocks, final_norm|head): ``--full-size --batch 4 --seq 512
@@ -1021,6 +1035,12 @@ def _flash_check(case, dtype, gen) -> tuple[float, float]:
     out = ops.flash_attention(q, k, v, causal=causal, window=window)
     ref = ops.attention_reference(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
+    return _flash_agrees(out, ref, q, case, dtype)
+
+
+def _flash_agrees(out, ref, q, case, dtype) -> tuple[float, float]:
+    """``out`` against the plain ``ref`` at the flash tolerances (abs + rel,
+    and the row error over the row's norm); returns both errors."""
     if out.dtype != dtype or out.shape != q.shape:
         raise AssertionError(f"flash {case} {dtype}: out {out.dtype} {tuple(out.shape)}")
     diff = out.float() - ref.float()
@@ -2445,6 +2465,238 @@ def phase_serve_dense() -> dict:
             for arch, layers in SERVE_DENSE}
 
 
+def phase_sharded_step() -> tuple[int, int, dict]:
+    """The DTensor-propagated steps (``launch.steps`` ``make_sharded_*``) at
+    mesh (1, 1) (``make_host_mesh``) over a one-rank NCCL group, every leaf
+    a DTensor, the kernels launched on each rank's heads through
+    ``models.sharded_heads``' ``local_map`` regions:
+
+    * TinyLlama-1.1B at full width, bf16, B 4 x 4,096 prompt, 32 tokens,
+      ``serve_session(..., mesh=mesh)``: 22 flash launches per prefill
+      (counted over the sharded run), its logits and 32 greedy tokens held
+      to the plain ``serve_session`` on the same seeded weights and prompt
+      (bit-equal predicted at one rank; fails past ``SERVE_CROSS_TOL`` or on
+      any token), both prefills' seconds;
+    * one FedPart step of TinyLlama's ``blocks/7`` at full width in f32
+      (TF32 off), B 4 x 512, Adam ``eps`` 1e-3: the sharded step's loss and
+      updated leaves against the plain ``make_fedpart_train_step``'s within
+      ``SHARDED_TRAIN_TOL``;
+    * Zamba2-7B at full width cut to ``SHARDED_ZAMBA2_LAYERS`` of 81 layers,
+      bf16, B 4 x 4,096: the sharded prefill's SSD launches (one per Mamba2
+      layer, all through the wgmma body) and flash launches (one per
+      chunk), its last logits against the plain prefill's.
+
+    Returns the sharded runs' (flash, ssd_chunk) launches and the SSD
+    launches by body."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_kernel
+    from repro_torch.launch import sharding, steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import serve_session
+    from repro_torch.models import api, transformer
+    from repro_torch.models.api import InputShape
+    from repro_torch.optim.adam import AdamConfig
+    from repro_torch.tree import tree_paths
+
+    b, s, g = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    with _one_rank_group():
+        mesh = make_host_mesh(1, 1, "cuda")
+        cfg = get_config("tinyllama-1.1b")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = api.init(gen, cfg, "cuda")
+        prompt = api.synth_batch(gen, cfg, InputShape("serve", s, b, "prefill"), "cuda")
+        placed = sharding.shard_params(params, mesh)
+        serve_session(cfg, b, 256, 2, device="cuda", params=placed, verbose=False,
+                      mesh=mesh)
+        plain, _, _ = _count_flash(cfg, params, prompt, b, s, g, "sharded_step/plain")
+        torch.cuda.synchronize()
+        flash_attention_kernel.launches = 0
+        res = serve_session(cfg, b, s, g, device="cuda", params=placed, prompt=prompt,
+                            verbose=False, mesh=mesh)
+        torch.cuda.synchronize()
+        flash_n = flash_attention_kernel.launches
+        _log_serve_run("sharded_step", cfg, res, b, s, g)
+        worst = max(float((x - y).abs().max()) for x, y in zip(res.logits, plain.logits))
+        same = all(torch.equal(x, y) for x, y in zip(res.logits, plain.logits))
+        log(f"[sharded_step] tinyllama-1.1b mesh (1, 1), NCCL: flash_attention launches "
+            f"{flash_n} (one per layer: {cfg.num_layers}); logits vs plain serve: max "
+            f"|diff| {worst:.3e}, bit-equal {same}; tokens equal "
+            f"{torch.equal(res.tokens, plain.tokens)}; prefill {res.prefill_seconds:.6f} s "
+            f"sharded vs {plain.prefill_seconds:.6f} s plain")
+        if flash_n != cfg.num_layers:
+            raise AssertionError(f"sharded prefill: flash launches {flash_n} != "
+                                 f"{cfg.num_layers}")
+        if worst > SERVE_CROSS_TOL or not torch.equal(res.tokens, plain.tokens):
+            raise AssertionError(f"sharded serve vs plain: logits {worst}, tokens differ")
+        del params, placed, prompt, res, plain
+        torch.cuda.empty_cache()
+
+        # one FedPart step, f32 (TF32 off), sharded against plain
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        cfg32 = cfg.with_(param_dtype="float32", activation_dtype="float32")
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        params = api.init(gen, cfg32, "cuda")
+        batch = api.synth_batch(gen, cfg32, InputShape("t", SHARDED_TRAIN[1],
+                                                       SHARDED_TRAIN[0], "train"), "cuda")
+        group = steps.list_groups(params)[SHARDED_TRAIN_GROUP]
+        adam = AdamConfig(eps=1e-3)
+        p_ref, _, l_ref = steps.make_fedpart_train_step(cfg32, group, adam)(
+            params, steps.init_partial_opt_state(params, group), batch)
+        placed = sharding.shard_params(params, mesh)
+        opt = steps.shard_opt_state(steps.init_partial_opt_state(params, group),
+                                    steps._select_group(placed, group))
+        step = steps.make_sharded_train_step(cfg32, mesh, adam, group=group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p_new, _, loss = step(placed, opt, steps.shard_inputs(batch, mesh))
+        torch.cuda.synchronize()
+        t_step = time.perf_counter() - t0
+        diffs = {"/".join(k): float((a.to_local() - b_).abs().max())
+                 for (k, a), (_, b_) in zip(tree_paths(p_new), tree_paths(p_ref))}
+        bad = {k: v for k, v in diffs.items() if v > SHARDED_TRAIN_TOL}
+        ldiff = abs(float(loss.to_local()) - float(l_ref))
+        log(f"[sharded_step] FedPart step {group.key}[{group.index}] f32 B "
+            f"{SHARDED_TRAIN[0]} x {SHARDED_TRAIN[1]}: loss {float(l_ref):.6f}, sharded "
+            f"vs plain |diff| {ldiff:.3e}; leaves worst |diff| {max(diffs.values()):.3e}, "
+            f"bit-equal {sum(v == 0 for v in diffs.values())} of {len(diffs)}; "
+            f"redistributed {step.redistributed}; sharded step {t_step:.3f} s")
+        if ldiff > SHARDED_TRAIN_TOL or bad:
+            raise AssertionError(f"sharded FedPart step vs plain: loss {ldiff}, {bad}")
+        del params, placed, opt, p_new, p_ref, batch
+        torch.cuda.empty_cache()
+
+        # Zamba2-7B prefill, cut in depth: the SSD kernel under local_map
+        cfg = get_config("zamba2-7b").with_(num_layers=SHARDED_ZAMBA2_LAYERS)
+        n_chunks, tail = transformer.hybrid_layout(cfg)
+        mamba_layers = n_chunks * cfg.attn_every + tail
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = api.init(gen, cfg, "cuda")
+        prompt = api.synth_batch(gen, cfg, InputShape("serve", s, b, "prefill"), "cuda")
+        with torch.inference_mode():
+            ref, _ = steps.make_prefill_step(cfg)(params, prompt)
+        placed = sharding.shard_params(params, mesh)
+        step = steps.make_sharded_prefill_step(cfg, mesh)
+        with torch.no_grad():
+            step(placed, steps.shard_inputs(
+                api.synth_batch(gen, cfg, InputShape("w", 256, b, "prefill"), "cuda"), mesh))
+            torch.cuda.synchronize()
+            ssd_chunk_kernel.launches = 0
+            ssd_chunk_kernel.launches_by_body = dict.fromkeys(
+                ssd_chunk_kernel.launches_by_body, 0)
+            flash_attention_kernel.launches = 0
+            t0 = time.perf_counter()
+            logits, _ = step(placed, steps.shard_inputs(prompt, mesh))
+            torch.cuda.synchronize()
+            t_prefill = time.perf_counter() - t0
+        ssd_n, flash_z = ssd_chunk_kernel.launches, flash_attention_kernel.launches
+        by_body = dict(ssd_chunk_kernel.launches_by_body)
+        zdiff = float((logits.to_local() - ref).abs().max())
+        log(f"[sharded_step] zamba2-7b cut to {cfg.num_layers} of 81 layers ({n_chunks} "
+            f"chunks + {tail} tail), mesh (1, 1): ssd_chunk launches {ssd_n} (one per "
+            f"Mamba2 layer: {mamba_layers}; by body {by_body}), flash_attention launches "
+            f"{flash_z} (one per chunk: {n_chunks}); last logits vs plain prefill |diff| "
+            f"{zdiff:.3e}, bit-equal {torch.equal(logits.to_local(), ref)}; prefill "
+            f"{t_prefill:.6f} s")
+        if ssd_n != mamba_layers or flash_z != n_chunks or by_body["wgmma"] != mamba_layers:
+            raise AssertionError(f"zamba2 sharded prefill: ssd {ssd_n} ({by_body}), flash "
+                                 f"{flash_z}")
+        if not bool(torch.isfinite(logits.to_local()).all()) or zdiff > SERVE_CROSS_TOL:
+            raise AssertionError(f"zamba2 sharded prefill vs plain: {zdiff}")
+        del params, placed, prompt, logits, ref
+        torch.cuda.empty_cache()
+        _check_rank_heads()
+    return flash_n + flash_z, ssd_n, by_body
+
+
+class _RankOf:
+    """Rank ``r``'s view of a (1, ``m``) ("data", "model") mesh: what
+    ``sharded_heads.layout`` and ``offsets`` read of a ``DeviceMesh``."""
+
+    mesh_dim_names = ("data", "model")
+
+    def __init__(self, m: int, r: int):
+        self.m, self.r = m, r
+
+    def size(self, i: int) -> int:
+        return (1, self.m)[i]
+
+    def get_local_rank(self, i: int) -> int:
+        return (0, self.r)[i]
+
+
+def _check_rank_heads() -> None:
+    """What each model rank's ``sharded_heads.sdpa`` region does, on the
+    card, for the head layouts of ``SHARDED_HEAD_CASES``: bf16 q / k / v at
+    B 4 x 4,096, placed as the model's ``split_heads`` places them (heads
+    ``Shard(2)`` where they divide M), each rank's layout and offsets from
+    ``layout`` / ``offsets``, its contiguous local blocks, and
+    ``rank_sdpa`` (``kv_for_heads``, then the flash wrapper, causal) on
+    them; the ranks' outputs joined over the heads (or, replicated, each
+    equal to rank 0's) against the plain version at the flash tolerances,
+    one batch row at a time.  These launches are checks, not the main
+    path's."""
+    from types import SimpleNamespace
+
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import attention, sharded_heads
+
+    def core(ql, kl, vl, _ml):
+        return attention._sdpa(ql, kl, vl, None, "kernel", causal=True)
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b, s = SERVE_BATCH, SERVE_PROMPT
+    for tag, h, hkv, d, m, kind in SHARDED_HEAD_CASES:
+        q, k, v = _flash_qkv(b, h, hkv, s, s, d, torch.bfloat16, gen)
+        outs, kinds = [], set()
+        for r in range(m):
+            mesh = _RankOf(m, r)
+
+            def view(x, n):
+                return SimpleNamespace(device_mesh=mesh, shape=x.shape, ndim=x.ndim,
+                                       placements=[Replicate(),
+                                                   Shard(2) if n % m == 0 else Replicate()])
+
+            qp, kvp, _ = sharded_heads.layout(view(q, h), h, hkv)
+            b_off, s_off, h0, _ = sharded_heads.offsets(view(q, h), qp)
+            kv_sharded = isinstance(kvp[1], Shard)
+            ql = q.chunk(m, dim=2)[r].contiguous() if isinstance(qp[1], Shard) else q
+            kl, vl = ((k.chunk(m, dim=2)[r].contiguous(), v.chunk(m, dim=2)[r].contiguous())
+                      if kv_sharded else (k, v))
+            h_loc = ql.shape[2]
+            if kv_sharded:
+                kinds.add("kv shard")
+            elif h_loc == h:
+                kinds.add("all heads")
+            else:
+                kk, _ = sharded_heads.kv_for_heads(kl, vl, h0, h_loc, h, hkv)
+                shared = kk.untyped_storage().data_ptr() == kl.untyped_storage().data_ptr()
+                kinds.add("one kv view" if shared else "per-head copy")
+            outs.append(sharded_heads.rank_sdpa(core, ql, kl, vl, None, (b_off, s_off, h0),
+                                                h, hkv, kv_sharded))
+        if ", ".join(sorted(kinds)) != kind:
+            raise AssertionError(f"rank heads {tag} M {m}: ranks ran {kinds}, not {kind}")
+        if isinstance(qp[1], Shard):
+            out = torch.cat(outs, dim=2)
+        else:
+            out = outs[0]
+            if not all(torch.equal(o, out) for o in outs):
+                raise AssertionError(f"rank heads {tag} M {m}: replicated ranks differ")
+        errs = [_flash_agrees(out[i:i + 1], ops.attention_reference(
+            q[i:i + 1], k[i:i + 1], v[i:i + 1], causal=True), q[i:i + 1], (tag, m),
+            torch.bfloat16) for i in range(b)]
+        log(f"[sharded_step] rank heads {tag} H {h} / Hkv {hkv} D {d} at model {m}: "
+            f"{m} ranks x {outs[0].shape[2]} heads ({kind}); joined vs "
+            f"plain max abs err {max(e[0] for e in errs):.3e}, row err "
+            f"{max(e[1] for e in errs):.3e}")
+        del q, k, v, outs, out
+        torch.cuda.empty_cache()
+
+
+
 def phase_serve_hybrid() -> tuple[int, int, dict]:
     """The hybrid serving path: ``serve_session`` on zamba2-7b at full
     width, bf16, random weights from a seed, B 4 × 4,096 prompt, 32 tokens;
@@ -3114,6 +3366,24 @@ def phase_serve_vlm() -> int:
 # command line, the paper's driver with its checkpoint, the DLG attack
 # ---------------------------------------------------------------------------
 
+SHARDED_TRAIN = (4, 512)       # the sharded FedPart step: B x S, f32, TF32 off
+SHARDED_TRAIN_GROUP = 8        # steps.list_groups()[8]: TinyLlama's blocks/7
+SHARDED_TRAIN_TOL = 1e-5       # sharded vs plain step at one rank, adam_eps 1e-3
+SHARDED_ZAMBA2_LAYERS = 13     # 2 chunks of (shared attention, 6 Mamba2) + 1 tail of 81
+# Each model rank's flash launch on its heads (``sharded_heads.layout`` /
+# ``offsets`` / ``rank_sdpa``) for the head layouts a (1, M) mesh gives:
+# (tag, heads, kv heads, head dim, M, what the ranks' K / V are).  Gemma's
+# MQA (a view of its one kv head), LLaVA's GQA 7 with kv heads sharded (M
+# 8), copied one kv head per query head where a rank's 4 heads cross a
+# group (M 14; the others' sit in one) and replicated (M 16: 56 does not
+# divide), TinyLlama's 4 kv heads fewer than M 8 (a one-head view).
+SHARDED_HEAD_CASES = (("gemma-2b", 8, 1, 256, 4, "one kv view"),
+                      ("llava-next-34b", 56, 8, 128, 8, "kv shard"),
+                      ("llava-next-34b", 56, 8, 128, 14, "one kv view, per-head copy"),
+                      ("llava-next-34b", 56, 8, 128, 16, "all heads"),
+                      ("tinyllama-1.1b", 32, 4, 64, 8, "one kv view"))
+
+
 FEDTRAIN_LLM = ["--arch", "tinyllama-1.1b", "--full-size", "--batch", "4", "--seq",
                 "512", "--steps-per-round", "4", "--warmup", "1", "--rounds", "8"]
 FEDTRAIN_SIM = ["--sim-clients", "8", "--rounds", "12", "--batch", "32",
@@ -3595,13 +3865,17 @@ def main() -> int:
     _timed(phase_serve_mla)
     flash_encdec = _timed(phase_serve_encdec)
     flash_vlm = _timed(phase_serve_vlm)
-    ssd["launches_by_path"] = {"serve_hybrid": ssd_hybrid, "serve_xlstm": ssd_xlstm}
-    ssd["launches"] = ssd_hybrid + ssd_xlstm
-    ssd["launches_by_body"] = {"serve_hybrid": hybrid_bodies, "serve_xlstm": xlstm_bodies}
+    flash_sharded, ssd_sharded, sharded_bodies = _timed(phase_sharded_step)
+    ssd["launches_by_path"] = {"serve_hybrid": ssd_hybrid, "serve_xlstm": ssd_xlstm,
+                               "sharded_step": ssd_sharded}
+    ssd["launches"] = sum(ssd["launches_by_path"].values())
+    ssd["launches_by_body"] = {"serve_hybrid": hybrid_bodies, "serve_xlstm": xlstm_bodies,
+                               "sharded_step": sharded_bodies}
     flash["launches_by_path"] = {"serve": flash_serve, **flash_dense,
                                  "serve_hybrid": flash_hybrid, "serve_moe": flash_moe,
                                  "serve_moe_ep": flash_moe_ep,
-                                 "serve_encdec": flash_encdec, "serve_vlm": flash_vlm}
+                                 "serve_encdec": flash_encdec, "serve_vlm": flash_vlm,
+                                 "sharded_step": flash_sharded}
     flash["launches"] = sum(flash["launches_by_path"].values())
     _timed(phase_fedtrain_llm)
     _timed(phase_fedtrain_encdec)

@@ -18,9 +18,11 @@ the simulation's command line; ``launch/train.py``; ``checkpoint``).  The
 kernels are built with nvcc at first use.  The sharded-model layer:
 ``launch/mesh.py``'s data x model meshes, ``launch/sharding.py``'s
 placements, ``models/moe_ep.py`` (expert parallelism over
-``torch.distributed``), ``models/act_sharding.py`` and the dry run
-(``launch/dryrun.py``, ``cost_probes.py``, ``hlo_analysis.py``: fake
-tensors, no card).  Two JAX shims have no counterpart:
+``torch.distributed``), ``models/act_sharding.py``, the DTensor-propagated
+steps (``launch/steps.py`` ``make_sharded_*``, the attention, scans and
+kernels on each rank's heads through ``models/sharded_heads.py``) and the
+dry run on them (``launch/dryrun.py``, ``cost_probes.py``,
+``hlo_analysis.py``: fake tensors, per-device counts, no card).  Two JAX shims have no counterpart:
 ``core/compat.py`` (jax's ``shard_map`` symbol and keyword churn: torch has
 no ``shard_map``) and ``launch/_simdev.py`` (an XLA flag for simulated host
 devices: ``torchrun`` sets the world size, and the dry run makes a

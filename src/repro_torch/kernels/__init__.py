@@ -34,3 +34,18 @@ def refuse_grad(name: str, *inputs: torch.Tensor) -> None:
             f"{name} has no backward: an input requires grad with grad mode "
             "on; differentiate through impl='plain', or call it under "
             "torch.no_grad()")
+
+
+def refuse_dtensor(name: str, *inputs) -> None:
+    """Raise when a DTensor reaches kernel ``name``.  A kernel launches on
+    raw device pointers of one rank's tensors: a DTensor step reaches it
+    only through ``models.sharded_heads``' ``local_map`` regions, which
+    hand it each rank's local heads.  The check runs on every device, so a
+    sharded path that skipped the region fails on the CPU as on the card
+    (and never falls back to the plain version)."""
+    from torch.distributed.tensor import DTensor
+
+    if any(isinstance(t, DTensor) for t in inputs):
+        raise TypeError(
+            f"{name} takes plain tensors, got a DTensor: run it on each rank's "
+            "local heads (models.sharded_heads routes a DTensor step there)")

@@ -37,7 +37,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, refuse_grad
+from repro_torch.kernels import build, refuse_dtensor, refuse_grad
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 MAX_HEAD_DIM = 256
@@ -141,6 +141,7 @@ def flash_attention_kernel(
     contiguous when not given).  Refuses inputs that require grad while
     grad mode is on (``kernels.refuse_grad``), on every device."""
     refuse_grad("flash_attention_kernel", q, k, v)
+    refuse_dtensor("flash_attention_kernel", q, k, v, out)
     _check(q, k, v, out, window)
     if q.device.type == "cpu":
         o = attention_ref(q, k, v, causal=causal, window=window)

@@ -36,7 +36,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, refuse_grad
+from repro_torch.kernels import build, refuse_dtensor, refuse_grad
 from repro_torch.kernels.ssd_chunk.ref import ssd_ref
 
 MAX_N = 192                    # N: each CTA holds all of it
@@ -181,6 +181,7 @@ def ssd_chunk_kernel(
     final_state: (B,H,N,P) f32).  Refuses inputs that require grad while
     grad mode is on (``kernels.refuse_grad``), on every device."""
     refuse_grad("ssd_chunk_kernel", q, k, v, log_a)
+    refuse_dtensor("ssd_chunk_kernel", q, k, v, log_a, out)
     chunk, tile = _check(q, k, v, log_a, chunk, out)
     if v.device.type == "cpu":
         y, state = ssd_ref(q, k, v, log_a)
@@ -197,6 +198,7 @@ def ssd_chunk_body(q, k, v, log_a, *, body: str, chunk: int = 128, out=None):
     ``BODIES``), for timing one body against the other; raises where that
     body cannot take the call.  Nothing on the main path calls it."""
     refuse_grad("ssd_chunk_body", q, k, v, log_a)
+    refuse_dtensor("ssd_chunk_body", q, k, v, log_a, out)
     chunk, tile = _check(q, k, v, log_a, chunk, out)
     if v.device.type != "cuda":
         raise ValueError(f"ssd_chunk_body runs on cuda, not {v.device}")

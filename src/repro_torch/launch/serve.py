@@ -44,14 +44,14 @@ import dataclasses
 import time
 
 import torch
-import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
-from repro_torch.launch import steps
-from repro_torch.models import api
+from repro_torch.launch import sharding, steps
+from repro_torch.models import api, sharded_heads
 from repro_torch.models.api import InputShape
-from repro_torch.tree import PyTree, tree_map_with_path
+from repro_torch.tree import PyTree, tree_leaves, tree_map_with_path
 
 
 @dataclasses.dataclass
@@ -70,7 +70,7 @@ def _sync(device: torch.device) -> None:
 def serve_session(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0, *,
                   device: str | torch.device = "cuda", impl: str = "kernel",
                   params: PyTree | None = None, prompt: dict | None = None,
-                  verbose: bool = True) -> ServeResult:
+                  verbose: bool = True, mesh=None) -> ServeResult:
     """Prefill a prompt batch, then greedy-decode ``gen`` tokens.
 
     Without ``params`` / ``prompt`` both are drawn from one generator seeded
@@ -78,6 +78,14 @@ def serve_session(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0, *,
     instead, bridged onto ``device``.  ``prompt_len`` is the prefill's
     sequence length, a VLM's media positions included, so decode starts at
     position ``prompt_len``.
+
+    With a ``mesh`` (a ``("data", "model")`` ``DeviceMesh``, e.g.
+    ``launch.mesh.make_host_mesh``) the session runs the sharded steps
+    (``steps.make_sharded_prefill_step`` / ``make_sharded_serve_step``): the
+    params placed by ``sharding.shard_params`` (unless already DTensors),
+    the prompt, tokens and caches by ``input_shardings``, the kernels on
+    each rank's heads.  Each step's (B, 1, V) logits are gathered whole for
+    the greedy token, and returned whole.
     """
     dev = resolve_device(device)
     rng = torch.Generator(device=dev).manual_seed(seed)
@@ -88,22 +96,39 @@ def serve_session(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0, *,
         prompt = api.synth_batch(rng, cfg, shape, dev)
 
     cache_len = prompt_len + gen
-    prefill = steps.make_prefill_step(cfg, impl=impl)
-    serve = steps.make_serve_step(cfg)
+    if mesh is None:
+        prefill = steps.make_prefill_step(cfg, impl=impl)
+        serve = steps.make_serve_step(cfg)
+        mode = torch.inference_mode
 
-    with torch.inference_mode():
+        def token_in(t):
+            return t
+    else:
+        if not isinstance(tree_leaves(params)[0], DTensor):
+            params = sharding.shard_params(params, mesh)
+        prompt = steps.shard_inputs(prompt, mesh)
+        prefill = steps.make_sharded_prefill_step(cfg, mesh, impl=impl)
+        serve = steps.make_sharded_serve_step(cfg, mesh)
+        mode = torch.no_grad          # DTensor re-wraps local tensors at every op
+
+        def token_in(t):
+            return steps.shard_inputs({"token": t}, mesh)["token"]
+
+    with mode():
         _sync(dev)
         t0 = time.perf_counter()
         logits, cache = prefill(params, prompt)
         cache = _grow_attention_caches(cache, prompt_len, cache_len)
         _sync(dev)
         prefill_s = time.perf_counter() - t0
+        logits = _whole(logits)
         tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(torch.int32)
 
         toks, step_logits = [tok], [logits]
         t1 = time.perf_counter()
         for i in range(gen - 1):
-            logits, cache = serve(params, tok, cache, prompt_len + i)
+            logits, cache = serve(params, token_in(tok), cache, prompt_len + i)
+            logits = _whole(logits)
             tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(torch.int32)
             toks.append(tok)
             step_logits.append(logits)
@@ -115,6 +140,11 @@ def serve_session(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0, *,
               f"decode {gen} tokens in {decode_s:.2f}s "
               f"({batch * gen / max(decode_s, 1e-9):.1f} tok/s)")
     return ServeResult(out, step_logits, prefill_s, decode_s)
+
+
+def _whole(logits: torch.Tensor) -> torch.Tensor:
+    """One step's (B, 1, V) logits as a plain tensor (a DTensor gathered)."""
+    return logits.full_tensor() if isinstance(logits, DTensor) else logits
 
 
 _ATTN_CACHE_KEYS = {"k", "v", "c_kv", "k_rope", "self_k", "self_v"}
@@ -135,7 +165,7 @@ def _grow_attention_caches(cache: PyTree, prompt_len: int, cache_len: int) -> Py
         if name in _ATTN_CACHE_KEYS and leaf.dim() >= 4 and leaf.shape[2] == prompt_len:
             # F.pad lists (before, after) pairs from the last axis backwards
             pad = [0, 0] * (leaf.dim() - 3) + [0, cache_len - prompt_len]
-            return F.pad(leaf, pad)
+            return sharded_heads.pad(leaf, pad, (2,))
         return leaf
 
     return tree_map_with_path(grow, cache)

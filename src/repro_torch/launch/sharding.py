@@ -271,9 +271,10 @@ def params_shardings(params: PyTree, mesh, *, fsdp: bool = False) -> dict[str, t
 def shard_params(params: PyTree, mesh, *, fsdp: bool = False) -> PyTree:
     """``params`` as DTensors on ``mesh`` (a ``DeviceMesh``), each leaf
     placed by its rule: every rank passes the same full tree and keeps its
-    shards."""
+    shards (cut locally, no collective)."""
     pl = params_shardings(params, mesh, fsdp=fsdp)
-    return tree_map_with_path(lambda p, x: distribute_tensor(x, mesh, pl[p]), params)
+    return tree_map_with_path(
+        lambda p, x: distribute_tensor(x, mesh, pl[p], src_data_rank=None), params)
 
 
 # ---------------------------------------------------------------------------

@@ -7,6 +7,13 @@
   the ``embed`` / ``shared_attn`` / ``final_norm|head`` subtrees).
 - ``make_prefill_step``        — full-sequence forward + KV cache write.
 - ``make_serve_step``          — one-token decode against the cache.
+- ``make_sharded_train_step`` / ``make_sharded_prefill_step`` /
+  ``make_sharded_serve_step`` — the same three steps with every leaf a
+  DTensor on a ``("data", "model")`` mesh (the reference's ``jax.jit`` with
+  ``in_shardings`` / ``out_shardings``, ``launch/dryrun.py``
+  ``compile_step``), placed by ``launch/sharding.py`` (``shard_params``,
+  ``shard_inputs``, ``shard_opt_state``) and propagated through the model
+  code, as GSPMD partitions the reference's.
 
 The reference ``jax.jit``s these; here they are plain functions (PyTorch
 runs eagerly) and the reference's ``unroll`` (a scan option) has no
@@ -30,14 +37,18 @@ no input tensor is ever written.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import api
+from repro_torch.launch import sharding
+from repro_torch.models import act_sharding, api, moe_ep
 from repro_torch.optim.adam import AdamConfig, AdamState, adam_init, adam_update
-from repro_torch.tree import PyTree, tree_leaves, tree_map
+from repro_torch.tree import PyTree, tree_leaves, tree_map, tree_map_with_path
 
 STACK_KEYS = ("blocks", "moe_blocks", "pairs", "chunks", "tail", "enc_blocks", "dec_blocks")
 
@@ -234,4 +245,204 @@ def make_serve_step(cfg: ModelConfig, *, window: int = 0):
     def serve_step(params, token, cache, pos):
         return api.decode_step(params, cfg, token, cache, pos, window=window)
 
+    return serve_step
+
+
+# ---------------------------------------------------------------------------
+# Sharded steps (DTensor leaves on a ("data", "model") mesh)
+# ---------------------------------------------------------------------------
+#
+# The counterpart of the reference's ``compile_step``: the params placed by
+# ``sharding.shard_params`` (FSDP as the caller decides, ``dryrun._fsdp``),
+# the f32 Adam state by the params' placements, the batch, token and cache
+# by ``sharding.input_shardings``.  The model code runs on the DTensors
+# under ``implicit_replication`` (positions, masks and other tensors built
+# from shapes are replicated); the attention and the scans run on each
+# rank's heads (``models.sharded_heads``), the MoE layers as
+# ``moe._moe_apply_dtensor`` says or, with ``moe_ep``, through
+# ``moe_ep.expert_parallel``.  Outputs keep the reference's
+# ``out_shardings``: params and optimizer state their input placements,
+# the train loss and the decode logits replicated, the caches
+# ``sharding.cache_spec``'s.  A leaf that propagation left elsewhere is
+# redistributed to it, and the step records its path in ``redistributed``;
+# the gradient is brought to its param's layout before the update (the
+# data-parallel all-reduce, or FSDP's reduce-scatter, that GSPMD inserts).
+
+
+def _replicated(mesh) -> list:
+    return [Replicate()] * mesh.ndim
+
+
+def shard_inputs(batch: dict, mesh) -> dict:
+    """``batch`` (a train / prefill batch, or a decode step's token and
+    cache) as DTensors placed by ``sharding.input_shardings``: every rank
+    passes the same full tensors and keeps its shards; a non-tensor leaf (a
+    decode's ``pos``) passes through."""
+    pl = sharding.input_shardings(batch, mesh)
+    return tree_map_with_path(
+        lambda p, x: distribute_tensor(x, mesh, pl[p], src_data_rank=None)
+        if isinstance(x, torch.Tensor) else x, batch)
+
+
+def shard_opt_state(state: AdamState, params: PyTree) -> AdamState:
+    """An Adam state of plain tensors placed as the DTensor ``params`` it
+    tracks (a FedPart step's: the group's subtree): ``m`` and ``v`` each
+    as its param, the step count replicated."""
+    mesh = tree_leaves(params)[0].device_mesh
+
+    def like(x, p):
+        return distribute_tensor(x, mesh, p.placements, src_data_rank=None)
+
+    return AdamState(step=distribute_tensor(state.step, mesh, _replicated(mesh),
+                                            src_data_rank=None),
+                     m=tree_map(like, state.m, params), v=tree_map(like, state.v, params))
+
+
+@contextlib.contextmanager
+def sharded_context(cfg: ModelConfig, mesh, *, fsdp: bool = False, use_moe_ep: bool = False,
+                    act_shard: bool = False):
+    """What a sharded step runs under: ``implicit_replication``, expert
+    parallelism for an MoE config with ``use_moe_ep`` (yields its
+    ``ExpertParallel``, else None) and the activation layouts with
+    ``act_shard``."""
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(implicit_replication())
+        ep = (stack.enter_context(moe_ep.expert_parallel(mesh, fsdp))
+              if use_moe_ep and cfg.is_moe else None)
+        if act_shard:
+            stack.enter_context(act_sharding.activation_sharding(mesh))
+        yield ep
+
+
+def _relayout(x, placements, path: str, moved: list):
+    """``x`` in ``placements``, recording ``path`` in ``moved`` when it had
+    to be redistributed."""
+    if (not isinstance(x, DTensor) or placements is None
+            or tuple(x.placements) == tuple(placements)):
+        return x
+    moved.append(path)
+    return x.redistribute(x.device_mesh, placements)
+
+
+def _keep_layout(tree: PyTree, like: PyTree, moved: list, prefix: str = "") -> PyTree:
+    """``tree`` with every leaf in the placements of its ``like`` leaf."""
+    return tree_map_with_path(
+        lambda p, x, ref: _relayout(x, ref.placements, prefix + p, moved), tree, like)
+
+
+def reduce_grads(grads: PyTree, params: PyTree) -> PyTree:
+    """Each DTensor gradient in its param's placements: the reduction GSPMD
+    inserts before the update (a partial sum over "data" all-reduced, or
+    reduce-scattered where FSDP shards the param there)."""
+    return tree_map(lambda g, p: g.redistribute(p.device_mesh, p.placements)
+                    if isinstance(g, DTensor) else g, grads, params)
+
+
+def _micro(x: DTensor, i: int, accum: int) -> DTensor:
+    """Microbatch ``i`` of ``accum``: the ``i``-th block of each rank's local
+    batch rows, so every microbatch stays sharded as the batch is, with no
+    collective (the microbatches' mean loss and gradient are the whole
+    batch's)."""
+    loc = x.to_local()
+    n = loc.shape[0] // accum
+    return DTensor.from_local(loc[i * n:(i + 1) * n], x.device_mesh, x.placements,
+                              run_check=False)
+
+
+def make_sharded_train_step(cfg: ModelConfig, mesh, adam: AdamConfig = AdamConfig(), *,
+                            group: StackedGroup | None = None, fsdp: bool = False,
+                            use_moe_ep: bool = False, act_shard: bool = False,
+                            impl: str = "plain", remat: bool = True, accum: int = 1):
+    """The FNU step (``group`` None) or the FedPart step of ``group`` on
+    DTensor params, Adam state (``shard_opt_state``; a FedPart step's over
+    the group) and batch (``shard_inputs``).  Returns (params, state, loss):
+    params and state in their input placements, the loss replicated.
+    ``accum`` > 1 averages the gradients of ``accum`` microbatches
+    (``_micro``) in f32, as ``make_train_step``.  The step's
+    ``redistributed`` lists the outputs it had to re-lay out in its last
+    call, ``traffic`` expert parallelism's records."""
+
+    def train_step(params, opt_state, batch):
+        moved: list = []
+        trainable = params if group is None else _select_group(params, group)
+        with sharded_context(cfg, mesh, fsdp=fsdp, use_moe_ep=use_moe_ep,
+                             act_shard=act_shard) as ep:
+            loss, grads = None, None
+            for i in range(accum):
+                mb = batch if accum == 1 else tree_map(lambda x: _micro(x, i, accum), batch)
+                lv, g = loss_and_grads(cfg, params, mb, group, impl=impl, remat=remat)
+                if accum == 1:
+                    loss, grads = lv, g
+                elif grads is None:
+                    loss, grads = lv, tree_map(lambda t: t.float(), g)
+                else:
+                    loss, grads = loss + lv, tree_map(torch.add, grads, g)
+            if accum > 1:
+                loss, grads = loss / accum, tree_map(lambda t: t / accum, grads)
+            grads = reduce_grads(grads, trainable)
+            new_sub, new_state = adam_update(grads, opt_state, trainable, adam)
+            with torch.no_grad():
+                new_params = (new_sub if group is None
+                              else _inject_group(params, group, new_sub))
+        new_params = _keep_layout(new_params, params, moved)
+        new_state = AdamState(
+            step=_relayout(new_state.step, getattr(opt_state.step, "placements", None),
+                           "step", moved),
+            m=_keep_layout(new_state.m, opt_state.m, moved, "m/"),
+            v=_keep_layout(new_state.v, opt_state.v, moved, "v/"))
+        loss = _relayout(loss, _replicated(mesh), "loss", [])
+        train_step.redistributed = moved
+        train_step.traffic = ep.traffic if ep is not None else []
+        return new_params, new_state, loss
+
+    train_step.redistributed, train_step.traffic = [], []
+    return train_step
+
+
+def make_sharded_prefill_step(cfg: ModelConfig, mesh, *, window: int = 0,
+                              impl: str = "kernel", fsdp: bool = False,
+                              use_moe_ep: bool = False, act_shard: bool = False):
+    """``make_prefill_step`` on DTensor params and batch: returns (the last
+    position's logits, the cache), the cache in ``sharding.cache_spec``'s
+    placements.  ``impl="kernel"`` launches the flash and SSD kernels on
+    each rank's heads."""
+    inner = make_prefill_step(cfg, window=window, impl=impl)
+
+    def prefill_step(params, batch):
+        moved: list = []
+        with sharded_context(cfg, mesh, fsdp=fsdp, use_moe_ep=use_moe_ep,
+                             act_shard=act_shard) as ep:
+            logits, cache = inner(params, batch)
+        cache = tree_map_with_path(
+            lambda p, x: _relayout(x, sharding.placements(
+                sharding.cache_spec(tuple(x.shape), mesh), mesh), "cache/" + p, moved),
+            cache)
+        prefill_step.redistributed = moved
+        prefill_step.traffic = ep.traffic if ep is not None else []
+        return logits, cache
+
+    prefill_step.redistributed, prefill_step.traffic = [], []
+    return prefill_step
+
+
+def make_sharded_serve_step(cfg: ModelConfig, mesh, *, window: int = 0, fsdp: bool = False,
+                            use_moe_ep: bool = False, act_shard: bool = False):
+    """``make_serve_step`` on DTensor params, token and cache: the cache is
+    written in place and keeps its placements; the logits come back
+    replicated (the reference's ``out_shardings``)."""
+
+    def serve_step(params, token, cache, pos):
+        moved: list = []
+        like = tree_map(lambda x: x.placements, cache)
+        with sharded_context(cfg, mesh, fsdp=fsdp, use_moe_ep=use_moe_ep,
+                             act_shard=act_shard) as ep:
+            logits, new_cache = api.decode_step(params, cfg, token, cache, pos,
+                                                window=window)
+        new_cache = tree_map_with_path(
+            lambda p, x, pl: _relayout(x, pl, "cache/" + p, moved), new_cache, like)
+        serve_step.redistributed = moved
+        serve_step.traffic = ep.traffic if ep is not None else []
+        return _relayout(logits, _replicated(mesh), "logits", []), new_cache
+
+    serve_step.redistributed, serve_step.traffic = [], []
     return serve_step

@@ -12,6 +12,12 @@ The port applies a layout only to a tensor that is a DTensor on the mesh
 (``DTensor.redistribute``).  A plain tensor is returned unchanged, in the
 context as outside it, where the reference is a no-op.  ``scores_spec`` /
 ``resid_spec`` are the layout decisions, as specs (``launch.sharding``).
+
+In a DTensor step the scores exist only inside a head-parallel
+``local_map`` region (``models.sharded_heads``), where they are plain local
+tensors: there the context acts through ``scores_spec``, which picks the
+region's layout (heads over "model" when they divide, else the query
+positions), and ``constrain_scores`` on the local scores is the identity.
 """
 
 from __future__ import annotations

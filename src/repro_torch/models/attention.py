@@ -37,6 +37,12 @@ label ``MLA_SCORES``.
 The plain paths' scores and probabilities pass through
 ``act_sharding.constrain_scores`` where the reference's do (a layout for a
 DTensor under ``activation_sharding(mesh)``; a plain tensor unchanged).
+
+On DTensors (a sharded step) ``_sdpa`` and MLA's scores-to-output run on
+each rank's heads through ``sharded_heads.sdpa`` / ``sharded_heads.mla``
+(the same code, plain or kernel, on local tensors), and the head
+split / merge reshapes through ``sharded_heads.split_heads`` /
+``merge_heads``.
 """
 
 from __future__ import annotations
@@ -44,11 +50,12 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.models import act_sharding
+from repro_torch.models import act_sharding, sharded_heads
 from repro_torch.models.layers import (apply_rope, linear, linear_init, rmsnorm,
                                        rmsnorm_init, rope_angles)
 from repro_torch.tree import PyTree
@@ -69,16 +76,21 @@ def gqa_init(gen: torch.Generator, cfg: ModelConfig, dtype, device,
     }
 
 
-def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
-    return x.reshape(*x.shape[:-1], n, hd)
+_split_heads = sharded_heads.split_heads
 
 
 def _sdpa(q, k, v, mask, impl: str = "kernel", *, causal: bool = True,
           window: int = 0):
     """q: (B,S,H,D); k/v: (B,T,Hkv,D); mask: (B,S,T) or (S,T) bool, read by
-    the plain path; the kernel takes ``causal`` / ``window`` instead."""
+    the plain path; the kernel takes ``causal`` / ``window`` instead.
+    DTensor inputs run on each rank's heads (``sharded_heads.sdpa``)."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if isinstance(q, DTensor):
+        return sharded_heads.sdpa(
+            lambda ql, kl, vl, ml: _sdpa(ql, kl, vl, ml, impl, causal=causal,
+                                         window=window), q, k, v, mask,
+            positions=impl == "plain" or q.shape[1] == 1 or not (causal or window))
     b, s, h, d = q.shape
     if impl == "kernel" and s > 1:
         return fa_ops.flash_attention(q, k, v, causal=causal, window=window)
@@ -129,7 +141,7 @@ def gqa_full(
     # the kernel path never reads the mask, so it is built for the plain one only
     mask = causal_mask(s, window, x.device) if causal and impl == "plain" else None
     y = _sdpa(q, k, v, mask, impl=impl, causal=causal, window=window)
-    y = linear(params["wo"], y.reshape(b, s, cfg.num_heads * hd))
+    y = linear(params["wo"], sharded_heads.merge_heads(y))
     return y, (k, v)
 
 
@@ -168,7 +180,7 @@ def gqa_decode(
     valid = torch.ones_like(idx, dtype=torch.bool) if pos + 1 >= cache_len else idx <= pos
     mask = valid[None, None, :].expand(b, 1, cache_len)
     y = _sdpa(q, k_cache.to(q.dtype), v_cache.to(q.dtype), mask, impl="plain")
-    y = linear(params["wo"], y.reshape(b, 1, cfg.num_heads * hd))
+    y = linear(params["wo"], sharded_heads.merge_heads(y))
     return y, (k_cache, v_cache)
 
 
@@ -202,18 +214,30 @@ def _mla_q(params: PyTree, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         q = linear(params["wq_b"], rmsnorm(params["q_norm"], linear(params["wq_a"], x)))
     else:
         q = linear(params["wq"], x)
-    return q.reshape(*x.shape[:-1], cfg.num_heads, qk_dim)
+    return _split_heads(q, cfg.num_heads, qk_dim)
 
 
 def _mla_scores_and_out(params, cfg, q, c_kv, k_rope, mask):
     """q: (B,S,H,qk); c_kv: (B,T,rank); k_rope: (B,T,rope), shared across
-    heads; mask: (B,S,T) or (S,T) bool."""
+    heads; mask: (B,S,T) or (S,T) bool.  DTensor inputs run the scores to
+    P·V on each rank's heads (``sharded_heads.mla``)."""
     h = cfg.num_heads
     nope, rope_d, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
-    q_nope, q_rope = q[..., :nope], q[..., nope:]
-    kv = linear(params["wkv_b"], rmsnorm(params["kv_norm"], c_kv))
-    kv = kv.reshape(*c_kv.shape[:-1], h, nope + vd)
+    kv = _split_heads(linear(params["wkv_b"], rmsnorm(params["kv_norm"], c_kv)), h,
+                      nope + vd)
     k_nope, v = kv[..., :nope], kv[..., nope:]
+    if isinstance(q, DTensor):
+        y = sharded_heads.mla(lambda *a: _mla_core(cfg, *a), q, k_nope, v, k_rope, mask)
+    else:
+        y = _mla_core(cfg, q, k_nope, v, k_rope, mask)
+    return linear(params["wo"], sharded_heads.merge_heads(y))
+
+
+def _mla_core(cfg, q, k_nope, v, k_rope, mask):
+    """MLA's scores, mask, softmax and P·V: q (B,S,H,qk), k_nope (B,T,H,nope),
+    v (B,T,H,vd), k_rope (B,T,rope) -> (B,S,H,vd)."""
+    nope, rope_d = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
     scale = 1.0 / math.sqrt(nope + rope_d)
     with record_function(MLA_SCORES):
         logits = (torch.einsum("bshd,bthd->bhst", q_nope, k_nope)
@@ -228,8 +252,7 @@ def _mla_scores_and_out(params, cfg, q, c_kv, k_rope, mask):
         probs = torch.softmax(logits, dim=-1)
         del logits
         probs = act_sharding.constrain_scores(probs.to(q.dtype))
-        y = torch.einsum("bhst,bthd->bshd", probs, v)
-    return linear(params["wo"], y.reshape(*q.shape[:2], h * vd))
+        return torch.einsum("bhst,bthd->bshd", probs, v)
 
 
 def _mla_latents(params, cfg, x, positions):

@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import sharded_heads
 from repro_torch.models.layers import (act_dtype, embed, embedding_init, layer_slice, linear,
                                        maybe_remat, mlp_apply, mlp_init, norm_apply,
                                        norm_init, normal_init, param_dtype, stack_layers,
@@ -87,17 +88,17 @@ def _cross_attend(p: PyTree, cfg: ModelConfig, x: torch.Tensor, enc_k: torch.Ten
     encoder's output (computed once at prefill and cached), no mask."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = linear(p["wq"], x).reshape(b, s, cfg.num_heads, hd)
+    q = attn._split_heads(linear(p["wq"], x), cfg.num_heads, hd)
     y = attn._sdpa(q, enc_k, enc_v, None, impl=impl, causal=False)
-    return linear(p["wo"], y.reshape(b, s, cfg.num_heads * hd))
+    return linear(p["wo"], sharded_heads.merge_heads(y))
 
 
 def _enc_kv(p: PyTree, cfg: ModelConfig,
             enc_out: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     b, t, _ = enc_out.shape
     hd = cfg.resolved_head_dim
-    k = linear(p["wk"], enc_out).reshape(b, t, cfg.num_kv_heads, hd)
-    v = linear(p["wv"], enc_out).reshape(b, t, cfg.num_kv_heads, hd)
+    k = attn._split_heads(linear(p["wk"], enc_out), cfg.num_kv_heads, hd)
+    v = attn._split_heads(linear(p["wv"], enc_out), cfg.num_kv_heads, hd)
     return k, v
 
 

@@ -23,6 +23,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch._subclasses.fake_tensor import is_fake
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.tree import PyTree, tree_map
@@ -94,12 +96,59 @@ def rmsnorm_init(d: int, dtype, device, n: int | None = None) -> PyTree:
     return {"scale": torch.ones(_lead(n) + (d,), dtype=dtype, device=device)}
 
 
+def reduce_partial(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor that is a pending sum (``Partial``: the vocab-parallel
+    embedding's rows, a row-parallel linear's output, summed along the
+    residual stream) reduced to ``Replicate`` there: one all-reduce a
+    sublayer, where Megatron (and GSPMD on the reference) reduces.  Left
+    pending, DTensor's propagation reduce-scatters the stream over the
+    batch on "model" and all-gathers every weight of the next linears."""
+    if isinstance(x, DTensor) and any(p.is_partial() for p in x.placements):
+        return x.redistribute(x.device_mesh, [Replicate() if p.is_partial() else p
+                                              for p in x.placements])
+    return x
+
+
+class _ReducePartialGrad(torch.autograd.Function):
+    """The identity, whose backward reduces a pending-sum gradient: at a
+    norm's output, where the tensor-parallel linears' input gradients come
+    back as partial sums, one all-reduce a sublayer (Megatron's backward
+    one); left pending, DTensor's propagation all-gathers the weights of
+    the linears before."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_partial(g)
+
+
+def _norm_out(y: torch.Tensor) -> torch.Tensor:
+    if isinstance(y, DTensor) and y.requires_grad:
+        return _ReducePartialGrad.apply(y)
+    return y
+
+
+def _norm_param(w: torch.Tensor) -> torch.Tensor:
+    """A norm's (d,) scale or bias, replicated where the rules shard it (an
+    all-gather of d values, as GSPMD gathers it).  Left sharded over
+    "model", DTensor lays the normed stream out to match it, and the next
+    linears then all-gather their weights."""
+    if isinstance(w, DTensor) and any(isinstance(p, Shard) for p in w.placements):
+        return w.redistribute(w.device_mesh, [Replicate() if isinstance(p, Shard) else p
+                                              for p in w.placements])
+    return w
+
+
 def rmsnorm(params: PyTree, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    x = reduce_partial(x)
     dt = x.dtype
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
-    return (y * params["scale"].float()).to(dt)
+    return _norm_out((y * _norm_param(params["scale"]).float()).to(dt))
 
 
 def layernorm_init(d: int, dtype, device, n: int | None = None) -> PyTree:
@@ -108,13 +157,14 @@ def layernorm_init(d: int, dtype, device, n: int | None = None) -> PyTree:
 
 
 def layernorm(params: PyTree, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    x = reduce_partial(x)
     dt = x.dtype
     x32 = x.float()
     mu = torch.mean(x32, dim=-1, keepdim=True)
     var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
     y = (x32 - mu) * torch.rsqrt(var + eps)
-    y = y * params["scale"].float() + params["bias"].float()
-    return y.to(dt)
+    y = y * _norm_param(params["scale"]).float() + _norm_param(params["bias"]).float()
+    return _norm_out(y.to(dt))
 
 
 def norm_init(kind: str, d: int, dtype, device, n: int | None = None) -> PyTree:
@@ -153,8 +203,52 @@ def embedding_init(gen: torch.Generator, vocab: int, d: int, dtype,
 
 
 def embed(params: PyTree, ids: torch.Tensor, dtype=None) -> torch.Tensor:
-    out = params["table"][ids]
+    """Rows ``ids`` of the table (a DTensor table: ``_embed_sharded``)."""
+    table = params["table"]
+    out = _embed_sharded(table, ids) if isinstance(table, DTensor) else table[ids]
     return out.to(dtype) if dtype is not None else out
+
+
+def _embed_sharded(table: DTensor, ids) -> DTensor:
+    """The lookup on each rank's block of a DTensor table, as GSPMD
+    partitions it: where the vocabulary is sharded, each rank looks up the
+    ids in its slice, zeroes the others, and the (B, S, d) rows are a
+    partial sum over that mesh dim (reduced where they are next used);
+    where d is sharded the rows are too.  The ids keep their batch layout
+    elsewhere.  The backward is the local lookup's, so the table's gradient
+    comes back in its own layout (a partial sum over a data axis that
+    shards the ids).  DTensor's own rules for the indexing do not serve: its
+    backward (``index_put``) has none that runs on some torch versions, and
+    ``F.embedding``'s masked output is refused by a later norm."""
+    from repro_torch.models import sharded_heads
+
+    mesh = table.device_mesh
+    ids = sharded_heads.on_mesh(ids, mesh)
+    vocab, v_loc = table.shape[0], table.to_local().shape[0]
+    v_off = sharded_heads.offsets(table, table.placements)[0]
+    id_pl, out_pl, grad_pl = [], [], []
+    for tp, ip in zip(table.placements, ids.placements):
+        if isinstance(tp, Shard):
+            id_pl.append(Replicate())
+            out_pl.append(Partial() if tp.dim == 0 else Shard(ids.ndim))
+            grad_pl.append(tp)
+        else:
+            batch = isinstance(ip, Shard) and ip.dim == 0
+            id_pl.append(Shard(0) if batch else Replicate())
+            out_pl.append(Shard(0) if batch else Replicate())
+            grad_pl.append(Partial() if batch else Replicate())
+
+    def lookup(t, i):
+        if v_loc == vocab:
+            return t[i]
+        local = i - v_off
+        inside = (local >= 0) & (local < v_loc)
+        return t[local.clamp(0, v_loc - 1)] * inside[..., None].to(t.dtype)
+
+    return local_map(lookup, out_placements=out_pl, in_placements=(list(table.placements),
+                                                                   id_pl),
+                     in_grad_placements=(grad_pl, id_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(table, ids)
 
 
 def unembed(params: PyTree, x: torch.Tensor) -> torch.Tensor:

@@ -31,7 +31,9 @@ products, the combine and the shared expert), so a profile can split an MoE laye
 Under ``moe_ep.expert_parallel(mesh)`` ``moe_apply`` dispatches to
 ``moe_ep.moe_apply_ep`` (explicit expert parallelism over the mesh's
 "model" axis on ``torch.distributed``), as the reference's does; both run
-the same router (``route``) and sort dispatch (``dispatch``).
+the same router (``route``) and sort dispatch (``dispatch``).  DTensor
+tokens without it take ``_moe_apply_dtensor`` (GSPMD's partitioning of
+the same layer).
 """
 
 from __future__ import annotations
@@ -40,6 +42,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor.experimental import local_map
 from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
@@ -137,6 +141,35 @@ def dispatch(cfg: ModelConfig, logits: torch.Tensor, expert_idx: torch.Tensor,
     return slots, token_idx, aux_loss
 
 
+def fill_slots(xf: torch.Tensor, slots: torch.Tensor, token_idx: torch.Tensor,
+               e: int, cap: int, e0: int = 0, n_e: int | None = None) -> torch.Tensor:
+    """The (n_e, C, d) slots of experts ``e0 .. e0 + n_e - 1`` (all ``e`` by
+    default), each (token, choice) entry's token ``xf[token_idx]`` written to
+    its slot; the many dropped entries write the sentinel row, which is
+    discarded."""
+    n_e = e if n_e is None else n_e
+    d = xf.shape[-1]
+    buf = torch.zeros(e * cap + 1, d, dtype=xf.dtype, device=xf.device).index_put(
+        (slots,), xf[token_idx])
+    return buf[e0 * cap: (e0 + n_e) * cap].reshape(n_e, cap, d)
+
+
+def gate_sum(vals: torch.Tensor, gate_vals: torch.Tensor, k: int) -> torch.Tensor:
+    """Each token's gate-weighted sum of its k entries' (T*k, d) outputs."""
+    weighted = vals * gate_vals.reshape(-1)[:, None].to(vals.dtype)      # (T*k, d)
+    return weighted.reshape(-1, k, vals.shape[-1]).sum(dim=1)
+
+
+def combine(expert_out: torch.Tensor, slots: torch.Tensor, gate_vals: torch.Tensor,
+            k: int) -> torch.Tensor:
+    """(E, C, d) expert outputs -> (T, d): each entry reads its slot (a
+    dropped entry the zero sentinel row), weighted by its gate."""
+    d = expert_out.shape[-1]
+    out_buf = torch.cat([expert_out.reshape(-1, d),
+                         expert_out.new_zeros(1, d)], dim=0)
+    return gate_sum(out_buf[slots], gate_vals, k)
+
+
 def experts_apply(ew: PyTree, expert_in: torch.Tensor) -> torch.Tensor:
     """SwiGLU of each expert's (E, C, d) slots, batched over the expert axis."""
     dt = expert_in.dtype
@@ -155,36 +188,78 @@ def moe_apply(params: PyTree, cfg: ModelConfig,
 
     if moe_ep.ep_enabled():
         return moe_ep.moe_apply_ep(params, cfg, x)
+    if isinstance(x, DTensor):
+        return _moe_apply_dtensor(params, cfg, x)
     b, s, d = x.shape
     t = b * s
     k = cfg.num_experts_per_tok
     e = cfg.num_experts
     cap = _capacity(t, cfg)
-    dt = x.dtype
     xf = x.reshape(t, d)
     with record_function(MOE_ROUTE):
         logits, gate_vals, expert_idx = route(params, cfg, xf)
 
     with record_function(MOE_DISPATCH):
         slots, token_idx, aux_loss = dispatch(cfg, logits, expert_idx, cap)
-        # many dropped entries write the sentinel row; it is discarded
-        buf = torch.zeros(e * cap + 1, d, dtype=dt, device=x.device).index_put(
-            (slots,), xf[token_idx])
-        expert_in = buf[: e * cap].reshape(e, cap, d)
+        expert_in = fill_slots(xf, slots, token_idx, e, cap)
 
     with record_function(MOE_EXPERTS):
         expert_out = experts_apply(params["experts"], expert_in)
 
     with record_function(MOE_COMBINE):
-        out_buf = torch.cat([expert_out.reshape(e * cap, d),
-                             torch.zeros(1, d, dtype=dt, device=x.device)], dim=0)
-        weighted = out_buf[slots] * gate_vals.reshape(-1)[:, None].to(dt)  # (T*k, d)
-        y = weighted.reshape(t, k, d).sum(dim=1)
+        y = combine(expert_out, slots, gate_vals, k)
 
     if cfg.num_shared_experts > 0:
         with record_function(MOE_SHARED):
             y = y + mlp_apply(params["shared"], cfg.mlp_kind, xf)
     return y.reshape(b, s, d), aux_loss
+
+
+def _moe_apply_dtensor(params: PyTree, cfg: ModelConfig,
+                       x: DTensor) -> tuple[DTensor, DTensor]:
+    """``moe_apply`` on DTensor tokens and params, as GSPMD partitions the
+    reference's layer without expert parallelism: the capacity is the
+    global token count's, and the router, the sort dispatch and the
+    combine run on tokens **replicated on every rank** (an all-gather of
+    the (T, d) tokens and, after the experts, of the (E, C, d) buffer:
+    GSPMD replicates the sort dispatch's buffer the same way, which is why
+    the reference wrote ``moe_ep``).  Only the three expert products are
+    partitioned, by the experts' placements (experts over "model", d_model
+    over "data" under FSDP).  The shared expert runs on the tokens as they
+    are laid out, tensor-parallel by its own placements.  The sort, the
+    ``searchsorted`` and the scatter have no DTensor sharding rules: they
+    run through ``local_map`` on the replicated tensors, so every rank
+    computes the same dispatch."""
+    mesh = x.device_mesh
+    rep = [Replicate()] * mesh.ndim      # a list: local_map reads a tuple as one per output
+    b, s, d = x.shape
+    t = b * s
+    k, e = cfg.num_experts_per_tok, cfg.num_experts
+    cap = _capacity(t, cfg)
+    xf = x.reshape(t, d)
+    xr = xf.redistribute(mesh, rep)
+    router_w = params["router"]["w"].redistribute(mesh, rep)
+
+    def route_and_dispatch(xl, wl):
+        logits, gate_vals, expert_idx = route({"router": {"w": wl}}, cfg, xl)
+        slots, token_idx, aux = dispatch(cfg, logits, expert_idx, cap)
+        return fill_slots(xl, slots, token_idx, e, cap), gate_vals, slots, aux
+
+    with record_function(MOE_DISPATCH):
+        expert_in, gate_vals, slots, aux = local_map(
+            route_and_dispatch, out_placements=(rep,) * 4, in_placements=(rep, rep),
+            device_mesh=mesh)(xr, router_w)
+    with record_function(MOE_EXPERTS):
+        expert_out = experts_apply(params["experts"], expert_in)
+    with record_function(MOE_COMBINE):
+        y = local_map(lambda out, sl, g: combine(out, sl, g, k), out_placements=rep,
+                      in_placements=(rep,) * 3, device_mesh=mesh, redistribute_inputs=True)(
+            expert_out, slots, gate_vals).reshape(b, s, d)
+    if cfg.num_shared_experts > 0:
+        # on the (B, S, d) tokens as they are laid out: the same rows' products
+        with record_function(MOE_SHARED):
+            y = y + mlp_apply(params["shared"], cfg.mlp_kind, x)
+    return y, aux
 
 
 def moe_flops_per_token(cfg: ModelConfig) -> int:

@@ -24,7 +24,11 @@ Parameters.  Each leaf of the layer's ``params`` is the rank's shard, as
 ``ep_specs`` lays it out (the router replicated, the experts on "model"
 with d_model on "data" under FSDP, the shared expert column / row split
 on "model"), either a plain tensor or a DTensor (its ``to_local()`` is
-read).  ``local_moe_params`` cuts a rank's shards from a full tree.
+read).  ``local_moe_params`` cuts a rank's shards from a full tree.  In a
+DTensor step (DTensor tokens) every DTensor leaf is redistributed to that
+layout first (``_local_param``; under FSDP the step's shared expert is
+also split over "data"), the tokens to batch over the data-parallel axes,
+and y and aux come back as DTensors (batch-sharded, replicated).
 
 Backward.  Every model rank computes the same loss from the same output,
 so:
@@ -71,12 +75,12 @@ from contextlib import contextmanager
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.mesh import axis_size, dp_axes, dp_size
-from repro_torch.launch.sharding import local_shard
+from repro_torch.launch.sharding import local_shard, placements
 from repro_torch.models import moe
 from repro_torch.models.layers import mlp_apply
 from repro_torch.tree import PyTree, tree_map_with_path
@@ -254,6 +258,31 @@ def _local(x):
     return x.to_local() if isinstance(x, DTensor) else x
 
 
+def _tokens_placements(x: DTensor, mesh) -> list:
+    """The tokens' layout EP reads: batch over the data-parallel axes (when
+    it divides), replicated over "model"."""
+    dp = dp_axes(mesh)
+    split = x.shape[0] % dp_size(mesh) == 0
+    return [Shard(0) if name in dp and split else Replicate()
+            for name in mesh.mesh_dim_names]
+
+
+def _local_param(w, spec: tuple, mesh, tokens_pl: list) -> torch.Tensor:
+    """This rank's shard of an MoE leaf laid out by its ``ep_specs`` spec: a
+    plain tensor is taken as that shard already; a DTensor (a step's
+    ``shard_params`` layout, which differs from EP's for the shared expert
+    under FSDP) is redistributed to it.  Its gradient comes back as this
+    rank's shard where the spec shards it, and as a partial sum over a data
+    axis that shards the tokens elsewhere (the sum convention above);
+    over "model" a replicated leaf's gradient is whole on every rank."""
+    if not isinstance(w, DTensor):
+        return w
+    pl = placements(spec, mesh)
+    grad_pl = [p if isinstance(p, Shard) else Partial() if isinstance(t, Shard) else p
+               for p, t in zip(pl, tokens_pl)]
+    return w.redistribute(mesh, pl).to_local(grad_placements=grad_pl)
+
+
 def _check_shape(name: str, x: torch.Tensor, want: tuple) -> None:
     if tuple(x.shape) != want:
         raise ValueError(f"expert parallelism: {name} is {tuple(x.shape)}, this rank's "
@@ -272,11 +301,23 @@ def moe_apply_ep(params: PyTree, cfg: ModelConfig,
     if e % model:
         raise ValueError(f"{e} experts do not divide over {model} model ranks")
     e_loc = e // model
+    specs = ep_specs(cfg, fsdp)
+    dtensor = isinstance(x, DTensor)
+    tok_pl = _tokens_placements(x, mesh) if dtensor else None
+    if dtensor:      # a DTensor step: EP runs on each rank's tokens and shards
+        x = x.redistribute(mesh, tok_pl).to_local()
+        params = {"router": {"w": _local_param(params["router"]["w"], specs["router/w"],
+                                               mesh, tok_pl)},
+                  "experts": {n: _local_param(w, specs["experts/" + n], mesh, tok_pl)
+                              for n, w in params["experts"].items()},
+                  **({"shared": {n: {"w": _local_param(q["w"], specs[f"shared/{n}/w"],
+                                                       mesh, tok_pl)}
+                                 for n, q in params["shared"].items()}}
+                     if "shared" in params else {})}
     x = _local(x)
     b, s, d = x.shape
     t = b * s
     cap = moe._capacity(t, cfg)
-    dt = x.dtype
     mgroup = ep.group("model")
     rec = {"tokens": t, **{f"{c}_{w}": 0 for c in COUNTERS for w in ("calls", "bytes")}}
     ep.traffic.append(rec)
@@ -293,9 +334,8 @@ def moe_apply_ep(params: PyTree, cfg: ModelConfig,
         # the tokens this rank's partial work reads: their cotangent sums the ranks'
         xp = _ReduceGrad.apply(xf, mgroup, rec)
         my0 = ep.rank("model") * e_loc * cap
-        buf = torch.zeros(e * cap + 1, d, dtype=dt, device=x.device).index_put(
-            (slots,), xp[token_idx])
-        expert_in = buf[my0: my0 + e_loc * cap].reshape(e_loc, cap, d)
+        expert_in = moe.fill_slots(xp, slots, token_idx, e, cap, ep.rank("model") * e_loc,
+                                   e_loc)
 
     with record_function(moe.MOE_EXPERTS):
         d_loc = d // data if fsdp else d
@@ -314,12 +354,14 @@ def moe_apply_ep(params: PyTree, cfg: ModelConfig,
         local_idx = torch.clamp(slots - my0, 0, e_loc * cap - 1)
         vals = torch.where(in_mine[:, None], out_my[local_idx], 0)
         gates = _ReduceGrad.apply(gate_vals, mgroup, rec)
-        weighted = vals * gates.reshape(-1)[:, None].to(dt)                # (T*k, d)
-        y = weighted.reshape(t, k, d).sum(dim=1)
+        y = moe.gate_sum(vals, gates, k)
 
     if cfg.num_shared_experts > 0:
         with record_function(moe.MOE_SHARED):
             sh = {n: {"w": _local(p["w"])} for n, p in params["shared"].items()}
             y = y + mlp_apply(sh, cfg.mlp_kind, xp)
-    y = _SumOverModel.apply(y, mgroup, rec)
-    return y.reshape(b, s, d), aux
+    y = _SumOverModel.apply(y, mgroup, rec).reshape(b, s, d)
+    if dtensor:
+        y = DTensor.from_local(y, mesh, tok_pl, run_check=False)
+        aux = DTensor.from_local(aux, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    return y, aux

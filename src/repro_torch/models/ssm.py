@@ -34,10 +34,12 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+from repro_torch.models import sharded_heads
 from repro_torch.models.layers import _lead, linear, linear_init, rmsnorm, rmsnorm_init
 from repro_torch.tree import PyTree
 
@@ -70,6 +72,11 @@ def chunked_decay_attention(
     """
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if isinstance(q, DTensor):
+        if init_state is not None:
+            raise ValueError("a DTensor scan starts from a zero state")
+        return sharded_heads.scan(
+            lambda *a: chunked_decay_attention(*a, chunk, impl=impl), q, k, v, log_a)
     if impl == "kernel":
         if init_state is not None:
             raise ValueError("the SSD-chunk kernel starts from a zero state; "
@@ -124,7 +131,12 @@ def decay_attention_step(
     a: torch.Tensor,        # (B, H) decay in (0,1]
     state: torch.Tensor,    # (B, H, N, P)
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Single-token recurrence (decode): O(H·N·P) per step."""
+    """Single-token recurrence (decode): O(H·N·P) per step.  DTensor
+    inputs run on each rank's heads (``sharded_heads.head_parallel``)."""
+    if isinstance(state, DTensor):
+        return sharded_heads.head_parallel(
+            lambda st, *qkva: decay_attention_step(*qkva, st), (state, q, k, v, a),
+            ((0, 1),) * 5, ((0, 1), (0, 1)), state.shape[1])
     new_state = a[..., None, None] * state + k[..., :, None] * v[..., None, :]
     y = torch.einsum("bhn,bhnp->bhp", q, new_state)
     return y, new_state
@@ -170,10 +182,15 @@ def mamba2_init(gen: torch.Generator, cfg: ModelConfig, dtype, device,
     }
 
 
+def _pad_front(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``n`` zero positions ahead of dim 1 of (B, S, C) ``x``."""
+    return sharded_heads.pad(x, [0, 0, n, 0], (1,))
+
+
 def _causal_conv(seq: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv.  seq: (B,S,C); w: (W,C)."""
     width = w.shape[0]
-    pad = F.pad(seq, (0, 0, width - 1, 0))
+    pad = _pad_front(seq, width - 1)
     out = torch.zeros_like(seq)
     for i in range(width):
         out = out + pad[:, i:i + seq.shape[1], :] * w[i]
@@ -206,7 +223,7 @@ def mamba2_forward(
     dt = F.softplus(dt_raw.float() + params["dt_bias"])                    # (b,s,h)
     a = -torch.exp(params["a_log"])                                        # (h,)
     log_decay = dt * a                                                     # <= 0
-    xh = xs.reshape(b, s, heads, hdim)
+    xh = sharded_heads.split_heads(xs, heads, hdim)
     v = xh * dt[..., None].to(x.dtype)
     # head-broadcast views (head stride 0): the kernel reads them in place
     k = bmat[:, :, None, :].expand(b, s, heads, n)
@@ -215,13 +232,13 @@ def mamba2_forward(
     y, state = chunked_decay_attention(q, k, v, log_decay, cfg.ssm_chunk, impl=impl)
     state = state.to(v.dtype)
     y = y + xh * params["d_skip"].to(x.dtype)[None, None, :, None]
-    y = y.reshape(b, s, d_inner)
+    y = sharded_heads.merge_heads(y)
     y = rmsnorm(params["out_norm"], y * F.silu(z))
     y = linear(params["out_proj"], y)
     # the last W-1 pre-conv inputs, zero-padded in front for a short prompt;
     # a copy, so the cache does not hold the whole projection alive
     tail = xbc_in[:, -(CONV_W - 1):, :]
-    conv = F.pad(tail, (0, 0, CONV_W - 1 - tail.shape[1], 0)).contiguous()
+    conv = _pad_front(tail, CONV_W - 1 - tail.shape[1]).contiguous()
     return y, {"state": state, "conv": conv}
 
 
@@ -245,13 +262,13 @@ def mamba2_decode(
 
     dt = F.softplus(dt_raw[:, 0].float() + params["dt_bias"])             # (b,h)
     a = torch.exp(dt * -torch.exp(params["a_log"]))
-    xh = xs.reshape(b, heads, hdim)
+    xh = sharded_heads.split_heads(xs, heads, hdim)
     v = xh * dt[..., None].to(x.dtype)
     k = bmat[:, None, :].expand(b, heads, n)
     q = cmat[:, None, :].expand(b, heads, n)
     y, state = decay_attention_step(q, k, v, a.to(x.dtype), cache["state"])
     y = y + xh * params["d_skip"].to(x.dtype)[None, :, None]
-    y = y.reshape(b, 1, d_inner)
+    y = sharded_heads.merge_heads(y)[:, None]
     y = rmsnorm(params["out_norm"], y * F.silu(z))
     y = linear(params["out_proj"], y)
     return y, {"state": state, "conv": conv_in[:, 1:, :]}
@@ -301,12 +318,11 @@ def _mlstm_qkv(params: PyTree, cfg: ModelConfig, xb: torch.Tensor):
     d_inner = xb.shape[-1]
     hdim = cfg.ssm_head_dim or 64
     heads = d_inner // hdim
-    shp = (*xb.shape[:-1], heads, hdim)
-    q = linear(params["wq"], xb).reshape(shp)
+    q = sharded_heads.split_heads(linear(params["wq"], xb), heads, hdim)
     # the reference divides by sqrt(hdim) taken in f32, cast to x's dtype
     scale = float(torch.tensor(math.sqrt(hdim), dtype=torch.float32).to(xb.dtype))
-    k = linear(params["wk"], xb).reshape(shp) / scale
-    v = linear(params["wv"], xb).reshape(shp)
+    k = sharded_heads.split_heads(linear(params["wk"], xb), heads, hdim) / scale
+    v = sharded_heads.split_heads(linear(params["wv"], xb), heads, hdim)
     i_raw = linear(params["w_i"], xb).float()
     f_raw = linear(params["w_f"], xb).float()
     return q, k, v, i_raw, f_raw, heads
@@ -325,14 +341,15 @@ def mlstm_forward(
     xb, z = up[..., :d_inner], up[..., d_inner:]
     q, k, v, i_raw, f_raw, heads = _mlstm_qkv(params, cfg, xb)
     i_gate = torch.exp(torch.clamp_max(i_raw, 8.0))                # (b,s,h)
-    log_f = F.logsigmoid(f_raw)                                     # <= 0
+    log_f = (sharded_heads.pointwise(F.logsigmoid, f_raw) if isinstance(f_raw, DTensor)
+             else F.logsigmoid(f_raw))                              # <= 0
     v_scaled = v * i_gate[..., None].to(v.dtype)
     y, state = chunked_decay_attention(q, k, v_scaled, log_f, cfg.ssm_chunk, impl=impl)
     # normaliser: the same recurrence with v ≡ the input gate (P = 1)
     ones = i_gate[..., None].to(v.dtype)                            # (b,s,h,1)
     norm, n_state = chunked_decay_attention(q, k, ones, log_f, cfg.ssm_chunk, impl=impl)
     denom = torch.clamp_min(norm[..., 0].abs(), 1.0)[..., None]
-    h = (y / denom).reshape(b, s, d_inner)
+    h = sharded_heads.merge_heads(y / denom)
     h = rmsnorm(params["out_norm"], h) * F.silu(z)
     out = linear(params["down_proj"], h)
     return out, {"state": state.to(v.dtype), "n_state": n_state.to(v.dtype)}
@@ -355,7 +372,7 @@ def mlstm_decode(
     ones = i_gate[..., None].to(v.dtype)                            # (b,h,1)
     norm, n_state = decay_attention_step(q, k, ones, f_gate, cache["n_state"])
     denom = torch.clamp_min(norm[..., 0].abs(), 1.0)[..., None]
-    h = (y / denom).reshape(b, 1, d_inner)
+    h = sharded_heads.merge_heads(y / denom)[:, None]
     h = rmsnorm(params["out_norm"], h) * F.silu(z)[:, None, :]
     out = linear(params["down_proj"], h)
     return out, {"state": state, "n_state": n_state}
@@ -405,34 +422,62 @@ def slstm_forward(
 ) -> tuple[torch.Tensor, tuple]:
     """Sequential sLSTM with the exp-gating m-stabiliser.  x: (B,S,d).
     Returns (y, (c, n, h, m)): c, n, h in x's dtype, m in f32, as the
-    reference casts them."""
+    reference casts them.  On DTensors the loop over time runs on each
+    rank's heads (``sharded_heads.head_parallel``: the recurrent weights
+    are per head, block-diagonal)."""
     b, s, d = x.shape
     heads, hdim = _slstm_dims(cfg)
     gx = linear(params["w_x"], x)                                   # (b,s,4d)
-    c, n, h, m = init if init is not None else slstm_cache_init_shapes(
-        b, heads, hdim, x.dtype, x.device)
     r_h = params["r_h"].to(x.dtype)
+    if isinstance(gx, DTensor):
+        state_dims = ((0, 1),) * 4
+        if init is None:
+            y, *state = sharded_heads.head_parallel(
+                lambda g, r: _slstm_loop(g, r, None, heads, hdim), (gx, r_h),
+                ((0, 2), (None, 0)), ((0, 2),) + state_dims, heads)
+        else:
+            y, *state = sharded_heads.head_parallel(
+                lambda g, r, *st: _slstm_loop(g, r, st, heads, hdim), (gx, r_h, *init),
+                ((0, 2), (None, 0)) + state_dims, ((0, 2),) + state_dims, heads)
+        state = tuple(state)
+    else:
+        y, *state = _slstm_loop(gx, r_h, init, heads, hdim)
+        state = tuple(state)
+    y = linear(params["out_proj"], rmsnorm(params["out_norm"], y))
+    return y, state
+
+
+def _slstm_loop(gx: torch.Tensor, r_h: torch.Tensor, init: tuple | None, heads: int,
+                hdim: int) -> tuple:
+    """The recurrence over time of ``gx`` (b, s, heads * 4 * hdim, head
+    major) with per-head recurrent weights ``r_h`` (heads, hdim, 4 * hdim):
+    returns (y (b, s, heads * hdim), c, n, h, m); ``heads`` is the local
+    count (``gx``'s own)."""
+    b, s = gx.shape[:2]
+    heads = r_h.shape[0]
+    c, n, h, m = init if init is not None else slstm_cache_init_shapes(
+        b, heads, hdim, gx.dtype, gx.device)
     hs = []
     with record_function(SLSTM_LOOP):
-        for t in range(s):
+        # one unbind over time, not a ``gx[:, t]`` slice a step: each slice's
+        # backward would write a zero-filled (b, s, 4d) gradient (O(S^2) bytes)
+        for gx_t in gx.unbind(1):
             rec = torch.einsum("bhp,hpq->bhq", h, r_h)              # (b,heads,4*hdim)
-            g = gx[:, t].reshape(b, heads, 4, hdim) + rec.reshape(b, heads, 4, hdim)
+            g = gx_t.reshape(b, heads, 4, hdim) + rec.reshape(b, heads, 4, hdim)
             z_t = torch.tanh(g[:, :, 0])
             i_t = g[:, :, 1].float()
             f_t = g[:, :, 2].float()
             o_t = torch.sigmoid(g[:, :, 3])
             log_f = F.logsigmoid(f_t)
             m_new = torch.maximum(log_f + m, i_t)
-            i_p = torch.exp(i_t - m_new).to(x.dtype)
-            f_p = torch.exp(log_f + m - m_new).to(x.dtype)
+            i_p = torch.exp(i_t - m_new).to(gx.dtype)
+            f_p = torch.exp(log_f + m - m_new).to(gx.dtype)
             c = f_p * c + i_p * z_t
             n = f_p * n + i_p
             h = o_t * c / torch.clamp_min(n.abs(), 1.0)
             m = m_new
             hs.append(h)
-    y = torch.stack(hs, dim=1).reshape(b, s, d)
-    y = linear(params["out_proj"], rmsnorm(params["out_norm"], y))
-    return y, (c, n, h, m)
+    return torch.stack(hs, dim=1).reshape(b, s, heads * hdim), c, n, h, m
 
 
 def slstm_decode(

@@ -23,6 +23,7 @@ only the trained layer's tensors require grad.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -31,7 +32,7 @@ from repro_torch.models import ssm
 from repro_torch.models.layers import (act_dtype, embed, embedding_init, layer_slice,
                                        linear, linear_init, maybe_remat, mlp_apply,
                                        mlp_init, norm_apply, norm_init, param_dtype,
-                                       stack_layers, unembed)
+                                       reduce_partial, stack_layers, unembed)
 from repro_torch.tree import PyTree, tree_map
 
 # ---------------------------------------------------------------------------
@@ -507,15 +508,27 @@ def hybrid_decode_step(
     n_chunks, tail = hybrid_layout(cfg)
     per = max(cfg.attn_every, 1)
     shared = params["shared_attn"]
+    mamba = cache["chunks"]["mamba"]
+    # a DTensor cache laid out by ``sharding.cache_spec`` may shard the chunk
+    # stack's second (layer) axis, which it takes for the batch: a layer's
+    # slice is then a gathered copy, not a view, so the new states are
+    # written back into the whole stacked leaves at the end
+    gathered = isinstance(mamba["state"], DTensor)
+    new_states = []
     for c in range(n_chunks):
         h = linear(shared["in_proj"], torch.cat([x, x0], dim=-1))
         y, _ = block_decode(shared["block"], cfg, h,
                             layer_slice(cache["chunks"]["attn_kv"], c), pos, window=window)
         x = x + y
         chunk = layer_slice(params["chunks"], c)
-        mcache = layer_slice(cache["chunks"]["mamba"], c)
+        mcache = layer_slice(mamba, c)
         for j in range(per):
-            x = _mamba_decode_into(layer_slice(chunk, j), cfg, x, layer_slice(mcache, j))
+            lc = layer_slice(mcache, j)
+            x = _mamba_decode_into(layer_slice(chunk, j), cfg, x, lc)
+            new_states.append(lc)
+    if gathered and new_states:
+        for name, leaf in mamba.items():
+            leaf.copy_(torch.stack([st[name] for st in new_states]).reshape(leaf.shape))
     for j in range(tail):
         x = _mamba_decode_into(layer_slice(params["tail"], j), cfg, x,
                                layer_slice(cache["tail"], j))
@@ -541,13 +554,40 @@ def hybrid_cache_init(cfg: ModelConfig, batch: int, cache_len: int, dtype,
 # Loss
 # ---------------------------------------------------------------------------
 
+def _sharded_nll(logits: DTensor, labels: torch.Tensor) -> DTensor:
+    """``logz - gold`` of DTensor logits laid out any way, the vocab axis
+    sharded or not, without gathering the (B, S, V) logits on any rank:
+    the max and the sum of exponentials reduce over each rank's vocab slice
+    (a partial max / sum), and the gold logit is a one-hot sum against the
+    vocab ids laid out as the logits' last axis, so each rank picks it from
+    its own slice.  The three (B, S) partials are all-reduced over the
+    axes that shard the vocab; ``torch.gather`` over a sharded vocab has
+    no sharding rule that runs."""
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    ids_pl = [Shard(0) if isinstance(p, Shard) and p.dim == last else Replicate()
+              for p in logits.placements]
+    ids = distribute_tensor(torch.arange(logits.shape[-1], device=logits.to_local().device),
+                            mesh, ids_pl, src_data_rank=None)
+    # each partial reduced here, explicitly: left to DTensor, the batch is
+    # reduce-scattered over the vocab's axis and the head's weight gathered
+    top = reduce_partial(logits.detach().amax(dim=-1, keepdim=True))
+    logz = torch.log(reduce_partial(torch.sum(torch.exp(logits - top), dim=-1))) + top[..., 0]
+    gold = reduce_partial(torch.sum(torch.where(labels.long()[..., None] == ids, logits, 0.0),
+                                    dim=-1))
+    return logz - gold
+
+
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
             mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Next-token cross entropy.  logits: (B,S,V); labels: (B,S)."""
+    """Next-token cross entropy.  logits: (B,S,V); labels: (B,S).  DTensor
+    logits take ``_sharded_nll``."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = logz - gold
+    if isinstance(logits, DTensor):
+        nll = _sharded_nll(logits, labels)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        nll = logz - gold
     if mask is not None:
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return torch.mean(nll)

@@ -18,7 +18,8 @@
   all-reduce per MoE layer (prefill and train); whisper x ``long_500k``
   is ``skipped``; the command line prints one record with the H100
   roofline and ``fits_h100_80gb``; no ``jax`` is imported.
-* ``--act-shard`` is refused, since it would change no number.
+* (``tests/test_torch_dryrun_sharded.py`` holds the per-device counts of
+  the sharded step, its collectives and ``--act-shard``.)
 * ``hlo_analysis`` carries the H100 data-sheet figures and the 80e9 B
   budget, no TPU one.
 """
@@ -167,17 +168,6 @@ def test_moe_ep_counts_one_all_reduce_per_layer(records, shape):
 
 def test_whisper_long_decode_is_skipped(records):
     assert records["whisper_long"]["status"] == "skipped"
-
-
-def test_act_shard_is_refused(capsys):
-    """``--act-shard`` would change no number (the step's activations are
-    plain tensors, which ``act_sharding`` returns unchanged): refused
-    before any process group is made."""
-    with pytest.raises(SystemExit) as e:
-        dryrun.main(["--arch", "llama3.2-1b", "--shape", "train_4k", "--act-shard"])
-    assert e.value.code == 2
-    assert "DTensor" in capsys.readouterr().err
-    assert not torch.distributed.is_initialized()
 
 
 def test_command_line_prints_one_record(records):
