@@ -111,8 +111,10 @@ Phases, in order; any failure raises and the script exits non-zero:
               encoder layer (B 32, H 12 = Hkv 12, S 1,500, D 64, bf16,
               non-causal), decoder layer (S 416, causal) and cross layer
               (Sq 416, Skv 1,500, non-causal) and LLaVA-NeXT-34B's (B 4, H 56, Hkv 8: a GQA group of 7, S
-              4,096, D 128, bf16, causal), each element and each output row
-              held to its limit.  The bf16 bodies'
+              4,096, D 128, bf16, causal), and the smoke configs' shapes
+              that ``examples`` serves (whisper's three at D 16, GQA 2 and
+              MQA at D 32, S 32) in f32 and bf16, each element and each
+              output row held to its limit.  The bf16 bodies'
               ``HGMMA`` / ``UTMALDG`` / ``HMMA`` instruction counts from
               ``cuobjdump -sass``, registers and spills from nvcc.  Times
               (CUDA events) at those eight layers, achieved TFLOP/s, their
@@ -286,6 +288,37 @@ Phases, in order; any failure raises and the script exits non-zero:
               port's ``fl.privacy``: ResNet-8 at 16 x 16, 250 iterations,
               the full observation and group 0's; PSNR and ms per iteration;
               fails on NaN.
+14. claims   — the paper's claims experiment through
+              ``repro_torch.experiments.claims_experiment.run`` at the
+              reference's defaults with ``fused_adam=True``: 25 FedPart
+              rounds and the matched 25 FNU rounds, 4 clients x 48 local
+              steps (8 epochs), step sizes tracked (sequential engine).
+              Masked-Adam launches equal the client-steps replayed from the
+              server's draws (9,600); the comm and comp books equal the
+              reference's (pinned by ``tests/test_torch_claims.py``); every
+              accuracy in [0, 1], both post-aggregation spikes finite.
+              Prints both runs' best and final accuracy, curves, spikes,
+              books and seconds per round, and whether the paper's
+              direction showed (not asserted).
+15. examples — the six examples through their ``run`` functions at the
+              reference's defaults, ``fused_adam=True`` for the FL ones:
+              the quickstart on the sequential, vmap and shard_map engines
+              (a one-rank NCCL group made for it), with a nested plan
+              (tiers 0.5 / 1.0), int8 compression and a streamed
+              population of 10**6 (cohorts of 4); fedpart_language (FedAvg
+              and FedProx, FedPart and FNU), fedpart_ablations (6 runs),
+              fedpart_async (3 variants, two cohorts in flight on the
+              card's one slot); masked-Adam launches equal the replayed
+              client-steps or bucket-steps in each, the quickstart's
+              FedPart comm book the reference's.  fedpart_mesh_training at
+              its defaults (TinyLlama smoke) and ``launch.fedtrain``'s
+              xLSTM-125m FedPart rounds at full width (B 4 x 512, an FNU
+              round and group 0, 2 steps each): seconds and peak memory per
+              round.  serve_llm on the ten assigned architectures at smoke
+              size (f32, B 4 x 32, 12 tokens): flash and SSD launches equal
+              ``kernel_launches`` (20 and 7), tokens equal an
+              ``impl="plain"`` session's on the same weights, logits within
+              the kernels' f32 tolerances.
 
 Every serve phase checks the dry run's per-device parameter residency at
 mesh (1, 1) (``launch.dryrun.param_residency``) against the bytes of the
@@ -298,13 +331,15 @@ reference's specs).
 Each phase logs its host seconds (``[time]``).  The line before the last
 carries ``nvidia-smi``'s name and power limit, the
 one before it the ``kernels`` JSON (the masked-Adam entries count their
-launches by path: ``fedpart``, ``nlp`` and ``fedtrain_sim`` for the
-one-client launches, ``fedpart_vmap``, ``fedpart_shard``, ``nlp``,
-``compress``, ``async`` and ``fedtrain_sim`` for the cohort launches; the
-SSD entry by path, ``serve_hybrid`` and ``serve_xlstm``, and by body within
-each, with the xLSTM layer's two scans beside Zamba2's layer; the flash
-entry by path, ``serve_moe``, ``serve_moe_ep``, ``serve_encdec`` and
-``serve_vlm`` among them, with Zamba2's, Gemma's, Llama-4's, whisper's encoder, decoder and cross
+launches by path: ``fedpart``, ``nlp``, ``fedtrain_sim``, ``claims`` and
+``examples_seq`` for the one-client launches, ``fedpart_vmap``,
+``fedpart_shard``, ``nlp``, ``compress``, ``async``, ``fedtrain_sim``,
+``examples_vmap`` and ``examples_shard`` for the cohort launches; the
+SSD entry by path, ``serve_hybrid``, ``serve_xlstm``, ``sharded_step`` and
+``serve_llm``, and by body within each, with the xLSTM layer's two scans
+beside Zamba2's layer; the flash entry by path, ``serve_moe``,
+``serve_moe_ep``, ``serve_encdec``, ``serve_vlm`` and ``serve_llm`` among
+them, with Zamba2's, Gemma's, Llama-4's, whisper's encoder, decoder and cross
 and LLaVA's layers beside TinyLlama's); the last line is the ``ok`` JSON.
 """
 
@@ -363,6 +398,16 @@ FLASH_EXTRA = [
     (2, 3, 1, 130, 130, 96, True, 50),
     (1, 2, 2, 70, 200, 128, True, 0),
     (1, 2, 1, 200, 70, 64, True, 0),
+]
+# the smoke configs' prefill attentions as serve_llm launches them (B 4,
+# prompt 32): whisper's encoder over its 12 stub frames, decoder and cross
+# attention at D 16, and the decoders' GQA 2 and MQA at D 32
+FLASH_SMOKE = [
+    (4, 4, 4, 12, 12, 16, False, 0),
+    (4, 4, 4, 32, 32, 16, True, 0),
+    (4, 4, 4, 32, 12, 16, False, 0),
+    (4, 4, 2, 32, 32, 32, True, 0),
+    (4, 4, 1, 32, 32, 32, True, 0),
 ]
 # ragged shapes at the bf16 body's three widths: DP 64 (D 32), DP 128 (D 112,
 # D 128 with a window), DP 256 with its 64-key tiles (D 256 MQA, D 192 with a
@@ -1140,6 +1185,12 @@ def phase_flash() -> dict:
         log(f"[flash] {len(FLASH_HOPPER)} ragged at D "
             f"{' / '.join(str(c[5]) for c in FLASH_HOPPER)} {str(dtype)[6:]}: "
             f"max abs err {err:.3g}, max row err {row:.3g} (same limits)")
+        errs = [_flash_check(c, dtype, gen) for c in FLASH_SMOKE]
+        err, row = max(e for e, _ in errs), max(r for _, r in errs)
+        worst = max(worst, err)
+        log(f"[flash] {len(FLASH_SMOKE)} smoke-config shapes at D "
+            f"{' / '.join(str(c[5]) for c in FLASH_SMOKE)} {str(dtype)[6:]}: "
+            f"max abs err {err:.3g}, max row err {row:.3g} (same limits)")
     sass = _sass("flash_attention", "flash_fwd_bf16")
     if sass is None:
         log("[flash] SASS of the bf16 body: not available (no cuobjdump)")
@@ -1759,22 +1810,31 @@ def _text_setup():
 
 def _expected_launches(clients, rounds_list, cfg) -> int:
     """Masked-Adam launches one run of every schedule in ``rounds_list``
-    must make: one per client and local step on the sequential engine, one
-    per bucket and step (its longest client's steps) on the vmap engine."""
+    must make, each run's cohorts replayed from the server's own draws (one
+    ``np.random.default_rng(cfg.seed)`` a run, one Floyd sample a round, a
+    streamed population's shards rebuilt): one per client and local step on
+    the sequential engine, one per bucket and step (its longest client's
+    steps) on the vmap engine and on the shard_map engine at one rank."""
     from repro_torch.data.pipeline import batch_plan, bucket_plans
-    from repro_torch.fl.population import client_round_seed
-    n = len(clients)
+    from repro_torch.fl.population import (as_population, client_round_seed,
+                                           resolve_cohort_size,
+                                           sample_without_replacement)
+    population = as_population(clients)
+    n = population.num_clients
     total = 0
     for rounds in rounds_list:
+        rng = np.random.default_rng(cfg.seed)
         for spec in rounds:
-            seeds = [client_round_seed(cfg.seed, spec.index, c) for c in range(n)]
+            picked = sample_without_replacement(
+                rng, n, resolve_cohort_size(n, cfg.sample_fraction, cfg.cohort_size))
+            datasets = [population.dataset(c) for c in picked]
+            seeds = [client_round_seed(cfg.seed, spec.index, c) for c in picked]
             if cfg.engine == "sequential":
-                total += sum(len(batch_plan(len(clients[c]), cfg.batch_size,
-                                            cfg.local_epochs, seeds[c]))
-                             for c in range(n))
+                total += sum(len(batch_plan(len(d), cfg.batch_size, cfg.local_epochs, s))
+                             for d, s in zip(datasets, seeds))
             else:
                 total += sum(plans.shape[1] for _, plans, _ in bucket_plans(
-                    clients, cfg.batch_size, cfg.local_epochs, seeds))
+                    datasets, cfg.batch_size, cfg.local_epochs, seeds))
     return total
 
 
@@ -3395,6 +3455,23 @@ FEDTRAIN_SIM = ["--sim-clients", "8", "--rounds", "12", "--batch", "32",
 FEDTRAIN_SIM_REL_TOL = 2 * 1.49995e-4 / 1.12582
 TRAIN_CLI = ["--task", "resnet8", "--strategy", "fedpart", "--clients", "8",
              "--warmup", "1", "--rl", "1", "--bridge", "0", "--quiet"]
+# the claims run's books as fractions of FNU's: the reference's, pinned by
+# tests/test_torch_claims.py
+CLAIMS_COMM_RATIO = 0.28
+CLAIMS_COMP_RATIO = 0.6859794101279911
+# the quickstart's runs: (name, keyword arguments of examples.quickstart.run)
+QUICKSTART_RUNS = (("sequential", {}), ("vmap", {"engine": "vmap"}),
+                   ("shard_map", {"engine": "shard_map"}),
+                   ("nested", {"plan": "nested", "capacity_tiers": (0.5, 1.0)}),
+                   ("int8", {"compression": "int8"}),
+                   ("population", {"population": 1_000_000, "cohort_size": 4}))
+# FedPart's comm book of the quickstart (12 rounds, ResNet-8 with 8 classes)
+# by compression: the reference's, pinned by tests/test_torch_examples.py
+QUICKSTART_COMM = {"none": 1833888, "int8": 467244}
+# launch.fedtrain's xLSTM-125m FedPart rounds at full width: an FNU round,
+# then group 0
+FEDTRAIN_XLSTM = ["--arch", "xlstm-125m", "--full-size", "--batch", "4", "--seq", "512",
+                  "--rounds", "2", "--steps-per-round", "2"]
 LLM_SMOKE = False       # full width (the repo's tinyllama-1.1b config)
 LLM_F32_SHAPE = (2, 256)   # batch, seq of the f32 FNU-vs-partial check
 LLM_F32_GROUP = 7          # blocks/7
@@ -3829,6 +3906,280 @@ def phase_dlg() -> None:
     log(f"[dlg] partial observation PSNR below full: {psnrs['#1_conv'] < psnrs['all']}")
 
 
+# ---------------------------------------------------------------------------
+# The claims experiment and the examples (repro_torch.experiments / .examples)
+# ---------------------------------------------------------------------------
+
+def _check_launches(tag: str, launches: int, expected: int, what: str) -> None:
+    log(f"[{tag}] masked_adam launches {launches} ({what}: {expected})")
+    if launches != expected:
+        raise AssertionError(f"{tag}: masked-Adam launches {launches} != {expected}")
+
+
+def _check_accs(tag: str, res) -> None:
+    accs = [h["acc"] for h in res.history if "acc" in h]
+    losses = [h["loss"] for h in res.history]
+    if not accs or not all(0.0 <= a <= 1.0 for a in accs) or \
+            not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{tag}: accuracies {accs} or losses {losses} out of range")
+
+
+def phase_claims() -> int:
+    """``experiments.claims_experiment.run`` at the reference's defaults with
+    ``fused_adam=True``: 25 FedPart rounds and the matched 25 FNU rounds, 4
+    clients x 48 local steps each (200 samples: 6 batches of 32, 8 epochs)
+    on the sequential engine, the first client's step sizes tracked.
+    Masked-Adam launches equal the client-steps replayed from the server's
+    draws (9,600); the books equal the reference's (``CLAIMS_COMM_RATIO``,
+    ``CLAIMS_COMP_RATIO``, pinned by tests/test_torch_claims.py); every
+    accuracy in [0, 1], both spikes finite.  The paper's direction (FedPart
+    above FNU, a smaller spike) is reported, not asserted.  Returns the
+    launches."""
+    from repro_torch.core.schedule import matched_fnu
+    from repro_torch.experiments import claims_experiment
+    from repro_torch.kernels.masked_adam import MaskedAdamCohort
+
+    _, clients, _, sched, cfg = claims_experiment.build(fused_adam=True)
+    expected = _expected_launches(clients, [sched.rounds(), matched_fnu(sched).rounds()],
+                                  cfg)
+    MaskedAdamCohort.launches = 0
+    out = claims_experiment.run(fused_adam=True, verbose=False)
+    torch.cuda.synchronize()
+    launches = MaskedAdamCohort.launches
+
+    fp, fnu = out["fedpart"], out["fnu"]
+    n_rounds = len(fp["acc_curve"]) + len(fnu["acc_curve"])
+    for name, r in (("FedPart", fp), ("FNU", fnu)):
+        log(f"[claims] {name}: best acc {r['best_acc']:.6f} final acc "
+            f"{r['final_acc']:.6f} post-aggregation spike {r['spike']:.6f}; acc curve "
+            f"{[round(a, 4) for a in r['acc_curve']]}")
+    log(f"[claims] books (FedPart / FNU): comm {fp['comm_ratio']!r} (pinned "
+        f"{CLAIMS_COMM_RATIO!r}), comp {fp['comp_ratio']!r} (pinned "
+        f"{CLAIMS_COMP_RATIO!r}); {out['local_epochs']} local epochs, {n_rounds} "
+        f"rounds in {out['elapsed_s']:.3f} s, {out['elapsed_s'] / n_rounds:.4f} s per "
+        f"round; the paper's direction: FedPart best acc above FNU's "
+        f"{fp['best_acc'] > fnu['best_acc']}, FedPart spike below FNU's "
+        f"{fp['spike'] < fnu['spike']}")
+    _check_launches("claims", launches, expected, "client-steps, replayed")
+    if fp["comm_ratio"] != CLAIMS_COMM_RATIO or fp["comp_ratio"] != CLAIMS_COMP_RATIO:
+        raise AssertionError("claims: the books differ from the reference's")
+    for r in (fp, fnu):
+        if not all(0.0 <= a <= 1.0 for a in r["acc_curve"]) or \
+                not math.isfinite(r["spike"]):
+            raise AssertionError(f"claims: accuracies or spike out of range: {r}")
+    return launches
+
+
+def _examples_quickstart() -> dict:
+    """The quickstart's six runs; masked-Adam launches by engine."""
+    from repro_torch.core.schedule import matched_fnu
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels.masked_adam import MaskedAdamCohort
+
+    launches = {"sequential": 0, "vmap": 0, "shard_map": 0}
+    for name, kw in QUICKSTART_RUNS:
+        ctx = _one_rank_group() if kw.get("engine") == "shard_map" else \
+            contextlib.nullcontext()
+        with ctx:
+            _, clients, _, sched, cfg = quickstart.build(fused_adam=True, **kw)
+            expected = _expected_launches(
+                clients, [sched.rounds(), matched_fnu(sched).rounds()], cfg)
+            MaskedAdamCohort.launches = 0
+            t0 = time.perf_counter()
+            fp, fnu = quickstart.run(fused_adam=True, verbose=False, **kw)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            n = MaskedAdamCohort.launches
+        launches[cfg.engine] += n
+        tag = f"examples quickstart {name}"
+        log(f"[{tag}] FedPart best acc {fp.best_acc:.4f} comm {fp.comm_total_bytes} B "
+            f"comp {fp.comp_total_flops / fp.comp_fnu_flops:.4%} of FNU; FNU best acc "
+            f"{fnu.best_acc:.4f} comm {fnu.comm_total_bytes} B; {secs:.3f} s, "
+            f"{statistics.median(h['seconds'] for h in fp.history + fnu.history):.4f} s "
+            f"per round (median)")
+        _check_launches(tag, n, expected, "client-steps" if cfg.engine == "sequential"
+                        else "bucket-steps, replayed")
+        book = QUICKSTART_COMM[cfg.compression]
+        if fp.comm_total_bytes != book:
+            raise AssertionError(f"{tag}: FedPart comm {fp.comm_total_bytes} B != {book}")
+        for res in (fp, fnu):
+            _check_accs(tag, res)
+    return launches
+
+
+def _examples_fl() -> tuple[int, int]:
+    """fedpart_language, fedpart_ablations and fedpart_async; returns the
+    (one-client, cohort) masked-Adam launches."""
+    from repro_torch.core.schedule import matched_fnu
+    from repro_torch.examples import fedpart_ablations, fedpart_async, fedpart_language
+    from repro_torch.fl.population import as_population
+    from repro_torch.kernels.masked_adam import MaskedAdamCohort
+
+    _, clients, _, sched = fedpart_language.build()
+    expected = sum(_expected_launches(clients,
+                                      [sched.rounds(), matched_fnu(sched).rounds()],
+                                      fedpart_language.run_config(a, fused_adam=True))
+                   for a in fedpart_language.ALGOS)
+    MaskedAdamCohort.launches = 0
+    t0 = time.perf_counter()
+    out = fedpart_language.run(fused_adam=True, verbose=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    seq = lang = MaskedAdamCohort.launches
+    for algo, (fp, fnu) in out.items():
+        log(f"[examples language] {algo}: FedPart best acc {fp.best_acc:.4f} (comm "
+            f"{fp.comm_total_bytes / fp.comm_fnu_bytes:.1%} of FNU) | FNU best acc "
+            f"{fnu.best_acc:.4f}")
+        for res in (fp, fnu):
+            _check_accs(f"examples language {algo}", res)
+    log(f"[examples language] 4 runs in {secs:.3f} s")
+    _check_launches("examples language", lang, expected, "client-steps, replayed")
+
+    expected = 0
+    for order in fedpart_ablations.ORDERS:
+        _, clients, _, sched, cfg = fedpart_ablations.build(order, fused_adam=True)
+        expected += _expected_launches(clients, [sched.rounds()], cfg)
+    for warmup in fedpart_ablations.WARMUPS:
+        _, clients, _, sched, cfg = fedpart_ablations.build(warmup=warmup,
+                                                            fused_adam=True)
+        expected += _expected_launches(clients, [sched.rounds()], cfg)
+    MaskedAdamCohort.launches = 0
+    t0 = time.perf_counter()
+    out = fedpart_ablations.run(fused_adam=True, verbose=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    abl = MaskedAdamCohort.launches
+    seq += abl
+    log(f"[examples ablations] best acc " + ", ".join(
+        f"{k}={v}: {res.best_acc:.4f}" for (k, v), res in out.items())
+        + f"; 6 runs in {secs:.3f} s")
+    for res in out.values():
+        _check_accs("examples ablations", res)
+    _check_launches("examples ablations", abl, expected, "client-steps, replayed")
+
+    adapter, data, _ = fedpart_async.setup(8)
+    rounds = fedpart_async.schedule_rounds()
+    MaskedAdamCohort.launches = 0
+    t0 = time.perf_counter()
+    out = fedpart_async.run(fused_adam=True, verbose=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    cohort = MaskedAdamCohort.launches
+    expected = 0
+    for (name, res), (_, cfg) in zip(out.items(), fedpart_async.variants(fused_adam=True)):
+        tl = res.timeline
+        tta = tl.time_to_accuracy(0.5)
+        log(f"[examples async] {name}: merges {len(tl.of_kind('merge'))}, virtual "
+            f"{tl.total_seconds:.4f} s, best acc {res.best_acc:.4f}, tta@0.50 "
+            f"{'never' if math.isinf(tta) else f'{tta:.4f} s'}, overlap "
+            f"{tl.overlap_seconds():.4f} s, host s {sum(res.host_seconds.values()):.4f}")
+        if not tl.of_kind("merge") or not math.isfinite(tl.total_seconds):
+            raise AssertionError(f"examples async {name}: no merge or a non-finite total")
+        _check_accs(f"examples async {name}", res)
+        expected += _async_expected_launches(tl, as_population(data), rounds, cfg)
+    log(f"[examples async] 3 variants in {secs:.3f} s")
+    _check_launches("examples async", cohort, expected,
+                    "bucket-steps of every launched cohort, from the dispatch events")
+    return seq, cohort
+
+
+def _examples_mesh_training() -> None:
+    """fedpart_mesh_training at its defaults, then launch.fedtrain's xLSTM
+    round at full width (``FEDTRAIN_XLSTM``)."""
+    from repro_torch.examples import fedpart_mesh_training
+    from repro_torch.launch import fedtrain
+    from repro_torch.tree import tree_leaves
+
+    for tag, run in (("examples mesh_training", fedpart_mesh_training.run),
+                     ("examples fedtrain_xlstm", lambda: fedtrain.run_mesh(
+                         fedtrain.parse_args(FEDTRAIN_XLSTM)))):
+        torch.cuda.empty_cache()
+        params, records = run()
+        torch.cuda.synchronize()
+        n_params = sum(int(x.numel()) for x in tree_leaves(params))
+        for r in records:
+            log(f"[{tag}] round {r['round']} group {r['group']}: loss {r['loss']:.6f}, "
+                f"{r['seconds']:.4f} s, peak {r['peak_bytes'] / 2**30:.3f} GiB, tx "
+                f"{r['tx']} of {n_params} params")
+        if not all(math.isfinite(r["loss"]) for r in records):
+            raise AssertionError(f"{tag}: non-finite loss")
+        del params
+    torch.cuda.empty_cache()
+
+
+def _examples_serve_llm() -> tuple[int, int, dict]:
+    """serve_llm on each of ``ASSIGNED_ARCHS`` at its smoke config (f32): the
+    flash / SSD launches of the counted kernel session equal
+    ``serve_llm.kernel_launches``; an ``impl="plain"`` session on the same
+    weights and prompt (same seed) gives the same tokens, every step's
+    logits within the kernels' f32 tolerances (abs + rel; SSD's where a
+    scan runs).  Returns the flash and SSD launches and the SSD launches by
+    body."""
+    from repro_torch.configs import ASSIGNED_ARCHS, get_config
+    from repro_torch.examples import serve_llm
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_kernel
+
+    flash = ssd = 0
+    by_body = dict.fromkeys(ssd_chunk_kernel.launches_by_body, 0)
+    for arch in ASSIGNED_ARCHS:
+        cfg = get_config(arch, smoke=True)
+        want = serve_llm.kernel_launches(cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention_kernel.launches = 0
+        flash_attention_kernel.launches_by_head_dim = {}
+        ssd_chunk_kernel.launches = 0
+        ssd_chunk_kernel.launches_by_body = dict.fromkeys(ssd_chunk_kernel.launches_by_body,
+                                                          0)
+        res = serve_llm.run(arch=arch, verbose=False)
+        torch.cuda.synchronize()
+        got = flash_attention_kernel.launches, ssd_chunk_kernel.launches
+        by_d = dict(flash_attention_kernel.launches_by_head_dim)
+        bodies = {k: v for k, v in ssd_chunk_kernel.launches_by_body.items() if v}
+        plain = serve_llm.run(arch=arch, impl="plain", verbose=False)
+        tol = SSD_TOL[torch.float32] if want[1] else FLASH_TOL[torch.float32]
+        excess = max(float(((k - p).abs() - tol * (1 + p.abs())).max())
+                     for k, p in zip(res.logits, plain.logits))
+        diff = max(float((k - p).abs().max()) for k, p in zip(res.logits, plain.logits))
+        same = torch.equal(res.tokens, plain.tokens)
+        log(f"[examples serve_llm] {arch} ({cfg.param_dtype}): flash {got[0]} (by head "
+            f"dim {by_d}), ssd {got[1]} ({bodies}); expected {want}; prefill "
+            f"{res.prefill_seconds:.6f} s, decode {res.decode_seconds:.6f} s; tokens "
+            f"{tuple(res.tokens.shape)} equal to the plain session's: {same}; max abs "
+            f"logit diff {diff:.3g} (tolerance {tol:g} abs + rel)")
+        if got != want or not same or excess > 0:
+            raise AssertionError(f"serve_llm {arch}: launches {got} != {want}, or tokens "
+                                 f"/ logits differ from the plain session")
+        _log_serve_run(f"examples serve_llm {arch}", cfg, res, 4, 32, 12)
+        flash, ssd = flash + got[0], ssd + got[1]
+        for body, n in bodies.items():
+            by_body[body] += n
+    return flash, ssd, by_body
+
+
+def phase_examples() -> dict:
+    """The six examples (``repro_torch.examples``) through their ``run``
+    functions at the reference's defaults, ``fused_adam=True`` for the FL
+    ones: the quickstart on the sequential, vmap and shard_map engines (the
+    last over a one-rank NCCL group made here, which the engine's client
+    mesh joins), a nested plan, int8 compression and a streamed population
+    of 10**6; fedpart_language (FedAvg and FedProx), fedpart_ablations (6
+    runs), fedpart_async (3 variants, two cohorts in flight on one slot);
+    fedpart_mesh_training (TinyLlama smoke) and the xLSTM-125m FedPart round
+    at full width; serve_llm on the ten assigned architectures.  Masked-Adam
+    launches equal the client-steps / bucket-steps each time.  Returns the
+    launches by path."""
+    quick = _examples_quickstart()
+    seq, cohort = _examples_fl()
+    _examples_mesh_training()
+    flash, ssd, ssd_bodies = _examples_serve_llm()
+    return {"examples_seq": quick["sequential"] + seq,
+            "examples_vmap": quick["vmap"] + cohort,
+            "examples_shard": quick["shard_map"], "flash": flash, "ssd": ssd,
+            "ssd_bodies": ssd_bodies}
+
+
 def _timed(phase, *args):
     """``phase(*args)``, logging its host seconds."""
     t0 = time.perf_counter()
@@ -3882,13 +4233,23 @@ def main() -> int:
     sim_seq_n, sim_vmap_n = _timed(phase_fedtrain_sim)
     _timed(phase_train_cli)
     _timed(phase_dlg)
+    claims_n = _timed(phase_claims)
+    examples = _timed(phase_examples)
     log(f"[time] all phases {time.perf_counter() - t_start:.1f} s")
+    flash["launches_by_path"]["serve_llm"] = examples["flash"]
+    flash["launches"] = sum(flash["launches_by_path"].values())
+    ssd["launches_by_path"]["serve_llm"] = examples["ssd"]
+    ssd["launches_by_body"]["serve_llm"] = examples["ssd_bodies"]
+    ssd["launches"] = sum(ssd["launches_by_path"].values())
     adam["launches_by_path"] = {"fedpart": fedpart_n, "nlp": nlp_seq_n,
-                                "fedtrain_sim": sim_seq_n}
+                                "fedtrain_sim": sim_seq_n, "claims": claims_n,
+                                "examples_seq": examples["examples_seq"]}
     cohort["launches_by_path"] = {"fedpart_vmap": fedpart_vmap_n,
                                   "fedpart_shard": fedpart_shard_n, "nlp": nlp_vmap_n,
                                   "compress": compress_n, "async": async_n,
-                                  "fedtrain_sim": sim_vmap_n}
+                                  "fedtrain_sim": sim_vmap_n,
+                                  "examples_vmap": examples["examples_vmap"],
+                                  "examples_shard": examples["examples_shard"]}
     for k in (adam, cohort):
         k["launches"] = sum(k["launches_by_path"].values())
     print(json.dumps({"kernels": [adam, cohort, flash, ssd]}))

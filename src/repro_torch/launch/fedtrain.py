@@ -187,7 +187,7 @@ def build_simulation(args):
     cycles = max(1, -(-args.rounds // (10 * args.rl)))   # just enough rounds
     sched = FedPartSchedule(num_groups=10, warmup_rounds=args.warmup,
                             rounds_per_layer=args.rl, cycles=cycles)
-    rank, local_rank = _launcher_ranks()
+    rank, local_rank = launcher_ranks()
     device, spill = args.device, args.state_store_spill
     if device == "cuda" and local_rank is not None:
         device = f"cuda:{local_rank}"
@@ -234,7 +234,7 @@ def build_simulation(args):
     return adapter, clients, eval_set, sched.rounds()[: args.rounds], cfg
 
 
-def _launcher_ranks() -> tuple[int, int | None]:
+def launcher_ranks() -> tuple[int, int | None]:
     """(``RANK``, ``LOCAL_RANK``) as ``torchrun`` sets them; (0, None)
     without a launcher."""
     local = os.environ.get("LOCAL_RANK")
@@ -248,7 +248,7 @@ def run_simulation(args):
 
     adapter, clients, eval_set, rounds, cfg = build_simulation(args)
     n_clients = args.population if args.population > 0 else args.sim_clients
-    lead = _launcher_ranks()[0] == 0        # only rank 0 prints
+    lead = launcher_ranks()[0] == 0        # only rank 0 prints
     t0 = time.time()
     res = run_federated(adapter, clients, eval_set, rounds, cfg, verbose=lead)
     if not lead:

@@ -69,6 +69,9 @@ def chunked_decay_attention(
     The causal mask is a select where the reference multiplies by it: the
     two agree wherever the reference is finite, and above the diagonal
     ``exp(cum_i − cum_j)`` can overflow, which the multiply turns into NaN.
+    The select is made on the exponent (−inf above the diagonal), so the
+    backward never meets the overflow either: a select on ``exp``'s output
+    would pass its zero gradient through ``exp``'s inf as NaN.
     """
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
@@ -98,10 +101,11 @@ def chunked_decay_attention(
 
     # Intra-chunk: scores[i,j] = (q_i·k_j)·exp(cum_i − cum_j), causal i>=j.
     qk = torch.einsum("bcqhn,bcthn->bcqth", qc, kc)
-    decay = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])  # (b,c,q,t,h)
     ar = torch.arange(chunk, device=q.device)
     causal = (ar[:, None] >= ar[None, :])[None, None, :, :, None]
-    w = torch.where(causal, qk.float() * decay, 0.0)
+    decay = torch.exp((cum[:, :, :, None, :] - cum[:, :, None, :, :])
+                      .masked_fill(~causal, -math.inf))        # (b,c,q,t,h)
+    w = qk.float() * decay
     y_intra = torch.einsum("bcqth,bcthp->bcqhp", w.to(v.dtype), vc)
 
     # Per-chunk state contribution: S_c = Σ_t exp(total − cum_t)·k_t ⊗ v_t

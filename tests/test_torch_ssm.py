@@ -144,6 +144,29 @@ def test_chunked_form_stays_finite_where_the_reference_overflows():
     torch.testing.assert_close(st, st_ref, rtol=REF_TOL, atol=REF_TOL)
 
 
+def test_chunked_form_gradients_stay_finite_where_exp_overflows():
+    """The same overflowing input, differentiated: a select on exp's output
+    passes its zero gradient through exp's inf as NaN (what xLSTM-125m's
+    FedPart step at full width met: its loss NaN from the second step).
+    The port selects on the exponent; its gradients are finite and agree
+    with the sequential recurrence's, each within ``REF_TOL`` of its
+    largest |gradient| (16-80 here: both sum 128 steps in f32, in other
+    orders)."""
+    b, h, s, n, p, chunk = 1, 2, 128, 16, 16, 128
+    q, k, v, _ = _inputs((b, h, s, n, p, chunk), seed=6)
+    la = np.full((b, s, h), -1.0, np.float32)
+    grads = {}
+    for name, fn in (("chunked", lambda *a: ssm.chunked_decay_attention(*a, chunk)),
+                     ("ref", ops.ssd_reference)):
+        xs = [x.requires_grad_() for x in _torch((q, k, v, la))]
+        y, st = fn(*xs)
+        (y.square().sum() + st.square().sum()).backward()
+        grads[name] = [x.grad for x in xs]
+    for g, g_ref in zip(grads["chunked"], grads["ref"]):
+        assert bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g, g_ref, rtol=REF_TOL,
+                                   atol=REF_TOL * float(g_ref.abs().max()))
+
 
 # ---------------------------------------------------------------------------
 # Mamba2 block
