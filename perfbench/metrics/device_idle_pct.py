@@ -1,0 +1,8 @@
+"""The share of the traced window in which no device activity ran:
+100 × (1 − the union of kernel, copy and set intervals ÷ the window)."""
+
+
+def read(run):
+    if run.trace is None or run.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)
