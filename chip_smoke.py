@@ -2225,8 +2225,9 @@ def phase_async() -> int:
 def _profile_fl_round(cfg, tag: str, setup=None) -> None:
     """One warm FNU round of ``cfg`` under ``torch.profiler`` on ``setup``
     (``(adapter, clients, eval_set)``; default ResNet-8 on ``_vision_setup``):
-    wall, device busy share, launches, the top kernels and the masked-Adam
-    kernels."""
+    wall, launches, the top kernels and the masked-Adam kernels.  The
+    device's busy and idle share is the benchmark's (``perfbench``, the
+    union of device intervals), not a sum of kernel times."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.schedule import FNUSchedule
     from repro_torch.fl import resnet_task, run_federated
@@ -2252,10 +2253,8 @@ def _profile_fl_round(cfg, tag: str, setup=None) -> None:
         log(f"[{tag}] the profiler recorded no device time: not measured")
         return
     log(f"[{tag}] one FNU round, {len(clients)} clients ({cfg.engine} engine): wall "
-        f"{wall_us / 1e3:.3f} ms (under the profiler), device busy {dev_us / 1e3:.3f} ms "
-        f"({100 * dev_us / wall_us:.1f}%; {100 * dev_us / plain_us:.1f}% of the same "
-        f"round's {plain_us / 1e3:.3f} ms without the profiler, its warm-up), "
-        f"{sum(e.count for e in kernels)} kernel launches")
+        f"{wall_us / 1e3:.3f} ms (under the profiler; {plain_us / 1e3:.3f} ms without "
+        f"it, its warm-up), {sum(e.count for e in kernels)} kernel launches")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"[{tag}]   {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x "
             f"{e.key[:100]}")
@@ -2263,7 +2262,7 @@ def _profile_fl_round(cfg, tag: str, setup=None) -> None:
         if "masked_adam" in e.key:
             log(f"[{tag}] {e.key[:40]} on the main path: {e.count} launches, "
                 f"{e.self_device_time_total / e.count:.3f} us device time each, "
-                f"{100 * e.self_device_time_total / dev_us:.2f}% of device busy")
+                f"{100 * e.self_device_time_total / dev_us:.2f}% of the kernels' time")
 
 
 def _log_kernel_table(tag: str, events, what: str, wall_us: float, n: int = 1,

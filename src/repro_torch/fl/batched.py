@@ -49,6 +49,11 @@ slot's device, where ``MaskedAdamCohort`` binds its kernel.
 The reference's ``jit`` buffer donation has no counterpart: the port
 updates its packed buffers in place and never writes the global params, so
 there is nothing to donate.
+
+Profiler ranges (``torch.profiler.record_function``): ``fl.client``'s
+``FL_BATCHES`` around each bucket's batches (closed before the bucket is
+yielded), and ``FL_AGGREGATE`` around each engine's transmit, aggregation
+and splice into the global params.
 """
 
 from __future__ import annotations
@@ -61,13 +66,14 @@ from typing import ClassVar, Sequence
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 from repro_torch.core import aggregation, compress, masking
 from repro_torch.core.partition import Partition
 from repro_torch.core.schedule import RoundSpec, round_base_mask
 from repro_torch.data.pipeline import ClientDataset, bucket_plans
 from repro_torch.fl.algorithms import AlgoConfig
-from repro_torch.fl.client import FUSED_BLOCK_ROWS, LocalTrainer
+from repro_torch.fl.client import FL_BATCHES, FUSED_BLOCK_ROWS, LocalTrainer
 from repro_torch.fl.population import ClientStateStore
 from repro_torch.kernels.masked_adam import ops as madam_ops
 from repro_torch.launch.mesh import (CLIENT_AXIS, RankPool, SubmeshPool,  # noqa: F401
@@ -77,6 +83,9 @@ from repro_torch.tree import (PyTree, tree_from_paths, tree_leaves, tree_map,
                               tree_map_with_path, tree_paths)
 
 ENGINES = ("sequential", "vmap", "shard_map")
+
+# profiler label of a round's aggregation
+FL_AGGREGATE = "fl.aggregate"     # transmit, FedAvg, the splice into the global params
 
 
 def resolve_plan(plan, spec: RoundSpec, num_groups: int):
@@ -203,23 +212,25 @@ class SequentialEngine(_CompressionState):
                 new_locals.append(local)     # MOON keeps the TRUE local model
             send = local
             if self.compression is not None:
-                send = self._transmit(
-                    params, local, [ids[i]],
-                    groups=(groups_i if plan is not None
-                            else None if spec.is_full else (spec.group,)))
+                with record_function(FL_AGGREGATE):
+                    send = self._transmit(
+                        params, local, [ids[i]],
+                        groups=(groups_i if plan is not None
+                                else None if spec.is_full else (spec.group,)))
             if plan is not None:
                 uploads.append(masking.select(send, self.partition, groups_i))
             elif spec.is_full:
                 uploads.append(send)
             else:
                 uploads.append(masking.select(send, self.partition, spec.group))
-        if plan is not None:
-            new_params = aggregation.aggregate_plan(params, uploads, self.partition,
-                                                    plan, weights)
-        elif spec.is_full:
-            new_params = aggregation.aggregate_full(params, uploads, weights)
-        else:
-            new_params = aggregation.aggregate_partial(params, uploads, weights)
+        with record_function(FL_AGGREGATE):
+            if plan is not None:
+                new_params = aggregation.aggregate_plan(params, uploads, self.partition,
+                                                        plan, weights)
+            elif spec.is_full:
+                new_params = aggregation.aggregate_full(params, uploads, weights)
+            else:
+                new_params = aggregation.aggregate_partial(params, uploads, weights)
         return new_params, losses, new_locals
 
     def run_local(
@@ -325,8 +336,8 @@ class _BatchedEngineBase(_CompressionState):
         client) or ``None``."""
         device = tree_leaves(params)[0].device
         rank, ranks = shard
-        for members, plans, valid in bucket_plans(datasets, batch_size, epochs,
-                                                  seeds, pad_clients_to=pad_clients_to):
+
+        def gather(members, plans, valid):
             per = len(plans) // ranks
             rows = range(rank * per, (rank + 1) * per)
             src = [members[r] if r < len(members) else members[0] for r in rows]
@@ -342,8 +353,20 @@ class _BatchedEngineBase(_CompressionState):
                     prev_params[m] if r < len(members) and prev_params is not None
                     and prev_params[m] is not None else params
                     for m, r in zip(src, rows)])
-            yield (members, torch.stack(xs), torch.stack(ys),
-                   valid[rows.start:rows.stop], prev_arg)
+            return (members, torch.stack(xs), torch.stack(ys),
+                    valid[rows.start:rows.stop], prev_arg)
+
+        # a range never stays open across a yield; the first bucket's range
+        # also holds every bucket's batch plans
+        with record_function(FL_BATCHES):
+            buckets = bucket_plans(datasets, batch_size, epochs, seeds,
+                                   pad_clients_to=pad_clients_to)
+            batches = gather(*buckets[0]) if buckets else None
+        for i in range(len(buckets)):
+            if i:
+                with record_function(FL_BATCHES):
+                    batches = gather(*buckets[i])
+            yield batches
 
     def _cohort_parts(self, params: PyTree, spec: RoundSpec,
                       datasets: Sequence[ClientDataset], *, seeds: Sequence[int],
@@ -489,19 +512,20 @@ class VmapEngine(_BatchedEngineBase):
         stacked, losses_dev = self.run_local_async(
             params, spec, datasets, seeds=seeds, epochs=epochs,
             batch_size=batch_size, prev_params=prev_params, plan=plan)
-        agg_in = stacked                 # MOON keeps the TRUE locals below
-        if self.compression is not None:
-            agg_in = self._transmit(
-                params, stacked, ids, plan=plan, stacked=True,
-                groups=None if plan is not None or spec.is_full else (spec.group,))
-        if plan is not None:
-            new_params = aggregation.aggregate_plan_stacked(
-                params, agg_in, self.partition, plan, weights)
-        elif spec.is_full:
-            new_params = aggregation.aggregate_full_stacked(params, agg_in, weights)
-        else:
-            new_params = aggregation.aggregate_partial_stacked(
-                params, agg_in, self.partition, spec.group, weights)
+        with record_function(FL_AGGREGATE):
+            agg_in = stacked             # MOON keeps the TRUE locals below
+            if self.compression is not None:
+                agg_in = self._transmit(
+                    params, stacked, ids, plan=plan, stacked=True,
+                    groups=None if plan is not None or spec.is_full else (spec.group,))
+            if plan is not None:
+                new_params = aggregation.aggregate_plan_stacked(
+                    params, agg_in, self.partition, plan, weights)
+            elif spec.is_full:
+                new_params = aggregation.aggregate_full_stacked(params, agg_in, weights)
+            else:
+                new_params = aggregation.aggregate_partial_stacked(
+                    params, agg_in, self.partition, spec.group, weights)
         # MOON keeps each TRUE local model: a copy, so no client's entry holds
         # the whole bucket's buffer alive
         new_locals = ([tree_map(torch.clone, t) for t in masking.unstack_tree(stacked, num)]
@@ -746,35 +770,38 @@ class ShardMapEngine(_BatchedEngineBase):
             real = [members[r] for r in rows if r < len(members)]
             wb = np.zeros((len(rows),) + w_cohort.shape[1:], dtype=np.float32)
             wb[:len(real)] = w_cohort[real]
-            send = stacked                   # MOON keeps the TRUE locals
-            if cfg is not None:
-                res = masking.stack_trees(
-                    [self._residual_for(ids[m], params) for m in real]
-                    + [compress.init_residual(params)] * (len(rows) - len(real)))
-                if plan is None:
-                    send, new_res = compress.transmit_tree(
-                        params, stacked, res, cfg, partition=self.partition,
-                        groups=None if spec.is_full else (spec.group,), stacked=True)
-                else:
-                    gm = np.zeros((len(rows), plan.shape[1]), dtype=bool)
-                    gm[:len(real)] = plan[real]
-                    send, new_res = compress.transmit_tree_plan(
-                        params, stacked, res, gm, cfg, partition=self.partition,
-                        stacked=True)
-                new_res = self._all_gather_tree(new_res, rec)
-                for i, m in enumerate(members):
-                    self.state_store.put("ef", ids[m],
-                                         tree_map(lambda x, i=i: x[i].clone(), new_res))
-            update = self._epilogue(params, send, spec.group, plan,
-                                    torch.as_tensor(wb, device=dev), packed_form)
-            updates.append(self._all_reduce(update, rec) if packed_form
-                           else self._all_reduce_tree(update, rec))
+            with record_function(FL_AGGREGATE):
+                send = stacked               # MOON keeps the TRUE locals
+                if cfg is not None:
+                    res = masking.stack_trees(
+                        [self._residual_for(ids[m], params) for m in real]
+                        + [compress.init_residual(params)] * (len(rows) - len(real)))
+                    if plan is None:
+                        send, new_res = compress.transmit_tree(
+                            params, stacked, res, cfg, partition=self.partition,
+                            groups=None if spec.is_full else (spec.group,), stacked=True)
+                    else:
+                        gm = np.zeros((len(rows), plan.shape[1]), dtype=bool)
+                        gm[:len(real)] = plan[real]
+                        send, new_res = compress.transmit_tree_plan(
+                            params, stacked, res, gm, cfg, partition=self.partition,
+                            stacked=True)
+                    new_res = self._all_gather_tree(new_res, rec)
+                    for i, m in enumerate(members):
+                        self.state_store.put("ef", ids[m],
+                                             tree_map(lambda x, i=i: x[i].clone(), new_res))
+                update = self._epilogue(params, send, spec.group, plan,
+                                        torch.as_tensor(wb, device=dev), packed_form)
+                updates.append(self._all_reduce(update, rec) if packed_form
+                               else self._all_reduce_tree(update, rec))
             n = len(members)
             gathered = self._all_gather_tree(stacked, rec) if use_prev else {}
             parts.append((members, tree_map(lambda x: x[:n], gathered),
                           self._all_gather(losses, rec)[:n]))
-        summed = sum(updates) if packed_form else tree_map(lambda *xs: sum(xs), *updates)
-        new_params = self._splice(params, summed, spec.group, trained, packed_form)
+        with record_function(FL_AGGREGATE):
+            summed = (sum(updates) if packed_form
+                      else tree_map(lambda *xs: sum(xs), *updates))
+            new_params = self._splice(params, summed, spec.group, trained, packed_form)
         locals_, losses = self._gather_order(parts, len(datasets))
         new_locals = ([tree_map(torch.clone, t)
                        for t in masking.unstack_tree(locals_, len(datasets))]

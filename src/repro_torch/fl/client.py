@@ -31,6 +31,12 @@ and with ``fused=True`` the parameters live in one packed ``(clients, rows,
 cohort masked-Adam launch (``MaskedAdamCohort``) per step updates every
 client in place.  The launch sits outside the ``vmap``: a ctypes call
 cannot be batched.
+
+Profiler ranges (``torch.profiler.record_function``; with no profiler on,
+each costs only its enter and exit): ``FL_BATCHES`` around a local round's
+batch plan and the copy of its data to the device, ``FL_LOCAL_STEP`` around
+each local step, and inside it ``FL_GRAD`` around the gradient and
+``FL_OPTIMIZER`` around the update (``optim.partial``'s labels).
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from repro_torch.core import aggregation, masking
 from repro_torch.core.partition import Partition
@@ -50,12 +57,17 @@ from repro_torch.fl.tasks import TaskAdapter
 from repro_torch.kernels.masked_adam import MaskedAdamCohort
 from repro_torch.kernels.masked_adam import ops as madam_ops
 from repro_torch.optim.adam import AdamConfig, AdamState, adam_init, adam_update
-from repro_torch.optim.partial import (PackedTree, fused_adam, fused_masked_step,
-                                       guard_fused_config, value_and_grad)
+from repro_torch.optim.partial import (FL_GRAD, FL_OPTIMIZER, PackedTree, fused_adam,
+                                       fused_masked_step, guard_fused_config,
+                                       value_and_grad)
 from repro_torch.tree import (PyTree, tree_from_paths, tree_leaves, tree_map,
                               tree_map_with_path, tree_paths)
 
 FUSED_BLOCK_ROWS = 8     # kernel block granularity the fused step packs to
+
+# profiler labels of a local round
+FL_BATCHES = "fl.batches"         # batch plans, the clients' data to the device, the stack
+FL_LOCAL_STEP = "fl.local_step"   # one local step: gradient, update, BN-moment splice
 
 
 @dataclasses.dataclass
@@ -90,11 +102,13 @@ class LocalTrainer:
     def full_step(self, params, opt_state, inputs, labels, global_params,
                   prev_params):
         """FNU step: returns (new_params, new_state, loss)."""
-        (loss, stats), grads = value_and_grad(
-            lambda p: self._total_loss(p, inputs, labels, global_params,
-                                       prev_params),
-            params, has_aux=True)
-        new_params, new_state = adam_update(grads, opt_state, params, self.adam)
+        with record_function(FL_GRAD):
+            (loss, stats), grads = value_and_grad(
+                lambda p: self._total_loss(p, inputs, labels, global_params,
+                                           prev_params),
+                params, has_aux=True)
+        with record_function(FL_OPTIMIZER):
+            new_params, new_state = adam_update(grads, opt_state, params, self.adam)
         if stats is not None:
             new_params = masking.tree_update(new_params, stats)
         return new_params, new_state, loss
@@ -105,11 +119,13 @@ class LocalTrainer:
         gradient and Adam over its subtree."""
         trainable = masking.select(params, self.partition, group)
         frozen = masking.complement(params, self.partition, group)
-        (loss, stats), grads = value_and_grad(
-            lambda sub: self._total_loss(masking.merge(sub, frozen), inputs,
-                                         labels, global_params, prev_params),
-            trainable, has_aux=True)
-        new_sub, new_state = adam_update(grads, opt_state, trainable, self.adam)
+        with record_function(FL_GRAD):
+            (loss, stats), grads = value_and_grad(
+                lambda sub: self._total_loss(masking.merge(sub, frozen), inputs,
+                                             labels, global_params, prev_params),
+                trainable, has_aux=True)
+        with record_function(FL_OPTIMIZER):
+            new_sub, new_state = adam_update(grads, opt_state, trainable, self.adam)
         new_params = masking.merge(new_sub, frozen)
         if stats is not None:
             new_params = masking.tree_update(new_params, stats)
@@ -169,10 +185,11 @@ class LocalTrainer:
             if len(sel) == self.partition.num_groups:
                 sel = -1
         device = tree_leaves(global_params)[0].device
-        plan = torch.as_tensor(batch_plan(len(data), batch_size, epochs, seed),
-                               device=device)
-        inputs = torch.as_tensor(data.inputs, device=device)
-        labels = torch.as_tensor(np.asarray(data.labels, np.int64), device=device)
+        with record_function(FL_BATCHES):
+            plan = torch.as_tensor(batch_plan(len(data), batch_size, epochs, seed),
+                                   device=device)
+            inputs = torch.as_tensor(data.inputs, device=device)
+            labels = torch.as_tensor(np.asarray(data.labels, np.int64), device=device)
         losses = []
         if fused:
             packed = PackedTree.from_tree(global_params, FUSED_BLOCK_ROWS)
@@ -184,17 +201,18 @@ class LocalTrainer:
                               block_rows=FUSED_BLOCK_ROWS)
             params = packed.detached()
             for i, idx in enumerate(plan):
-                x, y = inputs[idx], labels[idx]
-                # the step writes the views in place: keep a copy to measure
-                before = (tree_map(torch.clone, params) if step_tracker is not None
-                          else None)
-                loss, stats = fused_masked_step(
-                    lambda p: self._total_loss(p, x, y, global_params, prev),
-                    packed, adam, i)
-                masking.tree_update_(params, stats)
-                losses.append(loss)
-                if step_tracker is not None:
-                    step_tracker.record(before, params)
+                with record_function(FL_LOCAL_STEP):
+                    x, y = inputs[idx], labels[idx]
+                    # the step writes the views in place: keep a copy to measure
+                    before = (tree_map(torch.clone, params) if step_tracker is not None
+                              else None)
+                    loss, stats = fused_masked_step(
+                        lambda p: self._total_loss(p, x, y, global_params, prev),
+                        packed, adam, i)
+                    masking.tree_update_(params, stats)
+                    losses.append(loss)
+                    if step_tracker is not None:
+                        step_tracker.record(before, params)
         else:
             if sel == -1:
                 opt_state = adam_init(global_params)
@@ -205,13 +223,14 @@ class LocalTrainer:
                 step = partial(self.partial_step, sel)
             params = global_params
             for idx in plan:
-                before = params
-                params, opt_state, loss = step(
-                    params, opt_state, inputs[idx], labels[idx], global_params,
-                    prev)
-                losses.append(loss)
-                if step_tracker is not None:
-                    step_tracker.record(before, params)
+                with record_function(FL_LOCAL_STEP):
+                    before = params
+                    params, opt_state, loss = step(
+                        params, opt_state, inputs[idx], labels[idx], global_params,
+                        prev)
+                    losses.append(loss)
+                    if step_tracker is not None:
+                        step_tracker.record(before, params)
         return params, float(torch.stack(losses).mean()) if losses else 0.0
 
     # -- cohort local round (the vmap engine's) ------------------------------
@@ -281,10 +300,13 @@ class LocalTrainer:
                     has_aux=True),
                 in_dims=(0, 0, 0, prev_dim))
             for t in range(steps):
-                g, (loss, stats) = grad_fn(packed, inputs[:, t], labels[:, t], prev)
-                adam.step(t, g.contiguous())
-                _splice_stats_(params, stats, keep_cols[t], bool(all_valid[t]))
-                losses.append(loss)
+                with record_function(FL_LOCAL_STEP):
+                    with record_function(FL_GRAD):
+                        g, (loss, stats) = grad_fn(packed, inputs[:, t], labels[:, t], prev)
+                    with record_function(FL_OPTIMIZER):
+                        adam.step(t, g.contiguous())
+                    _splice_stats_(params, stats, keep_cols[t], bool(all_valid[t]))
+                    losses.append(loss)
         else:
             params, losses = self._cohort_unfused(
                 global_params, inputs, labels, keep_cols, gm, group,
@@ -323,28 +345,33 @@ class LocalTrainer:
                                       in_dims=(0, 0, 0, prev_dim))
         losses = []
         for t in range(steps):
-            x, y, keep = inputs[:, t], labels[:, t], keep_cols[t]
-            if pruned:
-                sub = masking.select(params, self.partition, group)
-                frozen = masking.complement(params, self.partition, group)
-                g, (loss, stats) = grad_fn(sub, frozen, x, y, prev)
-                new_sub, new_opt = adam_update(g, opt, sub, self.adam)
-                new_params = masking.merge(new_sub, frozen)
-            else:
-                g, (loss, stats) = grad_fn(params, x, y, prev)
-                new_params, new_opt = adam_update(g, opt, params, self.adam)
-            if stats:
-                new_params = masking.tree_update(new_params, stats)
+            with record_function(FL_LOCAL_STEP):
+                x, y, keep = inputs[:, t], labels[:, t], keep_cols[t]
+                if pruned:
+                    sub = masking.select(params, self.partition, group)
+                    frozen = masking.complement(params, self.partition, group)
+                    with record_function(FL_GRAD):
+                        g, (loss, stats) = grad_fn(sub, frozen, x, y, prev)
+                    with record_function(FL_OPTIMIZER):
+                        new_sub, new_opt = adam_update(g, opt, sub, self.adam)
+                    new_params = masking.merge(new_sub, frozen)
+                else:
+                    with record_function(FL_GRAD):
+                        g, (loss, stats) = grad_fn(params, x, y, prev)
+                    with record_function(FL_OPTIMIZER):
+                        new_params, new_opt = adam_update(g, opt, params, self.adam)
+                if stats:
+                    new_params = masking.tree_update(new_params, stats)
 
-            def pick(n, o, bit=None):
-                k = keep if bit is None else keep & bit
-                return torch.where(k.view(-1, *([1] * (n.dim() - 1))), n, o)
+                def pick(n, o, bit=None):
+                    k = keep if bit is None else keep & bit
+                    return torch.where(k.view(-1, *([1] * (n.dim() - 1))), n, o)
 
-            params = (tree_map(pick, new_params, params) if bits is None
-                      else tree_map(pick, new_params, params, bits))
-            opt = AdamState(new_opt.step, tree_map(pick, new_opt.m, opt.m),
-                            tree_map(pick, new_opt.v, opt.v))
-            losses.append(loss)
+                params = (tree_map(pick, new_params, params) if bits is None
+                          else tree_map(pick, new_params, params, bits))
+                opt = AdamState(new_opt.step, tree_map(pick, new_opt.m, opt.m),
+                                tree_map(pick, new_opt.v, opt.v))
+                losses.append(loss)
         return params, losses
 
 

@@ -35,6 +35,12 @@ calling ``run_federated`` with the same config (``torchrun``; without a
 launcher the mesh is this one process).  Every rank returns the same
 result.  The reference's ``donate_buffers`` has no field: there is
 nothing to donate.
+
+Each synchronous round runs inside a profiler range
+(``torch.profiler.record_function``) ``FL_ROUND``, its eval inside
+``FL_EVAL``; the engines label the phases in between (``fl.batched``,
+``fl.client``).  A round is a barrier, so a phase belongs to the round
+whose range holds it.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from typing import Sequence
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from repro_torch.core import compress
 from repro_torch.core.costs import VirtualTimeModel, comm_cost, comp_cost
@@ -65,6 +72,10 @@ from repro_torch.optim.adam import AdamConfig
 from repro_torch.tree import PyTree, tree_map
 
 RUNTIMES = ("sync", "async")
+
+# profiler labels of the synchronous round loop
+FL_ROUND = "fl.round"   # a whole round: cohort draw to its history entry
+FL_EVAL = "fl.eval"     # the global model's eval and the read-back of its accuracy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -235,34 +246,36 @@ def run_federated(
     population = as_population(clients_data)
     n_clients = population.num_clients
     for spec in rounds:
-        t0 = time.perf_counter()
-        n_pick = resolve_cohort_size(n_clients, run_cfg.sample_fraction,
-                                     run_cfg.cohort_size)
-        picked = sample_without_replacement(rng, n_clients, n_pick)
-        if tracker is not None:
-            tracker.mark_round_boundary()
-        datasets = [population.dataset(ci) for ci in picked]
-        seeds = [client_round_seed(run_cfg.seed, spec.index, ci) for ci in picked]
-        weights = [len(d) for d in datasets]
-        prevs = ([state_store.get("moon", int(ci)) for ci in picked]
-                 if is_moon else None)
+        with record_function(FL_ROUND):
+            t0 = time.perf_counter()
+            n_pick = resolve_cohort_size(n_clients, run_cfg.sample_fraction,
+                                         run_cfg.cohort_size)
+            picked = sample_without_replacement(rng, n_clients, n_pick)
+            if tracker is not None:
+                tracker.mark_round_boundary()
+            datasets = [population.dataset(ci) for ci in picked]
+            seeds = [client_round_seed(run_cfg.seed, spec.index, ci) for ci in picked]
+            weights = [len(d) for d in datasets]
+            prevs = ([state_store.get("moon", int(ci)) for ci in picked]
+                     if is_moon else None)
 
-        params, losses, new_locals = engine.run_round(
-            params, spec, datasets, seeds=seeds, weights=weights,
-            epochs=run_cfg.local_epochs, batch_size=run_cfg.batch_size,
-            prev_params=prevs, tracker=tracker,
-            plan=assigner.assign(spec, [int(ci) for ci in picked]),
-            client_ids=[int(ci) for ci in picked])
-        if new_locals is not None:
-            for ci, local in zip(picked, new_locals):
-                state_store.put("moon", int(ci), local)
+            params, losses, new_locals = engine.run_round(
+                params, spec, datasets, seeds=seeds, weights=weights,
+                epochs=run_cfg.local_epochs, batch_size=run_cfg.batch_size,
+                prev_params=prevs, tracker=tracker,
+                plan=assigner.assign(spec, [int(ci) for ci in picked]),
+                client_ids=[int(ci) for ci in picked])
+            if new_locals is not None:
+                for ci, local in zip(picked, new_locals):
+                    state_store.put("moon", int(ci), local)
 
-        entry = {"round": spec.index, "phase": spec.phase, "group": spec.group,
-                 "loss": float(np.mean(losses))}
-        if spec.index % run_cfg.eval_every == 0 or spec.index == len(rounds) - 1:
-            entry["acc"] = float(adapter.evaluate(params, eval_x, eval_y))
-        entry["seconds"] = time.perf_counter() - t0
-        history.append(entry)
+            entry = {"round": spec.index, "phase": spec.phase, "group": spec.group,
+                     "loss": float(np.mean(losses))}
+            if spec.index % run_cfg.eval_every == 0 or spec.index == len(rounds) - 1:
+                with record_function(FL_EVAL):
+                    entry["acc"] = float(adapter.evaluate(params, eval_x, eval_y))
+            entry["seconds"] = time.perf_counter() - t0
+            history.append(entry)
         if verbose:
             print(f"round {spec.index:3d} [{spec.phase}:{spec.group:3d}] "
                   f"loss={entry['loss']:.4f} acc={entry.get('acc', float('nan')):.4f}")

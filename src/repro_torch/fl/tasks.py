@@ -17,14 +17,13 @@ has no BN: ``None``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Callable
 
 import torch
 
 from repro_torch.configs import ModelConfig, get_config
 from repro_torch.core.partition import Partition, build_partition
 from repro_torch.models import nlp_small, resnet
-from repro_torch.models.layers import mlp_flops
 from repro_torch.tree import PyTree
 
 
@@ -37,19 +36,6 @@ class TaskAdapter:
     features: Callable[[PyTree, torch.Tensor], torch.Tensor]
     evaluate: Callable[[PyTree, torch.Tensor, torch.Tensor], torch.Tensor]
     partition: Callable[[PyTree], Partition]
-    flops_per_sample: float = 0.0
-
-
-def _conv_flops(spec: dict[str, Any], image_size: int = 32) -> float:
-    """Rough per-sample forward matmul FLOPs for the cost model."""
-    total, hw, cin = 0.0, image_size * image_size, 3
-    for stage, (n_blocks, cout) in enumerate(zip(spec["stages"], spec["channels"])):
-        for b in range(n_blocks):
-            if stage > 0 and b == 0:
-                hw /= 4
-            total += 2 * 9 * cin * cout * hw + 2 * 9 * cout * cout * hw
-            cin = cout
-    return total
 
 
 _RESNET_SPECS = {
@@ -87,7 +73,6 @@ def resnet_task(depth: str = "resnet8", num_classes: int = 20) -> TaskAdapter:
         features=resnet.resnet_features,
         evaluate=evaluate,
         partition=make_partition,
-        flops_per_sample=_conv_flops(spec),
     )
 
 
@@ -113,10 +98,6 @@ def nlp_task(num_classes: int = 4, cfg: ModelConfig | None = None,
     def make_partition(params):
         return build_partition(params, nlp_small.nlp_group_key)
 
-    flops = cfg.num_layers * (
-        2 * 4 * cfg.d_model * cfg.d_model + mlp_flops(cfg.mlp_kind, cfg.d_model, cfg.d_ff)
-    ) * cfg.max_position_embeddings
-
     return TaskAdapter(
         name="nlp-transformer",
         init=init,
@@ -124,5 +105,4 @@ def nlp_task(num_classes: int = 4, cfg: ModelConfig | None = None,
         features=features,
         evaluate=evaluate,
         partition=make_partition,
-        flops_per_sample=float(flops),
     )

@@ -15,6 +15,10 @@ Three realisations of the paper's Eq. 1, equal up to rounding:
   one-client cohort launch (``fused_adam``, validated once per local round)
   updates parameters and packed m / v in place: nothing is packed or
   unpacked per step.
+
+``fused_masked_step`` opens the local step's two profiler ranges
+(``torch.profiler.record_function``), ``FL_GRAD`` and ``FL_OPTIMIZER``,
+which ``fl.client`` opens around the same work of its other step forms.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from repro_torch.core import masking
 from repro_torch.core.partition import Partition
@@ -31,6 +36,10 @@ from repro_torch.kernels.masked_adam import ops as madam_ops
 from repro_torch.kernels.masked_adam.kernel import MaskedAdamCohort
 from repro_torch.optim.adam import AdamConfig, AdamState, adam_init, adam_update
 from repro_torch.tree import PyTree, tree_from_paths, tree_map, tree_paths
+
+# profiler labels of a local step's two halves
+FL_GRAD = "fl.grad"             # forward and backward: the step's gradient
+FL_OPTIMIZER = "fl.optimizer"   # the optimizer's update of the step's parameters
 
 
 def value_and_grad(loss_fn: Callable[[PyTree], Any], params: PyTree,
@@ -130,11 +139,12 @@ def fused_masked_step(
     local step ``t`` of ``adam`` on ``packed`` and its packed m / v; frozen
     blocks are left untouched.  ``loss_fn`` returns ``(loss, aux)``;
     returns ``(loss, aux)``."""
-    packed.grad.zero_()
-    with torch.enable_grad():
+    with record_function(FL_GRAD), torch.enable_grad():
+        packed.grad.zero_()
         loss, aux = loss_fn(packed.tree)
         loss.backward()
-    adam.step(t, packed.grad[None])
+    with record_function(FL_OPTIMIZER):
+        adam.step(t, packed.grad[None])
     return loss.detach(), aux
 
 

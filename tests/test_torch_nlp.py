@@ -5,8 +5,7 @@ against the JAX package's, on the same bridged parameters and tokens.
   field for field;
 * logits, loss, gradients and MOON's pooled features on the reference's
   smoke parameters within 1e-5 (f32; the two differ by reassociation);
-* the layer-group partition (keys and per-leaf ids) and ``flops_per_sample``
-  exactly;
+* the layer-group partition (keys and per-leaf ids) exactly;
 * at full width, shapes only (no forward pass): 10,902,020 parameters in
   54 leaves, 85,312 packed rows at 8-row blocks, 6 groups, and the leaf
   order ``blocks < embed < head``;
@@ -101,9 +100,6 @@ def test_partition_and_flops_match_reference(smoke):
     assert dict(tpart.assignment) == dict(jpart.assignment)
     assert tpart.group_keys == (("embed",), ("block", "blocks", 0),
                                 ("block", "blocks", 1), ("head",))
-    assert smoke["adapter"].flops_per_sample == smoke["jadapter"].flops_per_sample
-    assert nlp_task(num_classes=4).flops_per_sample == \
-        j_nlp_task(num_classes=4).flops_per_sample == 1_610_612_736
 
 
 def test_full_width_layout_matches_reference():
