@@ -30,13 +30,20 @@ and with ``fused=True`` the parameters live in one packed ``(clients, rows,
 ``(rows, 128)`` slice, so it arrives in the kernel's layout — and one
 cohort masked-Adam launch (``MaskedAdamCohort``) per step updates every
 client in place.  The launch sits outside the ``vmap``: a ctypes call
-cannot be batched.
+cannot be batched.  On a homogeneous partial round (a group, no per-client
+plan) the gradient is taken with respect to the group's leaves alone, as
+views of the packed buffer, and written into the trained rows of a packed
+gradient buffer whose other rows the kernel never reads: autograd builds
+no frozen layer's weight gradient and no backward below the lowest
+trained layer.
 
 Profiler ranges (``torch.profiler.record_function``; with no profiler on,
 each costs only its enter and exit): ``FL_BATCHES`` around a local round's
 batch plan and the copy of its data to the device, ``FL_LOCAL_STEP`` around
 each local step, and inside it ``FL_GRAD`` around the gradient and
-``FL_OPTIMIZER`` around the update (``optim.partial``'s labels).
+``FL_OPTIMIZER`` around the update (``optim.partial``'s labels); inside
+``FL_GRAD``, ``FL_GRAD_PRUNED`` where the fused cohort step takes the
+group's gradient alone.
 """
 
 from __future__ import annotations
@@ -57,9 +64,9 @@ from repro_torch.fl.tasks import TaskAdapter
 from repro_torch.kernels.masked_adam import MaskedAdamCohort
 from repro_torch.kernels.masked_adam import ops as madam_ops
 from repro_torch.optim.adam import AdamConfig, AdamState, adam_init, adam_update
-from repro_torch.optim.partial import (FL_GRAD, FL_OPTIMIZER, PackedTree, fused_adam,
-                                       fused_masked_step, guard_fused_config,
-                                       value_and_grad)
+from repro_torch.optim.partial import (FL_GRAD, FL_GRAD_PRUNED, FL_OPTIMIZER, PackedTree,
+                                       fused_adam, fused_masked_step,
+                                       guard_fused_config, value_and_grad)
 from repro_torch.tree import (PyTree, tree_from_paths, tree_leaves, tree_map,
                               tree_map_with_path, tree_paths)
 
@@ -252,7 +259,9 @@ class LocalTrainer:
 
         A padded step (``step_valid`` 0) computes but leaves the client's
         parameters, optimizer state, BN moments and loss as they were — the
-        reference's pad-and-mask ``where(keep, ...)``.  With ``plan_rows`` a
+        reference's pad-and-mask ``where(keep, ...)``.  Fused, a partial
+        round without ``plan_rows`` differentiates the group's leaves alone
+        (the pruned form of ``_cohort_unfused``).  With ``plan_rows`` a
         client trains its own group set: the fused path reads it as the
         cohort kernel's group mask; the unfused path runs the FNU-shaped
         step and keeps a leaf's update only where the client's bit for its
@@ -294,15 +303,35 @@ class LocalTrainer:
                                        self.adam.eps),
                 b1=self.adam.b1, b2=self.adam.b2, block_rows=FUSED_BLOCK_ROWS)
             params = madam_ops.unpack_stacked(packed, meta)           # views
-            grad_fn = torch.func.vmap(
-                torch.func.grad_and_value(
-                    lambda fl, x, y, pv: f(_unpack_flat(fl, meta), x, y, pv),
-                    has_aux=True),
-                in_dims=(0, 0, 0, prev_dim))
+            pruned = plan_rows is None and group >= 0
+            if pruned:
+                # the group's leaves, differentiated as views of ``packed``;
+                # the frozen rest reaches the loss undifferentiated, so
+                # autograd builds no frozen weight gradient and no backward
+                # below the lowest trained layer.  The gradients land in
+                # ``g``'s trained rows; its other rows stay zero, unread.
+                sub = masking.select(params, self.partition, group)
+                frozen = masking.complement(params, self.partition, group)
+                g = torch.zeros_like(packed)
+                g_sub = tree_leaves(masking.select(madam_ops.unpack_stacked(g, meta),
+                                                   self.partition, group))
+                grad_fn = _pruned_grad(f, prev_dim)
+            else:
+                grad_fn = torch.func.vmap(
+                    torch.func.grad_and_value(
+                        lambda fl, x, y, pv: f(_unpack_flat(fl, meta), x, y, pv),
+                        has_aux=True),
+                    in_dims=(0, 0, 0, prev_dim))
             for t in range(steps):
                 with record_function(FL_LOCAL_STEP):
                     with record_function(FL_GRAD):
-                        g, (loss, stats) = grad_fn(packed, inputs[:, t], labels[:, t], prev)
+                        if pruned:
+                            with record_function(FL_GRAD_PRUNED):
+                                gs, (loss, stats) = grad_fn(
+                                    sub, frozen, inputs[:, t], labels[:, t], prev)
+                                torch._foreach_copy_(g_sub, tree_leaves(gs))
+                        else:
+                            g, (loss, stats) = grad_fn(packed, inputs[:, t], labels[:, t], prev)
                     with record_function(FL_OPTIMIZER):
                         adam.step(t, g.contiguous())
                     _splice_stats_(params, stats, keep_cols[t], bool(all_valid[t]))
@@ -335,11 +364,7 @@ class LocalTrainer:
                               else gm_dev[:, self.partition.group_of(p)]),
                 global_params)
         if pruned:
-            grad_fn = torch.func.vmap(
-                torch.func.grad_and_value(
-                    lambda sub, fr, x, y, pv: f(masking.merge(sub, fr), x, y, pv),
-                    has_aux=True),
-                in_dims=(0, 0, 0, 0, prev_dim))
+            grad_fn = _pruned_grad(f, prev_dim)
         else:
             grad_fn = torch.func.vmap(torch.func.grad_and_value(f, has_aux=True),
                                       in_dims=(0, 0, 0, prev_dim))
@@ -385,6 +410,17 @@ def _unpack_flat(flat: torch.Tensor, meta: madam_ops.PackMeta) -> PyTree:
     return tree_from_paths(
         (path, piece[:n].reshape(shape))
         for path, piece, n, shape in zip(meta.paths, pieces, meta.sizes, meta.shapes))
+
+
+def _pruned_grad(f, prev_dim):
+    """The vmapped ``grad_and_value`` of a client's ``f`` with respect to a
+    pruned subtree ``sub`` alone; the frozen rest ``fr`` reaches the loss
+    undifferentiated, so autograd builds no gradient for it."""
+    return torch.func.vmap(
+        torch.func.grad_and_value(
+            lambda sub, fr, x, y, pv: f(masking.merge(sub, fr), x, y, pv),
+            has_aux=True),
+        in_dims=(0, 0, 0, 0, prev_dim))
 
 
 @torch.no_grad()

@@ -18,7 +18,9 @@ Three realisations of the paper's Eq. 1, equal up to rounding:
 
 ``fused_masked_step`` opens the local step's two profiler ranges
 (``torch.profiler.record_function``), ``FL_GRAD`` and ``FL_OPTIMIZER``,
-which ``fl.client`` opens around the same work of its other step forms.
+which ``fl.client`` opens around the same work of its other step forms;
+``fl.client``'s fused cohort step opens ``FL_GRAD_PRUNED`` inside
+``FL_GRAD`` where it differentiates the round's group alone.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from repro_torch.tree import PyTree, tree_from_paths, tree_map, tree_paths
 
 # profiler labels of a local step's two halves
 FL_GRAD = "fl.grad"             # forward and backward: the step's gradient
+FL_GRAD_PRUNED = "fl.grad.pruned"   # inside FL_GRAD: a gradient over the trained group only
 FL_OPTIMIZER = "fl.optimizer"   # the optimizer's update of the step's parameters
 
 
