@@ -1,7 +1,12 @@
 """Model configuration dataclass + registry (port of ``repro.configs.base``).
 
 ``ModelConfig`` is the reference's dataclass field for field, so a config
-built on either side describes the same model.  The registry holds every
+built on either side describes the same model.  ``PortModelConfig`` adds
+the port's own fields (YaRN, the gate's renormalisation,
+DeepSeek-V2's dropless layer with its sequence-wise balance loss, the
+experts held), whose
+defaults leave every other architecture as the reference has it; the
+layers read them through ``port_field``.  The registry holds every
 architecture the reference registers, full and smoke: the dense decoders
 ``tinyllama-1.1b``, ``llama3.2-1b``, ``gemma-2b`` and ``glm4-9b``, the MoE
 decoders ``llama4-maverick-400b-a17b`` and ``deepseek-v3-671b`` (MLA, MTP
@@ -9,7 +14,9 @@ head), the VLM ``llava-next-34b`` (a decoder behind stub media
 embeddings), the encoder-decoder ``whisper-small``, ``zamba2-7b`` (Mamba2
 hybrid), ``xlstm-125m`` (mLSTM / sLSTM pairs), ``nlp-transformer`` (the
 paper's text classifier, ``models/nlp_small.py``) and the ResNet
-placeholder records.
+placeholder records; besides them, the port's own ``deepseek-v2-lite``
+(MLA with YaRN, dropless MoE with shared experts; ``PORT_ONLY_ARCHS``),
+which the reference does not register.
 """
 
 from __future__ import annotations
@@ -109,9 +116,55 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
+@dataclasses.dataclass(frozen=True)
+class PortModelConfig(ModelConfig):
+    """``ModelConfig`` with the port's own fields, for the architectures the
+    reference does not register (``PORT_ONLY_ARCHS``); their defaults are
+    the behaviour of every reference architecture."""
+
+    # YaRN frequencies for MLA's rope part (0 = plain RoPE; DeepSeek-V2's
+    # ``rope_scaling``): factor, the original context, the ramp's two ends in
+    # rotations, and ``mscale_all_dim`` (MLA's softmax scale times m², m =
+    # 0.1·mscale_all_dim·ln(factor) + 1; cos and sin stay unscaled, as
+    # ``mscale`` = ``mscale_all_dim`` makes them)
+    yarn_factor: float = 0.0
+    yarn_original_max_positions: int = 4096
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale_all_dim: float = 0.0
+    norm_topk_prob: bool = True      # renormalise the top-k gate values to sum 1
+    # DeepSeek-V2's MoE layer: dropless routing (every entry computed, grouped
+    # products over the entries sorted by expert) and the sequence-wise
+    # balance loss
+    moe_dropless: bool = False
+    # the experts this device holds, ``first_expert .. first_expert +
+    # experts_held - 1`` of ``num_experts`` (0: all): the router scores all
+    # of them; the layer computes its own experts' part of the result
+    experts_held: int = 0
+    first_expert: int = 0
+
+
+_DEFAULTS = {f.name: f.default for f in dataclasses.fields(PortModelConfig)}
+
+
+def port_field(cfg, name: str):
+    """Field ``name`` of ``cfg``, or its default where ``cfg`` lacks it: the
+    port's layers also take the reference's own ``ModelConfig``, which has
+    none of the port's fields."""
+    return getattr(cfg, name, _DEFAULTS[name])
+
+
+def experts_held(cfg) -> int:
+    """The experts this device holds (``experts_held``, 0: all of them)."""
+    return port_field(cfg, "experts_held") or cfg.num_experts
+
+
 # ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------
+
+# registered by the port and not by the reference
+PORT_ONLY_ARCHS = ("deepseek-v2-lite",)
 
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
 _SMOKE: dict[str, Callable[[], ModelConfig]] = {}
@@ -143,8 +196,8 @@ def _ensure_loaded() -> None:
     if _LOADED:
         return
     from repro_torch.configs import (  # noqa: F401  (register)
-        deepseek_v3_671b, gemma_2b, glm4_9b, llama3_2_1b, llama4_maverick_400b_a17b,
-        llava_next_34b, nlp_transformer, resnet, tinyllama_1_1b, whisper_small,
-        xlstm_125m, zamba2_7b)
+        deepseek_v2_lite, deepseek_v3_671b, gemma_2b, glm4_9b, llama3_2_1b,
+        llama4_maverick_400b_a17b, llava_next_34b, nlp_transformer, resnet,
+        tinyllama_1_1b, whisper_small, xlstm_125m, zamba2_7b)
 
     _LOADED = True

@@ -501,9 +501,10 @@ class VmapEngine(_BatchedEngineBase):
         tracker=None,
         plan=None,
         client_ids: Sequence[int] | None = None,
-    ) -> tuple[PyTree, list[float], list[PyTree] | None]:
+    ) -> tuple[PyTree, torch.Tensor, list[PyTree] | None]:
         """``run_local_async`` plus one stacked aggregation on the device;
-        the losses are read back here, once per round."""
+        the (clients,) losses stay on the device (``run_federated`` reads a
+        call's rounds back at once)."""
         self._guard_round(weights, tracker)
         plan = resolve_plan(plan, spec, self.partition.num_groups)
         ids = self._require_client_ids(client_ids, len(datasets))
@@ -530,7 +531,7 @@ class VmapEngine(_BatchedEngineBase):
         # the whole bucket's buffer alive
         new_locals = ([tree_map(torch.clone, t) for t in masking.unstack_tree(stacked, num)]
                       if use_prev else None)
-        return new_params, losses_dev.tolist(), new_locals
+        return new_params, losses_dev, new_locals
 
 
 def _transmitted_rows(params: PyTree, partition: Partition, groups,

@@ -75,7 +75,7 @@ RUNTIMES = ("sync", "async")
 
 # profiler labels of the synchronous round loop
 FL_ROUND = "fl.round"   # a whole round: cohort draw to its history entry
-FL_EVAL = "fl.eval"     # the global model's eval and the read-back of its accuracy
+FL_EVAL = "fl.eval"     # the global model's eval (its accuracy stays on the device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,6 +191,25 @@ class FLResult:
         return accs[-1] if accs else float("nan")
 
 
+def _to_host(t):
+    """A round's device numbers start their copy to the host without
+    waiting for the card (a copy, no kernel); ``_read_back`` waits once."""
+    return t.detach().to("cpu", non_blocking=True) if isinstance(t, torch.Tensor) else t
+
+
+def _read_back(history: list[dict]) -> None:
+    """The entries' losses (their clients' mean) and accuracies as floats,
+    after one wait for the card: the rounds queue on the device without
+    the host reading each round's numbers."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    for h in history:
+        h["loss"] = float(np.mean(h["loss"].tolist() if isinstance(h["loss"], torch.Tensor)
+                                  else h["loss"]))
+        if "acc" in h:
+            h["acc"] = float(h["acc"])
+
+
 def run_federated(
     adapter: TaskAdapter,
     clients_data: Sequence | ClientPopulation,
@@ -205,7 +224,10 @@ def run_federated(
     arrays, e.g. the reference's initial parameters bridged over numpy) is
     copied to the run's device; without it the adapter draws its initial
     parameters from a ``torch.Generator`` seeded with ``run_cfg.seed``.
-    Each history entry also records the round's host ``seconds``."""
+    Each history entry also records the round's host ``seconds``: the
+    host's time to queue the round: the losses and accuracies are copied to
+    the host as the card reaches them, and read after one wait once the
+    rounds are queued."""
     if run_cfg.runtime == "async":
         from repro_torch.fl.runtime.engine import run_federated_async
         return run_federated_async(adapter, clients_data, eval_set, rounds, run_cfg,
@@ -270,15 +292,18 @@ def run_federated(
                     state_store.put("moon", int(ci), local)
 
             entry = {"round": spec.index, "phase": spec.phase, "group": spec.group,
-                     "loss": float(np.mean(losses))}
+                     "loss": _to_host(losses)}
             if spec.index % run_cfg.eval_every == 0 or spec.index == len(rounds) - 1:
                 with record_function(FL_EVAL):
-                    entry["acc"] = float(adapter.evaluate(params, eval_x, eval_y))
+                    entry["acc"] = _to_host(adapter.evaluate(params, eval_x, eval_y))
             entry["seconds"] = time.perf_counter() - t0
             history.append(entry)
         if verbose:
+            _read_back(history[-1:])
             print(f"round {spec.index:3d} [{spec.phase}:{spec.group:3d}] "
                   f"loss={entry['loss']:.4f} acc={entry.get('acc', float('nan')):.4f}")
+
+    _read_back(history)
 
     # Cost bookkeeping (per client, per the paper's Comm./Comp. metrics).
     group_weights = group_param_counts(params, partition).astype(np.float64)

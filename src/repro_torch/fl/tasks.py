@@ -1,6 +1,7 @@
 """Task adapters: bind a model family to the interface the FL engine
 consumes (port of ``repro.fl.tasks``: the ResNet vision task and the nlp
-transformer text classifier, the paper's two tasks).
+transformer text classifier, the paper's two tasks; and the port's own
+causal-LM task, ``lm_task``, which the reference does not have).
 
     adapter.init(gen)                              -> params (CPU tensors)
     adapter.loss_and_stats(params, inputs, labels) -> (task loss, BN stats or None)
@@ -23,7 +24,7 @@ import torch
 
 from repro_torch.configs import ModelConfig, get_config
 from repro_torch.core.partition import Partition, build_partition
-from repro_torch.models import nlp_small, resnet
+from repro_torch.models import causal_lm, nlp_small, resnet
 from repro_torch.tree import PyTree
 
 
@@ -105,4 +106,35 @@ def nlp_task(num_classes: int = 4, cfg: ModelConfig | None = None,
         features=features,
         evaluate=evaluate,
         partition=make_partition,
+    )
+
+
+def lm_task(cfg: ModelConfig) -> TaskAdapter:
+    """Federated next-token training of the decoder ``cfg``
+    (``models.causal_lm``) on ``(B, S)`` token inputs and ``(B, S)``
+    next-token labels: the loss is cross-entropy plus the MoE layers'
+    balance losses, the eval next-token accuracy, the groups the embedding,
+    each layer, then the final norm with the head.  No BN: ``None`` stats;
+    no pooled features (MOON is not defined for it)."""
+
+    def init(gen):
+        return causal_lm.lm_init(gen, cfg)
+
+    def loss_and_stats(params, tokens, labels):
+        return causal_lm.lm_loss(params, cfg, tokens, labels), None
+
+    def features(params, tokens):
+        raise ValueError("lm_task has no pooled features (MOON needs them)")
+
+    def evaluate(params, tokens, labels):
+        with torch.no_grad():
+            return causal_lm.lm_accuracy(params, cfg, tokens, labels)
+
+    return TaskAdapter(
+        name=cfg.name,
+        init=init,
+        loss_and_stats=loss_and_stats,
+        features=features,
+        evaluate=evaluate,
+        partition=build_partition,
     )

@@ -32,7 +32,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("masked_adam", "flash_attention", "ssd_chunk")
+KERNELS = ("masked_adam", "flash_attention", "ssd_chunk", "grouped_mm")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

@@ -32,7 +32,10 @@ ignored, as the reference's ``mla_full`` ignores it), and its q·k width
 kernel refuses.  The scores are masked in place (``masked_fill_``) where
 the reference's ``where`` makes a copy: at DeepSeek-V3's full width one
 (1, 128, 4,096, 4,096) f32 copy is 8.6 GB.  They run under the profiler
-label ``MLA_SCORES``.
+label ``MLA_SCORES``, inside ``MLA`` around a whole-sequence block (and
+``MLA`` again around the scores' backward, ``_MLAAttend``).  Under a
+``yarn_factor`` (DeepSeek-V2) the rope part's frequencies are YaRN's and
+the softmax scale is multiplied by m² (``layers.yarn_mscale``).
 
 The plain paths' scores and probabilities pass through
 ``act_sharding.constrain_scores`` where the reference's do (a layout for a
@@ -53,15 +56,17 @@ import torch
 from torch.distributed.tensor import DTensor
 from torch.profiler import record_function
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, port_field
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import act_sharding, sharded_heads
 from repro_torch.models.layers import (apply_rope, linear, linear_init, rmsnorm,
-                                       rmsnorm_init, rope_angles)
+                                       rmsnorm_init, rope_angles, yarn_mscale)
 from repro_torch.tree import PyTree
 
 NEG_INF = -1e30
 IMPLS = ("kernel", "plain")
+MLA = "mla"                 # profiler label: a whole-sequence MLA block (projections,
+                            # RoPE, scores, output)
 MLA_SCORES = "mla_scores"   # profiler label: MLA's scores, mask, softmax and P·V
 
 
@@ -235,24 +240,80 @@ def _mla_scores_and_out(params, cfg, q, c_kv, k_rope, mask):
 
 def _mla_core(cfg, q, k_nope, v, k_rope, mask):
     """MLA's scores, mask, softmax and P·V: q (B,S,H,qk), k_nope (B,T,H,nope),
-    v (B,T,H,vd), k_rope (B,T,rope) -> (B,S,H,vd)."""
-    nope, rope_d = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-    q_nope, q_rope = q[..., :nope], q[..., nope:]
-    scale = 1.0 / math.sqrt(nope + rope_d)
+    v (B,T,H,vd), k_rope (B,T,rope) -> (B,S,H,vd), through ``_MLAAttend``
+    (which keeps no (B,H,S,T) tensor for a backward)."""
+    scale = 1.0 / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+    if port_field(cfg, "yarn_factor"):
+        scale *= yarn_mscale(cfg.yarn_factor, cfg.yarn_mscale_all_dim) ** 2
     with record_function(MLA_SCORES):
-        logits = (torch.einsum("bshd,bthd->bhst", q_nope, k_nope)
-                  + torch.einsum("bshd,btd->bhst", q_rope, k_rope)).float()
-        # in place from here (neither op's backward reads its output): at full
-        # width each copy of the f32 scores would be B x 8.6 GB at S = T = 4,096
-        logits.mul_(scale)
-        logits = act_sharding.constrain_scores(logits)
-        if mask is not None:
-            m = mask if mask.dim() == 3 else mask[None]
-            logits.masked_fill_(~m[:, None, :, :], NEG_INF)
-        probs = torch.softmax(logits, dim=-1)
-        del logits
-        probs = act_sharding.constrain_scores(probs.to(q.dtype))
+        return _MLAAttend.apply(q, k_nope, k_rope, v, mask, scale)
+
+
+def _mask4(mask: torch.Tensor) -> torch.Tensor:
+    """A (B,S,T) or (S,T) mask as (B or 1, 1, S, T)."""
+    return (mask if mask.dim() == 3 else mask[None])[:, None, :, :]
+
+
+def _mla_probs(q, k_nope, k_rope, mask, scale):
+    """f32 softmax of the masked scaled scores: q (B,S,H,nope+rope), k_nope
+    (B,T,H,nope), k_rope (B,T,rope) shared by the heads -> (B,H,S,T)."""
+    nope = k_nope.shape[-1]
+    logits = (torch.einsum("bshd,bthd->bhst", q[..., :nope], k_nope)
+              + torch.einsum("bshd,btd->bhst", q[..., nope:], k_rope)).float()
+    # in place from here (neither op's backward reads its output): at full
+    # width each copy of the f32 scores would be B x 8.6 GB at S = T = 4,096
+    logits.mul_(scale)
+    logits = act_sharding.constrain_scores(logits)
+    if mask is not None:
+        logits.masked_fill_(~_mask4(mask), NEG_INF)
+    return torch.softmax(logits, dim=-1)
+
+
+class _MLAAttend(torch.autograd.Function):
+    """``softmax(q·kᵀ·scale)·v`` (masked), with k the heads' ``k_nope``
+    beside the shared ``k_rope``, that keeps q, k and v for its backward and
+    recomputes the probabilities there: a training step's memory then holds
+    no (B, H, S, T) tensor per layer, at the cost of one more q·kᵀ product in
+    the backward.  The gradients are the softmax's, ``dS = P ⊙ (dP −
+    rowsum(dP ⊙ P)) · scale``, with ``rowsum(dP ⊙ P)`` read as ``dO · O`` row
+    by row (the output is kept too), so the backward holds two (B, H, S, T)
+    tensors, P and dP.  Plain PyTorch ops, so ``torch.func`` vmaps both
+    passes (``generate_vmap_rule``).  The backward runs under the ``MLA``
+    label, as the forward's block does."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(q, k_nope, k_rope, v, mask, scale):
+        probs = act_sharding.constrain_scores(
+            _mla_probs(q, k_nope, k_rope, mask, scale).to(q.dtype))
         return torch.einsum("bhst,bthd->bshd", probs, v)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k_nope, k_rope, v, mask, scale = inputs
+        ctx.save_for_backward(q, k_nope, k_rope, v, mask, output)
+        ctx.scale = scale
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k_nope, k_rope, v, mask, out = ctx.saved_tensors
+        nope = k_nope.shape[-1]
+        with record_function(MLA):
+            probs = _mla_probs(q, k_nope, k_rope, mask, ctx.scale)
+            p = act_sharding.constrain_scores(probs.to(q.dtype))
+            dv = torch.einsum("bhst,bshd->bthd", p, dout)
+            del p
+            rows = torch.einsum("bshd,bshd->bhs", dout.float(), out.float())[..., None]
+            ds = torch.einsum("bshd,bthd->bhst", dout, v).float()
+            ds = ds.sub_(rows).mul_(probs).mul_(ctx.scale)
+            del probs
+            ds = ds.to(q.dtype)
+            dq = torch.cat([torch.einsum("bhst,bthd->bshd", ds, k_nope),
+                            torch.einsum("bhst,btd->bshd", ds, k_rope)], dim=-1)
+            dk_nope = torch.einsum("bhst,bshd->bthd", ds, q[..., :nope])
+            dk_rope = torch.einsum("bhst,bshd->btd", ds, q[..., nope:])
+        return dq, dk_nope, dk_rope, dv, None, None
 
 
 def _mla_latents(params, cfg, x, positions):
@@ -261,7 +322,9 @@ def _mla_latents(params, cfg, x, positions):
     q = _mla_q(params, cfg, x)
     ckr = linear(params["wkv_a"], x)
     c_kv, k_rope_raw = ckr[..., : cfg.kv_lora_rank], ckr[..., cfg.kv_lora_rank:]
-    cos, sin = rope_angles(positions, cfg.qk_rope_head_dim, cfg.rope_theta)
+    yarn = ((cfg.yarn_factor, cfg.yarn_original_max_positions, cfg.yarn_beta_fast,
+             cfg.yarn_beta_slow) if port_field(cfg, "yarn_factor") else None)
+    cos, sin = rope_angles(positions, cfg.qk_rope_head_dim, cfg.rope_theta, yarn)
     nope = cfg.qk_nope_head_dim
     q = torch.cat([q[..., :nope], apply_rope(q[..., nope:], cos, sin)], dim=-1)
     k_rope = apply_rope(k_rope_raw[..., None, :], cos, sin)[..., 0, :]
@@ -281,9 +344,10 @@ def mla_full(
     sequence.  ``impl`` is checked and otherwise ignored (no kernel)."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-    q, c_kv, k_rope = _mla_latents(params, cfg, x, positions)
-    mask = causal_mask(x.shape[1], window, x.device)
-    y = _mla_scores_and_out(params, cfg, q, c_kv, k_rope, mask)
+    with record_function(MLA):
+        q, c_kv, k_rope = _mla_latents(params, cfg, x, positions)
+        mask = causal_mask(x.shape[1], window, x.device)
+        y = _mla_scores_and_out(params, cfg, q, c_kv, k_rope, mask)
     return y, (c_kv, k_rope)
 
 

@@ -299,12 +299,46 @@ def mlp_flops(kind: str, d_model: int, d_ff: int) -> int:
 # RoPE
 # ---------------------------------------------------------------------------
 
-def rope_angles(positions: torch.Tensor, head_dim: int,
-                theta: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """cos/sin tables for ``positions`` — shapes (..., head_dim // 2)."""
+def yarn_ramp(head_dim: int, theta: float, original_max: int, beta_fast: float,
+              beta_slow: float, device=None) -> torch.Tensor:
+    """YaRN's share ``γ_i`` of the plain (extrapolated) frequency for each
+    of the ``head_dim // 2`` pairs: 1 below the dimension at which a
+    frequency turns ``beta_fast`` times over the original context, 0 above
+    the one at which it turns ``beta_slow`` times, linear between (the
+    published ``yarn_find_correction_range`` and ``yarn_linear_ramp_mask``)."""
+    def dim_at(rotations: float) -> float:
+        return (head_dim * math.log(original_max / (rotations * 2 * math.pi))
+                / (2 * math.log(theta)))
+
+    low = max(math.floor(dim_at(beta_fast)), 0)
+    high = min(math.ceil(dim_at(beta_slow)), head_dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = (torch.arange(head_dim // 2, dtype=torch.float32, device=device) - low) / (high - low)
+    return 1.0 - ramp.clamp(0.0, 1.0)
+
+
+def yarn_mscale(factor: float, mscale_all_dim: float) -> float:
+    """YaRN's attention temperature ``m = 0.1·mscale·ln(factor) + 1``."""
+    return 0.1 * mscale_all_dim * math.log(factor) + 1.0 if factor > 1 else 1.0
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float,
+                yarn: tuple[float, int, float, float] | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables for ``positions`` — shapes (..., head_dim // 2).
+    ``yarn`` = (factor, original context, beta_fast, beta_slow) blends each
+    pair's frequency ``f_i = θ^(−2i/head_dim)`` with ``f_i / factor``:
+    ``γ_i f_i + (1 − γ_i) f_i / factor`` (``yarn_ramp``)."""
     half = head_dim // 2
     exps = torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
     freqs = 1.0 / (theta ** exps)
+    if yarn is not None:
+        factor, original_max, beta_fast, beta_slow = yarn
+        # made on the device: a copy from the host would wait for the card
+        gamma = yarn_ramp(head_dim, theta, original_max, beta_fast, beta_slow,
+                          positions.device)
+        freqs = freqs / factor * (1.0 - gamma) + freqs * gamma
     ang = positions.float()[..., None] * freqs  # (..., half)
     return torch.cos(ang), torch.sin(ang)
 

@@ -24,6 +24,14 @@ Where the port differs from the reference in form, not in value:
   1) and a second token routed to a busy expert is dropped, as in the
   reference.
 
+``moe_dropless`` (DeepSeek-V2) takes ``moe_apply_dropless`` instead: no
+capacity and no dropped entry, the sequence-wise balance loss, the layer
+told which experts it holds (``experts_held``, ``first_expert``), the
+expert products grouped products over the entries sorted by expert
+(``kernels.grouped_mm``), with the group bounds on the device, so it runs
+under ``torch.func.vmap`` (the vmap engine's cohort step) without a
+read-back.
+
 Each part runs under a profiler label (``PROFILE_LABELS``: the router,
 the dispatch's sort / counts / scatter with the aux loss, the expert
 products, the combine and the shared expert), so a profile can split an MoE layer's device time.
@@ -46,14 +54,17 @@ from torch.distributed.tensor import DTensor, Replicate
 from torch.distributed.tensor.experimental import local_map
 from torch.profiler import record_function
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, experts_held, port_field
+from repro_torch.kernels.grouped_mm import grouped_swiglu
 from repro_torch.models.layers import _lead, linear_init, mlp_apply, mlp_init, normal_init
 from repro_torch.tree import PyTree
 
 # profiler labels of an MoE layer's parts, in the order they run
 MOE_ROUTE = "moe_route"           # router GEMM, scores, top-k
 MOE_DISPATCH = "moe_dispatch"     # argsort, counts, aux loss, ranks, scatter into (E, C, d)
-MOE_EXPERTS = "moe_experts"       # the three batched expert GEMMs and SwiGLU
+                                  # (dropless: sort by expert, group ends)
+MOE_EXPERTS = "moe_experts"       # the three batched expert GEMMs and SwiGLU (dropless: the
+                                  # gather and grouped products, forward and backward)
 MOE_COMBINE = "moe_combine"       # gather, gate weighting, sum over k
 MOE_SHARED = "moe_shared"         # the shared expert's MLP
 PROFILE_LABELS = (MOE_ROUTE, MOE_DISPATCH, MOE_EXPERTS, MOE_COMBINE, MOE_SHARED)
@@ -64,11 +75,12 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype, device,
     """The reference's leaves and shapes (``router/w (d, E)``,
     ``experts/{w_gate,w_up} (E, d, F)``, ``experts/w_down (E, F, d)``,
     ``shared`` an MLP of ``moe_d_ff × num_shared_experts``), or ``n`` of
-    them stacked on a leading axis."""
-    e, d, f = cfg.num_experts, cfg.d_model, cfg.moe_d_ff
+    them stacked on a leading axis.  With ``experts_held`` the experts'
+    leading axis holds only those (the router keeps all E)."""
+    e, d, f = experts_held(cfg), cfg.d_model, cfg.moe_d_ff
     lead = _lead(n)
     p: PyTree = {
-        "router": linear_init(gen, d, e, dtype, device, n=n),
+        "router": linear_init(gen, d, cfg.num_experts, dtype, device, n=n),
         "experts": {
             # drawn one expert at a time (``normal_init``): a whole f32 draw of
             # Llama-4's (128, 5,120, 8,192) would be 21.5 GB beside its 10.7 GB
@@ -98,17 +110,21 @@ def _top_k(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
 def route(params: PyTree, cfg: ModelConfig,
           xf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The router on flat tokens ``xf`` (T, d): returns the f32 logits
-    (T, E), the renormalised top-k gate values (T, k) f32 and the chosen
-    experts (T, k).  Logits are computed in the activation dtype, then cast
-    to f32, as the reference's."""
+    (T, E), the top-k gate values (T, k) f32 and the chosen experts (T, k).
+    Logits are computed in the activation dtype, then cast to f32, as the
+    reference's.  The gate values are renormalised to sum 1 when
+    ``norm_topk_prob`` (the reference's rule)."""
     logits = (xf @ params["router"]["w"].to(xf.dtype)).float()
-    if cfg.router_score == "sigmoid":            # deepseek-v3
-        scores = torch.sigmoid(logits)
-    else:
-        scores = torch.softmax(logits, dim=-1)
-    gate_vals, expert_idx = _top_k(scores, cfg.num_experts_per_tok)
-    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+    gate_vals, expert_idx = _top_k(_scores(cfg, logits), cfg.num_experts_per_tok)
+    if port_field(cfg, "norm_topk_prob"):
+        gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
     return logits, gate_vals, expert_idx
+
+
+def _scores(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
+    if cfg.router_score == "sigmoid":            # deepseek-v3
+        return torch.sigmoid(logits)
+    return torch.softmax(logits, dim=-1)
 
 
 def dispatch(cfg: ModelConfig, logits: torch.Tensor, expert_idx: torch.Tensor,
@@ -186,6 +202,10 @@ def moe_apply(params: PyTree, cfg: ModelConfig,
     expert-parallel path (``moe_ep.moe_apply_ep``)."""
     from repro_torch.models import moe_ep
 
+    if port_field(cfg, "moe_dropless"):
+        return moe_apply_dropless(params, cfg, x)
+    if experts_held(cfg) != cfg.num_experts:
+        raise ValueError("experts_held takes the dropless layer (moe_dropless)")
     if moe_ep.ep_enabled():
         return moe_ep.moe_apply_ep(params, cfg, x)
     if isinstance(x, DTensor):
@@ -209,6 +229,69 @@ def moe_apply(params: PyTree, cfg: ModelConfig,
     with record_function(MOE_COMBINE):
         y = combine(expert_out, slots, gate_vals, k)
 
+    if cfg.num_shared_experts > 0:
+        with record_function(MOE_SHARED):
+            y = y + mlp_apply(params["shared"], cfg.mlp_kind, xf)
+    return y.reshape(b, s, d), aux_loss
+
+
+def seq_aux_loss(cfg: ModelConfig, scores: torch.Tensor,
+                 expert_idx: torch.Tensor) -> torch.Tensor:
+    """DeepSeek-V2's sequence-wise balance loss of a (B, S) batch: per
+    sequence, ``Σ_i f_i P_i`` with ``f_i`` the share of the sequence's S·k
+    choices that went to expert i, times E / k, and ``P_i`` the sequence's
+    mean score of expert i; averaged over the sequences, times
+    ``aux_loss_weight``.  ``scores`` (B, S, E) f32, ``expert_idx`` (B, S, k).
+    The counts are compared with every expert id, not one-hot encoded:
+    ``F.one_hot`` reads the ids' range back to the host."""
+    b, s, e = scores.shape
+    k = expert_idx.shape[-1]
+    chosen = expert_idx.reshape(b, s * k, 1) == torch.arange(e, device=scores.device)
+    frac = chosen.sum(dim=1).float() / (s * k / e)                      # (B, E)
+    return (frac * scores.mean(dim=1)).sum(dim=1).mean() * cfg.aux_loss_weight
+
+
+def moe_apply_dropless(params: PyTree, cfg: ModelConfig,
+                       x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """DeepSeek-V2's MoE layer: x: (B, S, d) -> (y, the sequence-wise balance
+    loss), every (token, choice) entry computed.
+
+    The router scores all ``num_experts`` experts and picks k; this layer
+    holds experts ``first_expert .. first_expert + experts_held - 1`` and
+    computes their part of the result, leaving out what the others would
+    add (a chip's share under expert parallelism, without the exchange).
+    Dispatch: the T·k entries are sorted by held expert (entries of other
+    experts last), so each held expert's entries are one run of rows; the
+    runs' ends stay on the device.  The expert products are grouped
+    products over those runs (``kernels.grouped_mm.grouped_swiglu``: one
+    launch a product for all the held experts, and under ``vmap`` for all
+    the clients; it keeps only its inputs for the backward), over buffers of
+    T·k rows, the most the held experts can get, so no size depends on the
+    routing.  Combine: each entry's output, weighted by its gate (0 for an
+    expert not held), summed over its token's k entries.  The shared
+    experts run on every token.  Nothing is read back to the host."""
+    b, s, d = x.shape
+    t, k = b * s, cfg.num_experts_per_tok
+    held = experts_held(cfg)
+    xf = x.reshape(t, d)
+    with record_function(MOE_ROUTE):
+        logits, gate_vals, expert_idx = route(params, cfg, xf)
+    with record_function(MOE_DISPATCH):
+        aux_loss = seq_aux_loss(cfg, _scores(cfg, logits).reshape(b, s, -1),
+                                expert_idx.reshape(b, s, k))
+        local = expert_idx.reshape(-1) - cfg.first_expert                  # (T*k,)
+        mine = (local >= 0) & (local < held)
+        group = torch.where(mine, local, held)
+        order = torch.argsort(group, stable=True)
+        counts = (group[:, None] == torch.arange(held, device=x.device)).sum(dim=0)
+        ends = torch.cumsum(counts, dim=0).to(torch.int32)
+    with record_function(MOE_EXPERTS):
+        ew = params["experts"]
+        expert_out = grouped_swiglu(xf, order, ends, *(ew[n].to(xf.dtype) for n in
+                                                        ("w_gate", "w_up", "w_down")), k)
+    with record_function(MOE_COMBINE):
+        gates = gate_vals * mine.reshape(t, k)
+        y = gate_sum(expert_out[torch.argsort(order)], gates, k)
     if cfg.num_shared_experts > 0:
         with record_function(MOE_SHARED):
             y = y + mlp_apply(params["shared"], cfg.mlp_kind, xf)
